@@ -37,6 +37,9 @@ def rng():
 def pytest_configure(config):
     """Build the native chunk codec if the toolchain is present, so the codec
     tests run instead of skipping (the .so is gitignored)."""
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (torch port kernels); skips elsewhere"
+    )
     import shutil
     import subprocess
 
