@@ -9,6 +9,9 @@ divided by sigma(t) in fp32.
 
 The public layout is NHWC, as in JAX. Inside, the NHWC input is viewed as
 NCHW once (a channels_last tensor, so no copy) and the result viewed back once.
+The decoder's conv3x3 -> GroupNorm chains run through K1
+(``ops/fused_conv_gn.py``): on the card its CUDA kernels, on the CPU their
+plain version.
 ``stem_impl``, ``fuse_upsample`` and ``fuse_head`` are accepted for
 ``ModelSpec`` parity: they are TPU lowerings of the same math, so every value
 computes the one unfused chain.
@@ -35,6 +38,7 @@ from sbgm_danra_tpu_torch.models.layers import (
     init_like_flax,
 )
 from sbgm_danra_tpu_torch.models.resnet import ResNetStage
+from sbgm_danra_tpu_torch.ops.fused_conv_gn import conv3x3_gn_relu
 from sbgm_danra_tpu_torch.ops.stem_conv import conv8x8s2
 from sbgm_danra_tpu_torch.ops.upsample import upsample2x_bilinear
 from sbgm_danra_tpu_torch.sde import VESDE
@@ -174,17 +178,28 @@ class DecoderBlock(nn.Module):
             if compute_attn else None
         )
 
+    def _conv_norm(self, x: torch.Tensor, conv: Conv2d, norm: Optional[GroupNorm]) -> torch.Tensor:
+        """NHWC ``x`` -> conv -> norm -> NCHW. A conv followed by a norm is one K1
+        call without activation: the same function as the two modules, with
+        their parameters."""
+        if norm is None:
+            return conv(_nchw(x))
+        c = conv.out_channels
+        gamma = norm.weight if norm.weight is not None else torch.ones(c, device=x.device)
+        beta = norm.bias if norm.bias is not None else torch.zeros(c, device=x.device)
+        out = conv3x3_gn_relu(x.to(conv.compute_dtype), conv.weight.permute(2, 3, 1, 0),
+                              conv.bias, gamma, beta, groups=norm.num_groups, activation=False)
+        return _nchw(out)
+
     def forward(self, fmap: torch.Tensor, skip: Optional[torch.Tensor] = None,
                 t: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.use_resize_conv:
-            x = self.conv_up(_nchw(upsample2x_bilinear(_nhwc(fmap))))
+            x = self._conv_norm(upsample2x_bilinear(_nhwc(fmap)), self.conv_up, self.norm1)
         else:
             x = self.transpose(fmap)
-        if self.norm1 is not None:
-            x = self.norm1(x)
-        x = self.conv(x)
-        if self.norm2 is not None:
-            x = self.norm2(x)
+            if self.norm1 is not None:
+                x = self.norm1(x)
+        x = self._conv_norm(_nhwc(x), self.conv, self.norm2)
         if skip is not None:
             if skip.shape != x.shape:
                 raise ValueError(f"skip shape {tuple(skip.shape)} must match {tuple(x.shape)}")

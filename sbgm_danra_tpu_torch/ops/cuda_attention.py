@@ -3,10 +3,9 @@
 Counterpart of ``sbgm_danra_tpu/ops/pallas_attention.py`` (the Pallas TPU
 kernel ``pallas_flash_attention``). The kernel source is
 ``sbgm_danra_tpu_torch/csrc/flash_attention.cu``; its header comment gives the
-design and what bounds it on the card. It is compiled with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C entry point, at first use, into
-``sbgm_danra_tpu_torch/_build/`` (listed in ``.gitignore``), and loaded with
-``ctypes``.
+design and what bounds it on the card. ``ops/_nvcc.py`` compiles it with
+``nvcc`` for ``sm_90a`` into a shared library with a plain C entry point, at
+first use, and loads it with ``ctypes``.
 
 - ``flash_attention_cuda``: the kernel's entry point. CUDA tensors only; it
   raises on anything else, and raises if the build or the launch fails.
@@ -23,91 +22,31 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
-from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-_PACKAGE_DIR = Path(__file__).resolve().parents[1]
-SOURCE = _PACKAGE_DIR / "csrc" / "flash_attention.cu"
-BUILD_DIR = _PACKAGE_DIR / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from sbgm_danra_tpu_torch.ops import _nvcc
+
+SOURCE = _nvcc.CSRC_DIR / "flash_attention.cu"
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
 
 
-def _find_nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
-            return os.path.join(root, "bin", "nvcc")
-    raise RuntimeError(
-        "nvcc not found (searched PATH, $CUDA_HOME/bin and /usr/local/cuda/bin): "
-        f"the CUDA flash-attention kernel is compiled from {SOURCE} at first use "
-        "and needs the CUDA toolkit"
-    )
-
-
 @functools.lru_cache(maxsize=1)
-def build_library() -> "BuiltLibrary":
+def build_library() -> _nvcc.BuiltLibrary:
     """Compile (once per source and flags) and load the kernel's library."""
-    nvcc = _find_nvcc()
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    path = BUILD_DIR / f"libsbgm_flash_attention_{digest[:16]}.so"
-    log = ""
-    t0 = time.perf_counter()
-    compiled = not path.exists()
-    if compiled:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                capture_output=True, text=True, timeout=600,
-            )
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{log}")
-            os.replace(tmp, path)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    lib = ctypes.CDLL(str(path))
-    lib.sbgm_flash_attention_fwd.argtypes = [
+    built = _nvcc.build(SOURCE, "sbgm_flash_attention")
+    built.lib.sbgm_flash_attention_fwd.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_void_p,
     ]
-    lib.sbgm_flash_attention_fwd.restype = ctypes.c_int
-    lib.sbgm_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.sbgm_cuda_error_string.restype = ctypes.c_char_p
-    return BuiltLibrary(lib, path, compiled, time.perf_counter() - t0, log)
-
-
-class BuiltLibrary(NamedTuple):
-    """The loaded library, where it lives, and how its build went."""
-
-    lib: ctypes.CDLL
-    path: Path
-    compiled: bool  # False: an earlier build of the same source and flags was loaded
-    seconds: float
-    log: str
+    built.lib.sbgm_flash_attention_fwd.restype = ctypes.c_int
+    return built
 
 
 def _padded_head_dim(d: int) -> int:
@@ -151,9 +90,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
             b, s, h, dp, _DTYPE_CODES[q.dtype], ctypes.c_float(1.0 / math.sqrt(d)),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
-    if rc != 0:
-        msg = built.lib.sbgm_cuda_error_string(rc).decode()
-        raise RuntimeError(f"flash attention kernel launch failed: {msg} (cudaError {rc})")
+    _nvcc.check_launch(built, rc, "flash attention")
     launches += 1
     return out[..., :d] if dp != d else out
 

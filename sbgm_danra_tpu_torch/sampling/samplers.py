@@ -1,9 +1,9 @@
 """Reverse-SDE samplers (counterpart of ``sbgm_danra_tpu/sampling/samplers.py``).
 
-``pc_sampler``, ``edm_sampler`` and ``dpmpp_sampler`` with the JAX package's
-semantics; each step is a Python loop iteration (the JAX ``lax.scan``), and
-the per-node schedule is computed in float32 as in JAX. ``em_sampler`` and
-``ode_sampler`` are not ported yet.
+``em_sampler``, ``pc_sampler``, ``ode_sampler`` (rk4, heun, adaptive rk45),
+``edm_sampler`` and ``dpmpp_sampler`` with the JAX package's semantics; each
+step is a Python loop iteration (the JAX ``lax.scan`` / ``while_loop``), and
+times and schedules are computed in float32 as in JAX.
 
 Noise comes from ``rng``: one ``torch.Generator`` for the whole batch, or a
 sequence of generators, one per batch row, so that a row's draws depend only
@@ -16,6 +16,7 @@ hand both sides the same latent ``z``.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 from typing import Callable, Dict, Optional, Sequence, Union
 
@@ -23,6 +24,8 @@ import torch
 
 from sbgm_danra_tpu_torch.sampling.guidance import apply_guidance
 from sbgm_danra_tpu_torch.sde import VESDE, edm_sigma_schedule
+
+logger = logging.getLogger(__name__)
 
 ScoreFn = Callable[..., torch.Tensor]
 Rng = Union[torch.Generator, Sequence[torch.Generator]]
@@ -67,6 +70,33 @@ def _to(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return x.to(device=like.device, dtype=torch.float32)
 
 
+def em_sampler(
+    score_fn: ScoreFn,
+    rng: Rng,
+    shape: Sequence[int],
+    sde=VESDE(),
+    config: SamplerConfig = SamplerConfig(),
+    cond: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Euler-Maruyama reverse-SDE sampler; one NFE per step. Returns the last
+    step's noiseless mean, and carries the SDE's drift (VP), as the JAX
+    sampler does (samplers.py:69-102)."""
+    cond = cond or {}
+    guided = _prepare(score_fn, config)
+    x = randn(rng, shape)
+    x = x * _to(sde.prior_std(), x)
+    b = shape[0]
+    time_steps = torch.linspace(1.0, config.eps, config.num_steps, dtype=torch.float32).tolist()
+    dt = (1.0 - config.eps) / max(config.num_steps - 1, 1)
+    mean_x = x
+    for t in time_steps:
+        bt = torch.full((b,), t, dtype=torch.float32, device=x.device)
+        g = _bcast(_to(sde.diffusion_coeff(bt), x), x.dim())
+        mean_x = x + (g**2 * guided(x, bt, **cond) - sde.drift(x, bt)) * dt
+        x = mean_x + math.sqrt(dt) * g * randn(rng, shape)
+    return mean_x
+
+
 def pc_sampler(
     score_fn: ScoreFn,
     rng: Rng,
@@ -105,6 +135,118 @@ def pc_sampler(
         x_mean = x + (_bcast(g**2, x.dim()) * score - sde.drift(x, bt)) * dt
         x = x_mean + _bcast(torch.sqrt(g**2 * dt), x.dim()) * randn(rng, shape)
     return x_mean
+
+
+def _ode_drift(guided, sde, cond, x: torch.Tensor, t: float) -> torch.Tensor:
+    """Probability-flow drift f(x, t) - 1/2 g(t)^2 s(x, t) at the float32 time ``t``."""
+    bt = torch.full((x.shape[0],), t, dtype=torch.float32, device=x.device)
+    g2 = _bcast(_to(sde.diffusion_coeff(bt), x), x.dim()) ** 2
+    return sde.drift(x, bt) - 0.5 * g2 * guided(x, bt, **cond)
+
+
+def ode_sampler(
+    score_fn: ScoreFn,
+    rng: Rng,
+    shape: Sequence[int],
+    sde=VESDE(),
+    config: SamplerConfig = SamplerConfig(),
+    cond: Optional[Dict[str, torch.Tensor]] = None,
+    z: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Probability-flow ODE from t=1 to eps with conditioning on every
+    evaluation, deterministic given the latent ``z`` (JAX samplers.py:158-295).
+    ``config.ode_method``: fixed-step 'rk4' (4 NFE per step) or 'heun' (2 NFE
+    per step) over ``num_steps - 1`` intervals, or adaptive Dormand-Prince
+    'rk45' (7 NFE per attempted step)."""
+    cond = cond or {}
+    guided = _prepare(score_fn, config)
+    if z is None:
+        x = randn(rng, shape)
+        x = x * _to(sde.prior_std(), x)
+    else:
+        x = z
+
+    def drift(x, t):
+        return _ode_drift(guided, sde, cond, x, t)
+
+    if config.ode_method == "rk45":
+        x, converged = _rk45_adaptive(drift, x, 1.0, config.eps, config.rtol, config.atol)
+        if not converged:
+            logger.warning("ode_sampler(rk45): iteration cap reached before t=eps; "
+                           "sample is UNCONVERGED")
+        return x
+    if config.ode_method not in ("rk4", "heun"):
+        raise ValueError(f"Unknown ode_method: {config.ode_method}")
+
+    ts = torch.linspace(1.0, config.eps, config.num_steps, dtype=torch.float32)[:-1]
+    dt = -(1.0 - config.eps) / max(config.num_steps - 1, 1)
+    # node times as the JAX scan forms them: float32 t plus a float32 offset
+    t0s, t_half, t_end = ts.tolist(), (ts + 0.5 * dt).tolist(), (ts + dt).tolist()
+    for i in range(len(t0s)):
+        k1 = drift(x, t0s[i])
+        if config.ode_method == "heun":
+            k2 = drift(x + dt * k1, t_end[i])
+            x = x + 0.5 * dt * (k1 + k2)
+        else:
+            k2 = drift(x + 0.5 * dt * k1, t_half[i])
+            k3 = drift(x + 0.5 * dt * k2, t_half[i])
+            k4 = drift(x + dt * k3, t_end[i])
+            x = x + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+    return x
+
+
+# Dormand-Prince RK45 Butcher tableau.
+_DP_C = (0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0)
+_DP_A = (
+    (),
+    (1 / 5,),
+    (3 / 40, 9 / 40),
+    (44 / 45, -56 / 15, 32 / 9),
+    (19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729),
+    (9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656),
+    (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84),
+)
+_DP_B5 = (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0)
+_DP_B4 = (5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200, 187 / 2100, 1 / 40)
+_RK45_MAX_ITERS = 10_000
+
+
+def _rk45_adaptive(drift, x: torch.Tensor, t0: float, t1: float, rtol: float, atol: float):
+    """Adaptive Dormand-Prince from t0 down to t1 < t0, as the JAX
+    ``lax.while_loop`` runs it (samplers.py:253-295): t, h and the error
+    control are float32 tensors with the JAX arithmetic, so the two accept the
+    same steps until an error norm made mostly of float32 rounding parts their
+    step sizes by an ulp. The host reads the error norm once per attempted
+    step. Returns (x, converged)."""
+    f32 = torch.float32
+    t = torch.tensor(t0, dtype=f32)
+    h = torch.tensor((t1 - t0) / 100.0, dtype=f32)
+    t_stop = torch.tensor(t1 + 1e-9, dtype=f32)
+    t_end = torch.tensor(t1, dtype=f32)
+    h_max = torch.tensor(-1e-5, dtype=f32)
+    n = 0
+    while bool(t > t_stop) and n < _RK45_MAX_ITERS:
+        # integrating downward: h stays negative; clamp its magnitude only
+        h = torch.minimum(h, h_max)
+        if bool(t + h < t_end):  # don't overshoot t1
+            h = t_end - t
+        ks = []
+        for i in range(7):
+            xi = x
+            for j, a in enumerate(_DP_A[i]):
+                xi = xi + h * a * ks[j]
+            ks.append(drift(xi, (t + _DP_C[i] * h).item()))
+        x5, x4 = x, x
+        for k, b5, b4 in zip(ks, _DP_B5, _DP_B4):
+            x5 = x5 + h * b5 * k
+            x4 = x4 + h * b4 * k
+        scale = atol + rtol * torch.maximum(x.abs(), x5.abs())
+        err = ((x5 - x4).abs() / scale).max().cpu()
+        if bool(err <= 1.0):
+            x, t = x5, t + h
+        h = h * torch.clamp(0.9 * err ** (-0.2), 0.2, 5.0)
+        n += 1
+    return x, bool(t <= t_stop)
 
 
 def _hat_schedule(sde, config: SamplerConfig):
@@ -210,22 +352,20 @@ def dpmpp_sampler(
     return mn[-1] * xhat
 
 
-_PORTED = {
+_SAMPLERS = {
+    "em_sampler": em_sampler,
+    "euler_maruyama": em_sampler,
     "pc_sampler": pc_sampler,
+    "ode_sampler": ode_sampler,
     "edm_sampler": edm_sampler,
     "edm": edm_sampler,
     "dpmpp_sampler": dpmpp_sampler,
     "dpmpp_2m": dpmpp_sampler,
 }
-_NOT_YET = ("em_sampler", "euler_maruyama", "ode_sampler")
 
 
 def get_sampler(name: str):
     """Sampler registry keyed by the JAX package's config names."""
-    if name in _NOT_YET:
-        raise NotImplementedError(
-            f"sampler '{name}' is not yet ported to the torch package (ROADMAP queue 1)"
-        )
-    if name not in _PORTED:
-        raise ValueError(f"Unknown sampler '{name}'; options: {sorted([*_PORTED, *_NOT_YET])}")
-    return _PORTED[name]
+    if name not in _SAMPLERS:
+        raise ValueError(f"Unknown sampler '{name}'; options: {sorted(_SAMPLERS)}")
+    return _SAMPLERS[name]

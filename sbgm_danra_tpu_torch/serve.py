@@ -19,10 +19,10 @@ dispatch shape never changes, and on CUDA the engine sets
 
 The engine's settings are a plain dataclass (``ServeSettings``), so the serving
 path imports nothing of the JAX package; ``settings_from_config`` and
-``main`` read the repo's YAML configs through ``sbgm_danra_tpu.config``, which
-imports no JAX. There are no back-transforms yet (``transforms.py`` is not
-ported): like the JAX engine when its statistics are missing, the engine
-returns fields in normalized space and logs that once.
+``main`` read the repo's YAML configs through the port's own reader
+(``sbgm_danra_tpu_torch/config.py``). There are no back-transforms yet
+(``transforms.py`` is not ported): like the JAX engine when its statistics
+are missing, the engine returns fields in normalized space and logs that once.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from typing import Dict, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from sbgm_danra_tpu_torch.config import get_model_string, load_config, parse_override
 from sbgm_danra_tpu_torch.models.unet import ModelSpec, build_score_model, model_spec_from_config
 from sbgm_danra_tpu_torch.sampling.samplers import SamplerConfig, get_sampler, pc_sampler
 from sbgm_danra_tpu_torch.sde import VESDE
@@ -59,9 +60,9 @@ class ServeSettings:
     spread_calibration: Optional[float] = None
 
 
-# configs/flagship_synth.yaml as sbgm_danra_tpu.config reads it (a CPU test
-# holds the two equal): the 19.08M-parameter bf16 UNet at 128 px, dpmpp-25,
-# CFG w=3.
+# configs/flagship_synth.yaml as the config readers make it (CPU tests hold
+# this, the port's reading and the JAX package's reading equal): the
+# 19.08M-parameter bf16 UNet at 128 px, dpmpp-25, CFG w=3.
 FLAGSHIP_SYNTH = ServeSettings(
     spec=ModelSpec(in_channels=6, num_classes=4, compute_dtype="bfloat16"),
     sampler_type="dpmpp_sampler",
@@ -76,9 +77,7 @@ FLAGSHIP_SYNTH = ServeSettings(
 
 
 def settings_from_config(cfg) -> ServeSettings:
-    """A ``sbgm_danra_tpu.config.Config`` -> ServeSettings, as the JAX engine reads it."""
-    from sbgm_danra_tpu.utils.naming import get_model_string
-
+    """A loaded run config -> ServeSettings, as the JAX engine reads it."""
     g = cfg.classifier_free_guidance
     s, rf = cfg.highres.data_size, cfg.lowres.resize_factor
     return ServeSettings(
@@ -387,8 +386,6 @@ def main(argv=None):
     p.add_argument("overrides", nargs="*")
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    from sbgm_danra_tpu.config import load_config, parse_override
-
     cfg = load_config(args.config_path, dict(parse_override(s) for s in args.overrides))
     serve(settings_from_config(cfg), args.checkpoint, args.device, args.host, args.port,
           args.max_members)

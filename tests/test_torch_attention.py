@@ -12,7 +12,7 @@ from sbgm_danra_tpu.ops import flash_attention as jax_fa
 from sbgm_danra_tpu.ops.pallas_attention import pallas_flash_attention
 from sbgm_danra_tpu_torch.convert import state_dict_from_flax
 from sbgm_danra_tpu_torch.models.attention import SpatialSelfAttention
-from sbgm_danra_tpu_torch.ops import cuda_attention
+from sbgm_danra_tpu_torch.ops import _nvcc, cuda_attention
 from sbgm_danra_tpu_torch.ops import flash_attention as fa
 from sbgm_danra_tpu_torch.ops.cuda_attention import (
     _padded_head_dim,
@@ -93,7 +93,7 @@ class TestCudaEntryPoint:
     def test_build_names_missing_nvcc(self, monkeypatch, tmp_path):
         monkeypatch.setenv("PATH", str(tmp_path))
         monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-        monkeypatch.setattr(cuda_attention.os.path, "exists", lambda p: False)
+        monkeypatch.setattr(_nvcc.os.path, "exists", lambda p: False)
         cuda_attention.build_library.cache_clear()
         try:
             with pytest.raises(RuntimeError, match="nvcc not found"):

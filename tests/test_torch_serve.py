@@ -12,8 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from sbgm_danra_tpu_torch.config import get_model_string, load_config
 from sbgm_danra_tpu_torch.convert import flatten, state_dict_from_flax
-from sbgm_danra_tpu_torch.models.unet import ModelSpec, build_score_model
+from sbgm_danra_tpu_torch.models.unet import ModelSpec, build_score_model, model_spec_from_config
 from sbgm_danra_tpu_torch.sampling.samplers import SamplerConfig
 from sbgm_danra_tpu_torch.serve import (
     FLAGSHIP_SYNTH,
@@ -192,11 +193,26 @@ class TestHTTP:
             thread.join(timeout=30)
 
 
+CONFIGS = [os.path.join(os.path.dirname(__file__), "..", "configs", name)
+           for name in ("flagship_synth.yaml", "full_scale_demo.yaml")]
+
+
 class TestSettings:
     def test_flagship_synth_matches_config(self):
-        """The settings chip_smoke.py serves with are what the JAX package's
-        config reader makes of configs/flagship_synth.yaml."""
-        from sbgm_danra_tpu.config import load_config
+        """The settings chip_smoke.py serves with are what the port's config
+        reader makes of configs/flagship_synth.yaml."""
+        assert settings_from_config(load_config(CONFIGS[0])) == FLAGSHIP_SYNTH
 
-        path = os.path.join(os.path.dirname(__file__), "..", "configs", "flagship_synth.yaml")
-        assert settings_from_config(load_config(path)) == FLAGSHIP_SYNTH
+    @pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
+    def test_port_reads_configs_as_the_jax_package_does(self, path):
+        """The port's own reader and the JAX package's reader give the same
+        ServeSettings, ModelSpec fields and model string for one file."""
+        from sbgm_danra_tpu.config import load_config as jax_load_config
+        from sbgm_danra_tpu.training.pipeline import model_spec_from_config as jax_spec
+        from sbgm_danra_tpu.utils.naming import get_model_string as jax_model_string
+
+        ours, theirs = load_config(path), jax_load_config(path)
+        assert settings_from_config(ours) == settings_from_config(theirs)
+        assert dataclasses.asdict(model_spec_from_config(ours)) == dataclasses.asdict(
+            jax_spec(theirs))
+        assert get_model_string(ours) == jax_model_string(theirs)
