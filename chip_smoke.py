@@ -5,17 +5,24 @@
 
 Phases, one JSON line each on stdout:
 
-1. device: the card's name, count and power limit;
+1. device: the card's name, count and power limit, and the SFU's rate of
+   exponentials (16 per clock per SM at the card's maximum SM clock), which
+   K2's bound takes beside bytes and tensor-core operations;
 2. build: both CUDA sources of ``sbgm_danra_tpu_torch/csrc`` compiled with
    nvcc for sm_90a, in parallel, into ``sbgm_danra_tpu_torch/_build/``
    (nvcc's ``-Xptxas -v`` report on stderr);
 3. kernel: each kernel against its plain PyTorch version on the card, with
    its time, the plain version's, the time of one PyTorch library call of the
    same function and the card's bound for the work:
-   - K2 flash attention at the full-domain decoder shape and at padded-D /
-     ragged-S / forced shapes (fp32: |err| <= 2e-5 + 2e-5 |ref| with TF32
-     off; bf16: |err| <= 2e-2 against the fp32 plain version on the same
-     bf16-rounded inputs);
+   - K2 flash attention at the full-domain decoder shape, also as strided
+     chunks of one packed QKV tensor (as the model passes them; bit-identical
+     to the same call on contiguous copies), and at padded-D / ragged-S /
+     forced shapes. Every call is made twice and must repeat bit-identically,
+     and must run the variant its dtype selects (bf16: tensor cores, fp32:
+     CUDA cores). fp32: |err| <= 2e-5 + 2e-5 |ref| with TF32 off; bf16:
+     |err| <= 2^-8 |ref| + 2^-8 max|ref| against the fp32 plain version on the
+     same bf16-rounded inputs (P is rounded to bf16 for the P.V product, and
+     the output to bf16);
    - K1 conv3x3 + GroupNorm (``conv3x3_stats`` then ``gn_apply``) at every
      decoder chain shape of the 128-px path (batch 16, bf16 and fp32), of the
      608x800 path (batch 2) and at the two ``perf_probe`` shapes (batch 26);
@@ -27,8 +34,9 @@ Phases, one JSON line each on stdout:
    at 608x800, the plain attention in place of K2 (max |err| <= 5e-2 max |ref|);
 5. full_domain: ``sample_full_domain`` 589x789 -> 608x800, EDM-18, CFG w=3,
    flagship bf16 UNet with attention backend 'pallas', seeded weights, two
-   samples; each must be finite of shape (1, 589, 789) with exactly 34 K2 and
-   272 K1 launches (8 per UNet evaluation, 2 x 17 evaluations);
+   samples; each must be finite of shape (1, 589, 789) with exactly 34 K2
+   launches, all of the tensor-core variant, and 272 K1 launches (8 per UNet
+   evaluation, 2 x 17 evaluations);
 6. serving: the engine with the flagship_synth settings behind the HTTP
    handler on a localhost port: /healthz, three concurrent /generate requests
    (1, 2 and 4 members), then each again alone, which must come back
@@ -67,16 +75,24 @@ K1_PER_EVAL = 8  # decoder chains per UNet evaluation: 4 GroupNorm blocks x 2
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, fp32 CUDA cores, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
-KERNEL_SHAPES = [  # (shape, dtype, through the dispatcher with the kernel forced)
-    ((2, 7600, 4, 32), torch.bfloat16, False),  # decoder block 1 at 608x800
-    ((2, 7600, 4, 32), torch.float32, False),
-    ((2, 1000, 2, 24), torch.float32, False),  # padded head dim, ragged S
-    ((2, 1000, 2, 24), torch.bfloat16, False),
-    ((1, 4096, 4, 64), torch.float32, False),
-    ((1, 4096, 4, 64), torch.bfloat16, False),
-    ((1, 300, 4, 128), torch.float32, True),
-    ((1, 300, 4, 128), torch.bfloat16, True),
+EXP_PER_CLOCK_PER_SM = 16  # the SFU's ex2 rate on Hopper
+K2_MAIN = ((2, 7600, 4, 32), torch.bfloat16)  # decoder block 1 at 608x800
+K2_SHAPES = [  # (shape, dtype, packed QKV chunks, through the dispatcher with the kernel forced)
+    ((2, 7600, 4, 32), torch.bfloat16, False, False),
+    ((2, 7600, 4, 32), torch.bfloat16, True, False),
+    ((1, 4096, 4, 64), torch.bfloat16, False, False),
+    ((2, 300, 4, 128), torch.bfloat16, False, True),
+    ((1, 33, 1, 32), torch.bfloat16, False, True),
+    ((2, 1000, 2, 24), torch.bfloat16, False, False),  # padded head dim, ragged S
+    ((2, 7600, 4, 32), torch.float32, False, False),
+    ((2, 1000, 2, 24), torch.float32, False, False),
+    ((1, 4096, 4, 64), torch.float32, False, False),
+    ((1, 4096, 4, 64), torch.float32, True, False),
+    ((1, 300, 4, 128), torch.float32, False, True),
 ]
+K2_VARIANT = {torch.bfloat16: "tc_bf16", torch.float32: "fp32"}
+BF16_TOLERANCE = ("bf16: |err| <= 2^-8 |ref| + 2^-8 max|ref| against the fp32 plain version on "
+                  "the same bf16-rounded inputs (P rounded to bf16 for P.V, bf16 output)")
 
 
 # Decoder chains (H, W, Cin, Cout) of one flagship UNet evaluation, blocks 0-3,
@@ -96,12 +112,15 @@ K1_SHAPES = (  # (path, batch, (H, W, Cin, Cout), dtype, activation)
 )
 
 
-def bound(flops: float, nbytes: float, dtype) -> dict:
-    """The least time the card could take: operations at the dtype's peak or
-    bytes at the memory rate, whichever is longer."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+def bound(flops: float, nbytes: float, dtype, exps: float = 0.0,
+          exp_rate: float = float("inf")) -> dict:
+    """The least time the card could take: operations at the dtype's peak,
+    bytes at the memory rate or exponentials at ``exp_rate`` per second,
+    whichever is longest."""
+    times = {"operations": flops / PEAK_FLOPS[dtype], "bytes": nbytes / PEAK_BYTES,
+             "exponentials": exps / exp_rate}
+    by = max(times, key=times.get)
+    return dict(bound_ms=1e3 * times[by], bound_by=by)
 
 
 def emit(**fields) -> None:
@@ -121,6 +140,19 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sfu_rate() -> dict:
+    """The SFU's exponentials per second: 16 ex2 per clock per SM at the
+    card's SM count and its maximum SM clock as nvidia-smi reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    mhz = float(out.stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(sm_count=sms, max_sm_clock_mhz=mhz,
+                exp_per_s=EXP_PER_CLOCK_PER_SM * sms * mhz * 1e6)
+
+
 def cuda_ms(fn, iters: int) -> float:
     """Mean device time of ``fn()`` over ``iters`` launches after one warm-up."""
     fn()
@@ -133,50 +165,74 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def phase_attention_kernel(dev):
-    from sbgm_danra_tpu_torch.ops import flash_attention as fa
-    from sbgm_danra_tpu_torch.ops.cuda_attention import (
-        flash_attention_cuda,
-        flash_attention_reference,
-    )
+def _k2_inputs(shape, dtype, packed, gen, dev):
+    b, s_len, h, d = shape
+    if packed:  # chunks of one [B, S, 3C] tensor, as the model's QKV projection gives them
+        qkv = torch.randn(b, s_len, 3 * h * d, generator=gen, device=dev).to(dtype)
+        return [t.reshape(shape) for t in qkv.chunk(3, dim=-1)]
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3)]
 
+
+def phase_attention_kernel(dev, exp_rate: float):
+    from sbgm_danra_tpu_torch.ops import cuda_attention
+    from sbgm_danra_tpu_torch.ops import flash_attention as fa
+
+    by_variant = cuda_attention.launches_by_variant
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(dev).manual_seed(0)
-    results = []
-    for shape, dtype, forced in KERNEL_SHAPES:
-        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
+    results, failed = [], []
+    for shape, dtype, packed, forced in K2_SHAPES:
+        q, k, v = _k2_inputs(shape, dtype, packed, gen, dev)
         if forced:
             fa._FORCE_KERNEL = True
             run = lambda: fa.flash_attention(q, k, v)  # noqa: E731
         else:
-            run = lambda: flash_attention_cuda(q, k, v)  # noqa: E731
+            run = lambda: cuda_attention.flash_attention_cuda(q, k, v)  # noqa: E731
         try:
-            out = run().float()
+            before = dict(by_variant)
+            out = run()
             torch.cuda.synchronize()
-            ref = flash_attention_reference(q.float(), k.float(), v.float())
-            err = (out - ref).abs()
-            max_err = err.max().item()
-            if dtype == torch.float32:
-                ok = bool((err <= 2e-5 + 2e-5 * ref.abs()).all())
-                tol = "2e-5 abs + 2e-5 rel"
-            else:
-                ok = max_err <= 2e-2
-                tol = "2e-2 abs vs fp32 plain"
+            ran = {name: n - before[name] for name, n in by_variant.items()}
+            repeat_identical = torch.equal(run(), out)
             ms = cuda_ms(run, 20)
         finally:
             fa._FORCE_KERNEL = False
-        plain_ms = cuda_ms(lambda: flash_attention_reference(q.float(), k.float(), v.float()), 5)
+        ref = cuda_attention.flash_attention_reference(q.float(), k.float(), v.float())
+        err = (out.float() - ref).abs()
+        ref_max = ref.abs().max().item()
+        if dtype == torch.float32:
+            tol, tol_text = 2e-5 + 2e-5 * ref.abs(), "fp32: 2e-5 abs + 2e-5 rel, TF32 off"
+        else:
+            tol, tol_text = 2.0**-8 * ref.abs() + 2.0**-8 * ref_max, BF16_TOLERANCE
+        worst = (err / tol).max().item()
+        variant_ok = ran == {name: int(name == K2_VARIANT[dtype]) for name in by_variant}
+        extra = {}
+        if packed:
+            contiguous = cuda_attention.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                                             v.contiguous())
+            extra["bit_identical_to_contiguous"] = torch.equal(out, contiguous)
+        plain_ms = cuda_ms(lambda: cuda_attention.flash_attention_reference(
+            q.float(), k.float(), v.float()), 5)
         library_ms = cuda_ms(lambda: fa.dense_attention(q, k, v), 20)
         b, s_len, h, d = shape
-        row = dict(phase="kernel", kernel="flash_attention_fwd", shape=list(shape),
-                   dtype=str(dtype).split(".")[-1], forced_dispatch=forced,
-                   max_abs_err=max_err, tolerance=tol, ok=ok, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, library="F.scaled_dot_product_attention",
-                   **bound(4.0 * b * h * s_len * s_len * d,
-                           4 * q.numel() * q.element_size(), dtype))
+        ok = (worst <= 1.0 and repeat_identical and variant_ok
+              and extra.get("bit_identical_to_contiguous", True))
+        row = dict(phase="kernel", kernel="flash_attention_fwd", variant=K2_VARIANT[dtype],
+                   shape=list(shape), dtype=str(dtype).split(".")[-1], packed_qkv_views=packed,
+                   forced_dispatch=forced, max_abs_err=err.max().item(), ref_max_abs=ref_max,
+                   max_abs_err_over_ref_max=err.max().item() / ref_max,
+                   worst_err_over_tolerance=worst, tolerance=tol_text, ok=ok,
+                   variant_launches=ran, repeat_bit_identical=repeat_identical, ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   library="F.scaled_dot_product_attention", **extra,
+                   **bound(4.0 * b * h * s_len * s_len * d, 4 * q.numel() * q.element_size(),
+                           dtype, exps=float(b * h * s_len * s_len), exp_rate=exp_rate))
         emit(**row)
-        check(ok, f"kernel disagrees with its plain version at {shape} {dtype}: {max_err}")
+        if not ok:
+            failed.append(f"{shape} {dtype} (packed {packed}): worst err/tol {worst}, repeat "
+                          f"identical {repeat_identical}, variant launches {ran}, {extra}")
         results.append(row)
+    check(not failed, "K2 disagrees with its plain version at " + "; ".join(failed))
     return results
 
 
@@ -295,7 +351,15 @@ def reset_counts():
     from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
 
     cuda_attention.launches = 0
+    for name in cuda_attention.launches_by_variant:
+        cuda_attention.launches_by_variant[name] = 0
     k1.conv3x3_stats_launches = k1.gn_apply_launches = 0
+
+
+def k2_counts() -> dict:
+    from sbgm_danra_tpu_torch.ops import cuda_attention
+
+    return dict(cuda_attention.launches_by_variant)
 
 
 def check_k1(counts, evaluations: int, where: str) -> None:
@@ -357,12 +421,14 @@ def phase_model(dev):
         finally:
             fa._FORCE_KERNEL = False
             torch.backends.cudnn.allow_tf32 = True
-        tiny_counts = k1_counts()
+        tiny_counts, tiny_k2 = k1_counts(), k2_counts()
     tiny_rel = _rel(got, ref)
     emit(phase="model", check="tiny fp32 UNet, card vs CPU", rel_err=tiny_rel, tolerance=1e-4,
-         k1_launches=list(tiny_counts))
+         k1_launches=list(tiny_counts), k2_launches_by_variant=tiny_k2)
     check(tiny_rel <= 1e-4, f"tiny UNet on the card disagrees with the CPU: {tiny_rel}")
     check_k1(tiny_counts, 1, "tiny UNet forward")
+    check(tiny_k2["fp32"] > 0 and tiny_k2["tc_bf16"] == 0,
+          f"tiny fp32 UNet forward: K2 launches by variant {tiny_k2}")
 
     serve_model = build_score_model(flagship_spec(compute_dtype="bfloat16"),
                                     generator=torch.Generator().manual_seed(2)).to(dev)
@@ -395,7 +461,8 @@ def phase_model(dev):
     with torch.inference_mode():
         reset_counts()
         got = model(x, t, **cond)
-        check(cuda_attention.launches == 1, "the full-domain forward did not use the kernel")
+        check(cuda_attention.launches == 1 and k2_counts()["tc_bf16"] == 1,
+              "the full-domain forward did not use the tensor-core kernel")
         check_k1(k1_counts(), 1, "full-domain forward")
         fa.flash_attention_cuda = cuda_attention.flash_attention_reference
         try:
@@ -414,7 +481,7 @@ def phase_model(dev):
          tolerance=5e-2, finite=finite)
     check(rel_attn <= 5e-2 and rel_k1 <= 5e-2 and finite,
           f"full-domain forward rel err {rel_attn} (K2) / {rel_k1} (K1)")
-    return model, serve_model
+    return model, serve_model, tiny_k2
 
 
 def phase_full_domain(dev, model):
@@ -436,25 +503,28 @@ def phase_full_domain(dev, model):
 
     reset_counts()  # the main path's run starts here
     out, first_s = run(0)
-    launches, k1_first = cuda_attention.launches, k1_counts()
+    launches, k2_first, k1_first = cuda_attention.launches, k2_counts(), k1_counts()
     reset_counts()
     out2, second_s = run(1)
-    launches2, k1_second = cuda_attention.launches, k1_counts()
+    launches2, k2_second, k1_second = cuda_attention.launches, k2_counts(), k1_counts()
     evaluations = 2 * (EDM_NODES - 1)
     finite = bool(np.isfinite(out).all() and np.isfinite(out2).all())
     emit(phase="full_domain", domain="589x789->608x800", sampler=f"edm-{EDM_NODES}", cfg=3.0,
          shape=list(out.shape), finite=finite, kernel_launches=launches,
          kernel_launches_second_run=launches2, expected_launches=evaluations,
+         k2_launches_by_variant=k2_first, k2_launches_by_variant_second_run=k2_second,
          k1_launches=list(k1_first), k1_launches_second_run=list(k1_second),
          k1_expected=K1_PER_EVAL * evaluations,
          wall_s_first=first_s, wall_s_second=second_s, field_std=float(out.std()))
     check(out.shape == (1, *FULL_DOMAIN) and finite, f"bad full-domain output {out.shape}")
     check(launches == evaluations and launches2 == evaluations,
           f"kernel launched {launches}/{launches2} times, expected {evaluations}")
+    tc_only = {"tc_bf16": evaluations, "fp32": 0}
+    check(k2_first == tc_only and k2_second == tc_only,
+          f"K2 launches by variant {k2_first} / {k2_second}, expected {tc_only}")
     check_k1(k1_first, evaluations, "full-domain sample")
     check_k1(k1_second, evaluations, "second full-domain sample")
-    return {"flash_attention_fwd": launches, "conv3x3_stats": k1_first[0],
-            "gn_apply": k1_first[1]}
+    return {"k2": k2_first, "conv3x3_stats": k1_first[0], "gn_apply": k1_first[1]}
 
 
 def _post(url: str, body: dict):
@@ -594,6 +664,27 @@ def _k1_summary(rows, kernel: str) -> dict:
                 at="sum over the 8 decoder chains of one 608x800 UNet evaluation, bf16, batch 2")
 
 
+def _k2_summary(rows, variant: str, **launches) -> dict:
+    """One K2 variant: its time, plain, library and bound at the full-domain
+    shape in its dtype; its largest errors over every row of that variant."""
+    mine = [r for r in rows if r["variant"] == variant]
+    at = next(r for r in mine if r["shape"] == list(K2_MAIN[0]) and not r["packed_qkv_views"])
+    return {
+        "name": f"flash_attention_fwd_{variant}",
+        "route": "cuda",
+        "source": "sbgm_danra_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "sbgm_danra_tpu/ops/pallas_attention.py:86",
+        **launches,
+        **{key: max(r[key] for r in mine) for key in (
+            "max_abs_err", "max_abs_err_over_ref_max", "worst_err_over_tolerance")},
+        **{key: at[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        # the SFU's exponentials are operations; bound_term says which term won
+        "bound_by": "bytes" if at["bound_by"] == "bytes" else "operations",
+        "bound_term": at["bound_by"],
+        "at": f"{at['shape']} {at['dtype']}, decoder block 1 at 608x800",
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
@@ -604,8 +695,8 @@ def main() -> int:
 
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
-    smi = nvidia_smi()
-    emit(phase="device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
+    smi, sfu = nvidia_smi(), sfu_rate()
+    emit(phase="device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi, **sfu,
          torch=torch.__version__, cuda=torch.version.cuda)
 
     modules = (cuda_attention, fused_conv_gn)
@@ -618,27 +709,24 @@ def main() -> int:
          libraries=[dict(source=m.SOURCE.name, library=b.path.name, compiled=b.compiled,
                          seconds=b.seconds) for m, b in zip(modules, builds)])
 
-    attention_rows = phase_attention_kernel(dev)
+    attention_rows = phase_attention_kernel(dev, sfu["exp_per_s"])
     k1_rows = phase_conv_gn_kernel(dev)
-    model, serve_model = phase_model(dev)
+    model, serve_model, tiny_k2 = phase_model(dev)
     launches = phase_full_domain(dev, model)
     del model
     torch.cuda.empty_cache()
     serving = phase_serving(dev)
     samplers = phase_samplers(dev, serve_model)
 
-    main_row = attention_rows[0]
-    kernels = [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "sbgm_danra_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "sbgm_danra_tpu/ops/pallas_attention.py:86",
-        "launches": launches["flash_attention_fwd"],
-        "max_abs_err": max(r["max_abs_err"] for r in attention_rows),
-        **{key: main_row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                          "library_ms")},
-        "at": "[2, 7600, 4, 32] bf16, decoder block 1 at 608x800",
-    }]
+    k2 = launches["k2"]
+    kernels = [
+        _k2_summary(attention_rows, variant, launches=k2[variant],
+                    launches_by_path={"full_domain": k2[variant]})
+        for variant in ("tc_bf16", "fp32")
+    ]
+    # the bf16 main path never runs the fp32 variant; the tiny fp32 UNet
+    # forward of the model phase does (not a main path)
+    kernels[1]["launches_outside_main_path"] = {"model/tiny_fp32_unet": tiny_k2["fp32"]}
     for name in ("conv3x3_stats", "gn_apply"):
         kernels.append({
             "name": name,

@@ -19,6 +19,14 @@ one run under ``torch.profiler``: device time by kernel class and the top
 kernels by name, device busy time (the union of kernel intervals) and the
 idle share of the profiled window. One JSON object per path on stdout, all of
 them in ``--out``. Without a CUDA card it exits 1.
+
+``--paths k2`` times K2 alone (``flash_attention_cuda`` on contiguous
+seeded inputs, which every version takes) at the full-domain shape in bf16
+and fp32 and at the card tests' bf16 shapes: mean device ms of 20 launches
+after a warm-up, SDPA's in the same process, and the worst |err| over
+``2^-8 |ref| + 2^-8 max|ref|`` (bf16) or ``2e-5 + 2e-5 |ref|`` (fp32)
+against the fp32 plain version on the same inputs. One JSON object per
+shape.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ import time
 
 # kernel-name patterns, first match wins
 CLASSES = (
+    # both variants (flash_attention_fwd_kernel and flash_attention_fwd_kernel_tc);
+    # before "attention (SDPA)", whose patterns would also match them
     ("K2 flash_attention_fwd", ("flash_attention_fwd_kernel",)),
     ("K1 conv3x3_stats", ("conv3x3_stats_kernel",)),
     ("K1 gn_apply", ("gn_apply_kernel",)),
@@ -98,12 +108,55 @@ def profile(torch, fn) -> dict:
     )
 
 
+K2_SHAPES = (((2, 7600, 4, 32), "bfloat16"), ((1, 4096, 4, 64), "bfloat16"),
+             ((2, 300, 4, 128), "bfloat16"), ((1, 33, 1, 32), "bfloat16"),
+             ((2, 1000, 2, 24), "bfloat16"), ((2, 7600, 4, 32), "float32"))
+
+
+def k2_rows(torch, dev) -> list:
+    """K2 alone against its plain version and SDPA, one row per shape."""
+    from sbgm_danra_tpu_torch.ops import cuda_attention
+    from sbgm_danra_tpu_torch.ops.flash_attention import dense_attention
+
+    def ms(fn, iters=20):
+        fn()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / iters
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(dev).manual_seed(0)
+    rows = []
+    for shape, dtype_name in K2_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
+        out = cuda_attention.flash_attention_cuda(q, k, v).float()
+        ref = cuda_attention.flash_attention_reference(q.float(), k.float(), v.float())
+        if dtype == torch.bfloat16:
+            tol = 2.0**-8 * ref.abs() + 2.0**-8 * ref.abs().max()
+        else:
+            tol = 2e-5 + 2e-5 * ref.abs()
+        err = (out - ref).abs()
+        rows.append(dict(
+            shape=list(shape), dtype=dtype_name, max_abs_err=err.max().item(),
+            max_abs_err_over_ref_max=(err.max() / ref.abs().max()).item(),
+            worst_err_over_tolerance=(err / tol).max().item(),
+            ms=ms(lambda: cuda_attention.flash_attention_cuda(q, k, v)),
+            sdpa_ms=ms(lambda: dense_attention(q, k, v))))
+    return rows
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
                    help="checkout whose sbgm_danra_tpu_torch is measured")
     p.add_argument("--label", default="change")
-    p.add_argument("--paths", default="full_domain,serving")
+    p.add_argument("--paths", default="full_domain,serving",
+                   help="comma-separated: full_domain, serving, k2")
     p.add_argument("--repeats", type=int, default=3)
     p.add_argument("--out", default=None)
     args = p.parse_args()
@@ -163,6 +216,11 @@ def main() -> int:
         runs["serving"] = ("one 8-row dpmpp-25 dispatch at 128 px, CFG w=3", dispatch)
 
     results = []
+    if "k2" in args.paths.split(","):
+        for row in k2_rows(torch, dev):
+            row = dict(label=args.label, root=args.root, path="k2", card=smi, **row)
+            print(json.dumps(row), flush=True)
+            results.append(row)
     for path, (what, fn) in runs.items():
         torch.backends.cudnn.benchmark = False
         out = fn()  # warm-up

@@ -1,4 +1,4 @@
-// Flash-attention forward for Hopper (sm_90a), exported with a plain C entry
+// K2: flash-attention forward for Hopper (sm_90a), exported with a plain C entry
 // point so that Python loads it with ctypes (no PyTorch headers, seconds to
 // build).
 //
@@ -6,12 +6,55 @@
 // (pallas_flash_attention, body _attention_kernel): exact
 // softmax(q k^T * scale) v over q, k, v of shape [B, S, H, D], with a running
 // max, denominator and accumulator in fp32 (online softmax), keys at or past S
-// masked with -1e30, and the output acc / max(l, 1e-30). The caller passes the
-// scale, so a head dim zero-padded up to a supported D keeps 1/sqrt(D_orig).
+// masked with the finite -1e30, and the output acc / max(l, 1e-30). The caller
+// passes the scale, so a head dim zero-padded up to a supported D keeps
+// 1/sqrt(D_orig). q, k and v may be strided views (the model hands in chunks
+// of its packed QKV projection): each comes with its batch and row strides;
+// D is unit-stride and the heads of a row are packed (head stride = D). The
+// output is a contiguous [B, S, H, D].
 //
-// Design. The TPU kernel walks a sequential kv grid axis with its state in
-// VMEM scratch; here one block owns (batch*head, q-tile) and loops over the
-// K/V tiles itself, so nothing carries between blocks:
+// The TPU kernel walks a sequential kv grid axis with its state in VMEM
+// scratch. Here one block owns (batch*head, q-tile) and loops over the K/V
+// tiles itself, so nothing carries between blocks (no split-KV, no atomics:
+// repeated calls are bit-identical). Two variants, chosen by dtype.
+//
+// bf16 (flash_attention_fwd_kernel_tc): both products on the tensor cores
+// with mma.sync m16n8k16 (bf16 in, fp32 accumulate). What bounds it on an
+// H100: each score costs 4*D tensor-core FLOPs and one exponential on the
+// SFU, which runs 16 ex2 per clock per SM. At D = 32 the exponentials (B*H*S^2
+// of them, 0.11 ms at [2, 7600, 4, 32] and a 1.98 GHz SM clock) take 1.8 times
+// the tensor cores' time; at
+// D = 128 the tensor cores bound it. Beside both, the non-exponential work per
+// score (max, FFMA, sums, packing, copies) competes for the same issue slots,
+// so the design keeps it small:
+//   - 16 query rows per warp, 4 warps (64-row blocks; 128-row blocks of 8
+//     warps measured slower); K/V tiles of 64 keys staged by cp.async (16 B
+//     per thread) in a ring of three shared-memory slots, so that the copy of
+//     tile t+2 overlaps the products of tile t with one barrier per tile.
+//     Keys at or past S are zero-filled by cp.async's src-size 0 (a zero V
+//     row keeps stale shared memory out of O); only the last tile's instance
+//     masks their scores to -1e30. Query rows at or past S are computed and
+//     not stored;
+//   - shared-memory rows are padded by 16 B (row pitch D + 8 bf16) rather
+//     than swizzled: the 8 rows that one ldmatrix phase reads then fall on 8
+//     distinct 16-B bank groups at every D;
+//   - Q's A fragments are loaded once per block with ldmatrix and stay in
+//     registers. K [key, d] row-major is already the .col B operand (ldmatrix
+//     without .trans); V [key, d] gives its B fragments through ldmatrix.trans;
+//   - P stays in registers: the fp32 C fragments of two adjacent n8 score
+//     tiles are, packed to bf16, one k16 A fragment of P.V;
+//   - q stays unscaled in bf16 (1/sqrt(32) is not a power of two); the scale
+//     enters the exponent as p = exp2(s*c - m*c), c = scale*log2(e): one FFMA
+//     and one ex2.approx.ftz per score. The max m is lazy: it moves (with the
+//     rescale of l and O) only when a row's sum over a tile leaves [0, 2^32],
+//     which the first tile always does, so the exponentials need no max over
+//     the fresh scores. The max and the denominator are fp32, the denominator
+//     summed from the fp32 p; p is rounded to bf16 only as the A operand of
+//     P.V.
+//
+// fp32 (flash_attention_fwd_kernel): the two products as fp32 FMAs on the CUDA
+// cores (TF32 could not meet fp32's tolerance). Bound by instruction issue; it
+// serves the fp32 tests and the tiny fp32 model, not the bf16 main path:
 //   - the block's q tile is staged once in shared memory as fp32, pre-scaled;
 //   - each K/V tile of 32 keys is staged in shared memory as fp32 (K rows
 //     padded by one float so that lane j reading key j is bank-conflict free);
@@ -20,26 +63,32 @@
 //     for P.V, lane j owns the output columns j, j+32, ... and reads the p's
 //     of the row back from shared memory as broadcasts;
 //   - the denominator is kept as a per-lane partial sum and reduced once.
-// Inputs are fp32 or bf16 (bf16 converted only through the intrinsics); the
-// arithmetic is fp32 on the CUDA cores throughout.
-//
-// What bounds it on the card: for the decoder-block-1 site at full domain
-// ([2, 7600, 4, 32] bf16, 59 GFLOP per call) the kernel does the two products
-// as fp32 FMAs, with shared-memory loads and shuffles beside them, so it is
-// bound by instruction issue on the CUDA cores, far below the tensor cores'
-// rate. Moving both products to wgmma (with TMA-fed K/V tiles) is the next
-// step; this first version is the simple, exact one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
+
+#include "mma_bf16.cuh"
 
 namespace {
+
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Element strides of q, k and v (batch, row); the output is contiguous.
+struct Strides {
+  int64_t qb, qr, kb, kr, vb, vr;
+};
+
+// ---------------------------------------------------------------------------
+// fp32: CUDA cores
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlockK = 32;  // keys per K/V tile: one per lane
-constexpr float kNegInf = -1e30f;
 
 // Rows per warp: fewer at D=128 so that the static shared memory stays under
 // 48 KB and the per-thread accumulator under 20 registers.
@@ -48,18 +97,6 @@ struct Tile {
   static constexpr int kRows = D >= 128 ? 4 : 8;
   static constexpr int kBlockQ = kWarps * kRows;
 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -73,11 +110,11 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int seq, int heads,
-                           float scale) {
+flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o, Strides st,
+                           int seq, int heads, float scale) {
   constexpr int kRows = Tile<D>::kRows;
   constexpr int kBlockQ = Tile<D>::kBlockQ;
   constexpr int kChunks = D / 32;  // output columns per lane
@@ -92,13 +129,16 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kBlockQ;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  // [B, S, H, D] addressing: row s of head h of sample b.
-  const int64_t row_stride = (int64_t)heads * D;
-  const int64_t base = (int64_t)b * seq * row_stride + (int64_t)h * D;
+  const float* qg = q + b * st.qb + h * D;
+  const float* kg = k + b * st.kb + h * D;
+  const float* vg = v + b * st.vb + h * D;
+  // the output: row s of head h of sample b in a contiguous [B, S, H, D]
+  const int64_t o_row = (int64_t)heads * D;
+  float* og = o + (int64_t)b * seq * o_row + h * D;
 
   for (int i = threadIdx.x; i < kBlockQ * D; i += kThreads) {
     const int r = i / D, d = i % D, s = q0 + r;
-    q_s[r][d] = s < seq ? to_float(q[base + s * row_stride + d]) * scale : 0.f;
+    q_s[r][d] = s < seq ? qg[s * st.qr + d] * scale : 0.f;
   }
 
   float m[kRows], l[kRows], acc[kRows][kChunks];
@@ -115,9 +155,8 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = threadIdx.x; i < kBlockK * D; i += kThreads) {
       const int j = i / D, d = i % D, s = k0 + j;
       const bool ok = s < seq;
-      const int64_t off = base + s * row_stride + d;
-      k_s[j][d] = ok ? to_float(k[off]) : 0.f;
-      v_s[j][d] = ok ? to_float(v[off]) : 0.f;
+      k_s[j][d] = ok ? kg[s * st.kr + d] : 0.f;
+      v_s[j][d] = ok ? vg[s * st.vr + d] : 0.f;
     }
     __syncthreads();
 
@@ -185,50 +224,344 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int s = q0 + warp * kRows + r;
     if (s < seq) {
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c)
-        o[base + s * row_stride + c * 32 + lane] = from_float<T>(acc[r][c] / denom);
+      for (int c = 0; c < kChunks; ++c) og[s * o_row + c * 32 + lane] = acc[r][c] / denom;
     }
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int batch, int seq, int heads,
-           float scale, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+
+constexpr int kTcBlockN = 64;  // keys per K/V tile
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; valid = false writes 16 zero
+// bytes and reads nothing (src-size 0).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
+// register i receives matrix i (lane l: row l/4, columns 2(l%4), +1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// The same, each matrix transposed (lane l: rows 2(l%4), +1 of column l/4).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  uint32_t r;
+  memcpy(&r, &v, sizeof(r));
+  return r;
+}
+
+// Block shape of the tensor-core variant: 4 warps of 16 query rows each, with
+// kStages K/V tiles of 64 keys in shared memory.
+template <int D>
+struct TcTile {
+  static constexpr int kThreads = 128;
+  static constexpr int kBlockM = 64;       // query rows per block: 16 per warp
+  static constexpr int kLd = D + 8;        // shared row pitch in bf16: D plus a 16-B pad
+  static constexpr int kChunks = D / 8;    // 16-B chunks per row
+  static constexpr int kStages = 3;
+  static constexpr int kSmemBytes = (kBlockM + 2 * kStages * kTcBlockN) * kLd * 2;  // Q, K, V
+};
+
+// Stage kRowsN rows of 16-B chunks starting at row r0 of `src` (row pitch
+// `stride` elements) into dst[kRowsN][kLd]; rows at or past seq are zero-filled.
+template <class T, int kRowsN>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           int64_t stride, int r0, int seq) {
+  static_assert(kRowsN * T::kChunks % T::kThreads == 0, "whole copies per thread");
+  const __nv_bfloat16* base = src + r0 * stride;
+  const bool whole = r0 + kRowsN <= seq;  // uniform: only the last tile is ragged
+#pragma unroll
+  for (int it = 0; it < kRowsN * T::kChunks / T::kThreads; ++it) {
+    const int i = threadIdx.x + it * T::kThreads;
+    const int r = i / T::kChunks, c = i % T::kChunks;
+    const int64_t off = r * stride + c * 8;  // the same for every tile: hoisted
+    if (whole) {
+      cp_async16(dst + r * T::kLd + c * 8, base + off, true);
+    } else {
+      const bool ok = r0 + r < seq;
+      cp_async16(dst + r * T::kLd + c * 8, ok ? base + off : src, ok);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(TcTile<D>::kThreads)
+flash_attention_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              __nv_bfloat16* __restrict__ o, Strides st, int seq, int heads,
+                              float scale) {
+  using T = TcTile<D>;
+  constexpr int kLd = T::kLd;
+  constexpr int kTile = kTcBlockN * kLd;   // elements of one staged K or V tile
+  constexpr int kKSteps = D / 16;          // k16 steps of Q K^T
+  constexpr int kSTiles = kTcBlockN / 8;   // n8 score tiles per K tile
+  constexpr int kPSteps = kTcBlockN / 16;  // k16 steps of P V
+  constexpr int kOTiles = D / 8;           // n8 output tiles
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [kBlockM][kLd]
+  __nv_bfloat16* k_s = q_s + T::kBlockM * kLd;                   // [kStages][64][kLd]
+  __nv_bfloat16* v_s = k_s + T::kStages * kTile;                 // [kStages][64][kLd]
+
+  const int b = blockIdx.y / heads;
+  const int h = blockIdx.y % heads;
+  const int q0 = blockIdx.x * T::kBlockM;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;      // fragment row group, thread in group
+  const int mat = lane / 8, mrow = lane % 8;  // ldmatrix: the matrix this lane addresses
+  const __nv_bfloat16* kg = k + b * st.kb + h * D;
+  const __nv_bfloat16* vg = v + b * st.vb + h * D;
+  const int n_tiles = (seq + kTcBlockN - 1) / kTcBlockN;
+
+  // K/V tile t goes to slot t % kStages, one cp.async group per tile (Q rides
+  // with tile 0); a group is committed every iteration, empty or not, so that
+  // "all but the newest group done" always means "tile t has landed".
+  auto stage_kv = [&](int t) {
+    const int slot = t % T::kStages;
+    stage_rows<T, kTcBlockN>(k_s + slot * kTile, kg, st.kr, t * kTcBlockN, seq);
+    stage_rows<T, kTcBlockN>(v_s + slot * kTile, vg, st.vr, t * kTcBlockN, seq);
+  };
+  stage_rows<T, T::kBlockM>(q_s, q + b * st.qb + h * D, st.qr, q0, seq);
+  stage_kv(0);
+  cp_async_commit();
+  if (n_tiles > 1) stage_kv(1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // Q's A fragments: matrix 0 rows 0-7 / cols 0-7, 1 rows 8-15, 2 cols 8-15,
+  // 3 rows 8-15 cols 8-15 of the warp's 16 rows and the k-step's 16 columns.
+  uint32_t qa[kKSteps][4];
+#pragma unroll
+  for (int kk = 0; kk < kKSteps; ++kk)
+    ldmatrix_x4(qa[kk], q_s + (warp * 16 + (mat % 2) * 8 + mrow) * kLd + kk * 16 + (mat / 2) * 8);
+
+  // row g (index 0) and row g + 8 (index 1) of the warp's 16
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[kOTiles][4];
+#pragma unroll
+  for (int n = 0; n < kOTiles; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const float c = scale * kLog2e;
+
+  // One K/V tile: its products and the online-softmax update. Only the last
+  // tile can hold keys at or past seq, so only its instance masks scores.
+  auto step = [&](const int t, auto ragged) {
+    cp_async_wait<1>();  // tile t has landed (tile t+1 may still be in flight) ...
+    __syncthreads();     // ... for every thread, and every warp is done with tile t-1
+    if (t + 2 < n_tiles) stage_kv(t + 2);  // into tile t-1's slot
+    cp_async_commit();
+    const __nv_bfloat16* ks = k_s + (t % T::kStages) * kTile;
+    const __nv_bfloat16* vs = v_s + (t % T::kStages) * kTile;
+
+    // S = Q K^T: for score tiles j, j+1 the x4 load gives K rows (keys)
+    // 8j.., 8(j+1).. at d columns kk*16 + {0, 8}: b[0..1] of tile j, b[2..3] of j+1
+    float s[kSTiles][4];
+#pragma unroll
+    for (int j = 0; j < kSTiles; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk)
+#pragma unroll
+      for (int j = 0; j < kSTiles; j += 2) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, ks + ((j + mat / 2) * 8 + mrow) * kLd + kk * 16 + (mat % 2) * 8);
+        mma_bf16(s[j], qa[kk], kb);
+        mma_bf16(s[j + 1], qa[kk], kb + 2);
+      }
+
+    // keys at or past seq (the ragged last tile only): score -1e30
+    if constexpr (decltype(ragged)::value) {
+      const int k0 = t * kTcBlockN;
+#pragma unroll
+      for (int j = 0; j < kSTiles; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + j * 8 + 2 * tq + (e & 1) >= seq) s[j][e] = kNegInf;
+    }
+
+    // Online softmax with a lazy max: p = exp2(s c - m c) against the running
+    // max m as it stands, and m moves only when a row's sum over the tile
+    // leaves [0, 2^32] (always on the first tile, where m = -1e30 gives inf).
+    // So the exponentials wait for no max over the fresh scores; any m gives
+    // the same softmax, and one that lags the true max by less than 32 (in
+    // log2 units) keeps every p and sum far inside fp32's range.
+    uint32_t pa[kPSteps][4];
+    float lt[2];  // this tile's row sums
+    auto exponentials = [&]() {
+      const float mc0 = m[0] * c, mc1 = m[1] * c;
+      lt[0] = lt[1] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kSTiles; ++j) {
+        const float p0 = exp2_approx(fmaf(s[j][0], c, -mc0));
+        const float p1 = exp2_approx(fmaf(s[j][1], c, -mc0));
+        const float p2 = exp2_approx(fmaf(s[j][2], c, -mc1));
+        const float p3 = exp2_approx(fmaf(s[j][3], c, -mc1));
+        lt[0] += p0 + p1;
+        lt[1] += p2 + p3;
+        // score tiles 2i and 2i+1 are the A fragment of k-step i
+        pa[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
+        pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+      }
+    };
+    exponentials();
+    const bool out_of_range = !(lt[0] <= 0x1p32f) || !(lt[1] <= 0x1p32f);  // also inf, NaN
+    if (__any_sync(0xffffffffu, out_of_range)) {
+      // move m to the running max (the four lanes of a quad share a row),
+      // rescale what was summed so far and redo this tile's exponentials
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int j = 0; j < kSTiles; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float alpha = exp2_approx((m[r] - mx) * c);
+        m[r] = mx;
+        l[r] *= alpha;
+#pragma unroll
+        for (int n = 0; n < kOTiles; ++n) {
+          acc[n][2 * r] *= alpha;
+          acc[n][2 * r + 1] *= alpha;
+        }
+      }
+      exponentials();
+    }
+    l[0] += lt[0];
+    l[1] += lt[1];
+
+    // O += P V: the transposed x4 load gives V rows (keys) i*16 + {0, 8}.. at
+    // d columns 8n.., 8(n+1)..: b[0..1] of output tile n, b[2..3] of n+1
+#pragma unroll
+    for (int i = 0; i < kPSteps; ++i)
+#pragma unroll
+      for (int n = 0; n < kOTiles; n += 2) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vs + (i * 16 + (mat % 2) * 8 + mrow) * kLd + (n + mat / 2) * 8);
+        mma_bf16(acc[n], pa[i], vb);
+        mma_bf16(acc[n + 1], pa[i], vb + 2);
+      }
+  };
+  for (int t = 0; t + 1 < n_tiles; ++t) step(t, std::false_type{});
+  step(n_tiles - 1, std::true_type{});
+
+  const int64_t o_row = (int64_t)heads * D;
+  __nv_bfloat16* og = o + (int64_t)b * seq * o_row + h * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float den = l[r];
+    den += __shfl_xor_sync(0xffffffffu, den, 1);
+    den += __shfl_xor_sync(0xffffffffu, den, 2);
+    den = fmaxf(den, 1e-30f);
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (row < seq) {
+#pragma unroll
+      for (int n = 0; n < kOTiles; ++n) {
+        const __nv_bfloat162 out =
+            __floats2bfloat162_rn(acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
+        *reinterpret_cast<__nv_bfloat162*>(og + row * o_row + n * 8 + 2 * tq) = out;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+
+template <int D>
+int launch_fp32(const void* q, const void* k, const void* v, void* o, Strides st, int batch,
+                int seq, int heads, float scale, cudaStream_t stream) {
   const dim3 grid((seq + Tile<D>::kBlockQ - 1) / Tile<D>::kBlockQ, batch * heads);
-  flash_attention_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), seq, heads, scale);
+  flash_attention_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), st, seq, heads, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dim(const void* q, const void* k, const void* v, void* o, int batch, int seq,
-               int heads, int head_dim, float scale, cudaStream_t stream) {
-  switch (head_dim) {
-    case 32: return launch<T, 32>(q, k, v, o, batch, seq, heads, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, batch, seq, heads, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, batch, seq, heads, scale, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* o, Strides st, int batch,
+              int seq, int heads, float scale, cudaStream_t stream) {
+  using T = TcTile<D>;
+  if (T::kSmemBytes > 48 * 1024) {  // above 48 KB only after opting in (per device)
+    const cudaError_t attr = cudaFuncSetAttribute(flash_attention_fwd_kernel_tc<D>,
+                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                  T::kSmemBytes);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
   }
+  const dim3 grid((seq + T::kBlockM - 1) / T::kBlockM, batch * heads);
+  flash_attention_fwd_kernel_tc<D><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), st, seq, heads,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dim(const void* q, const void* k, const void* v, void* o, Strides st, int batch,
+               int seq, int heads, int dtype, float scale, cudaStream_t s) {
+  if (dtype == 0) return launch_fp32<D>(q, k, v, o, st, batch, seq, heads, scale, s);
+  if (dtype == 1) return launch_tc<D>(q, k, v, o, st, batch, seq, heads, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, o: device pointers to contiguous [batch, seq, heads, head_dim]
-// arrays; dtype 0 = float32, 1 = bfloat16; head_dim in {32, 64, 128}.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-int sbgm_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int batch,
+// q, k, v: device pointers to [batch, seq, heads, head_dim] arrays with unit
+// stride on head_dim and head stride head_dim; *_batch / *_row are their
+// element strides (bf16: multiples of 8, 16-B aligned pointers). o: a
+// contiguous [batch, seq, heads, head_dim] array. dtype 0 = float32 (CUDA
+// cores), 1 = bfloat16 (tensor cores); head_dim in {32, 64, 128}. Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
+int sbgm_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                             long long q_batch, long long q_row, long long k_batch,
+                             long long k_row, long long v_batch, long long v_row, int batch,
                              int seq, int heads, int head_dim, int dtype, float scale,
                              void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0 || batch * heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  const Strides st{q_batch, q_row, k_batch, k_row, v_batch, v_row};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dim<float>(q, k, v, o, batch, seq, heads, head_dim, scale, s);
-  if (dtype == 1)
-    return launch_dim<__nv_bfloat16>(q, k, v, o, batch, seq, heads, head_dim, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (head_dim) {
+    case 32: return launch_dim<32>(q, k, v, o, st, batch, seq, heads, dtype, scale, s);
+    case 64: return launch_dim<64>(q, k, v, o, st, batch, seq, heads, dtype, scale, s);
+    case 128: return launch_dim<128>(q, k, v, o, st, batch, seq, heads, dtype, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* sbgm_cuda_error_string(int code) {

@@ -4,9 +4,10 @@ Each kernel source exports a plain C interface: its launch functions return
 ``cudaGetLastError()`` and ``sbgm_cuda_error_string`` turns that code into
 text. The source is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``sbgm_danra_tpu_torch/_build/`` (listed in ``.gitignore``), under a name
-that hashes the source with the flags, so an edited source builds anew and an
-unchanged one is loaded as it is. The library is loaded with ``ctypes``; the
-kernel modules set their functions' argument types.
+that hashes the source, the headers of ``csrc`` it includes and the flags, so
+an edited source or header builds anew and an unchanged one is loaded as it
+is. The library is loaded with ``ctypes``; the kernel modules set their
+functions' argument types.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -53,11 +55,19 @@ def find_nvcc() -> str:
     )
 
 
+def digest(source: Path) -> str:
+    """Hash of ``source``, the local headers it includes (``#include "..."``,
+    beside it) and the flags."""
+    text = source.read_bytes()
+    headers = re.findall(rb'^#include "([^"]+)"', text, re.M)
+    parts = [text, *((source.parent / h.decode()).read_bytes() for h in headers)]
+    return hashlib.sha256(b"\0".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()
+
+
 def build(source: Path, name: str) -> BuiltLibrary:
     """Compile ``source`` into ``_build/lib<name>_<hash>.so`` unless it is there; load it."""
     nvcc = find_nvcc()
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    path = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    path = BUILD_DIR / f"lib{name}_{digest(source)[:16]}.so"
     log = ""
     t0 = time.perf_counter()
     compiled = not path.exists()

@@ -8,10 +8,23 @@ design and what bounds it on the card. ``ops/_nvcc.py`` compiles it with
 first use, and loads it with ``ctypes``.
 
 - ``flash_attention_cuda``: the kernel's entry point. CUDA tensors only; it
-  raises on anything else, and raises if the build or the launch fails.
+  raises on anything else, and raises if the build or the launch fails. A
+  bfloat16 call runs the tensor-core variant (``tc_bf16``), a float32 call the
+  CUDA-core variant (``fp32``).
+- ``kernel_layout``: the wrapper's checks as a pure function of shapes,
+  strides, dtypes and addresses: the variant, the head dim the kernel is built
+  for and the strides it is handed, or an error.
 - ``flash_attention_reference``: dense softmax(q k^T / sqrt(D)) v in fp32, the
   plain version the CPU tests and the card comparison use.
-- ``launches``: how many times the kernel was launched in this process.
+- ``launches``: how many times the kernel was launched in this process;
+  ``launches_by_variant`` the same by variant.
+
+q, k and v may be strided views, as the chunks of a packed QKV projection
+are: the kernel takes each one's batch and row strides. It needs a unit
+stride on D and the heads of a row packed (head stride D); bf16 rows must be
+16-byte aligned, since the kernel copies them 16 bytes at a time. A head dim
+that is padded up to a supported one is copied anyway, so any layout is taken
+there. The output is a fresh contiguous [B, S, H, D].
 
 Gradient: not yet. The JAX kernel's VJP recomputes dense attention
 (pallas_attention.py:143-146); the port's backward lands with training, and
@@ -23,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -31,9 +45,21 @@ from sbgm_danra_tpu_torch.ops import _nvcc
 
 SOURCE = _nvcc.CSRC_DIR / "flash_attention.cu"
 HEAD_DIMS = (32, 64, 128)
+VARIANTS = {torch.bfloat16: "tc_bf16", torch.float32: "fp32"}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_GRID_Y = 65535  # batch * heads is the grid's y dimension
 
 launches = 0
+launches_by_variant = {name: 0 for name in VARIANTS.values()}
+
+
+class KernelLayout(NamedTuple):
+    """What the kernel is handed for one call."""
+
+    variant: str       # "tc_bf16" or "fp32"
+    head_dim: int      # D of the kernel's instantiation (the input's, padded)
+    padded: bool       # True: q, k, v are copied zero-padded to head_dim
+    strides: tuple     # ((batch, row) element strides of q, k and v as the kernel reads them)
 
 
 @functools.lru_cache(maxsize=1)
@@ -42,8 +68,8 @@ def build_library() -> _nvcc.BuiltLibrary:
     built = _nvcc.build(SOURCE, "sbgm_flash_attention")
     built.lib.sbgm_flash_attention_fwd.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p,
+        *[ctypes.c_longlong] * 6,
+        *[ctypes.c_int] * 5, ctypes.c_float, ctypes.c_void_p,
     ]
     built.lib.sbgm_flash_attention_fwd.restype = ctypes.c_int
     return built
@@ -56,6 +82,39 @@ def _padded_head_dim(d: int) -> int:
     raise ValueError(f"head_dim {d} > {HEAD_DIMS[-1]} is not supported by the CUDA kernel")
 
 
+def kernel_layout(shapes, strides, dtypes, addresses) -> KernelLayout:
+    """Check one call's q, k, v (one entry each in every argument: shape,
+    element strides, dtype, byte address) and return what the kernel gets."""
+    shape = tuple(shapes[0])
+    if any(len(s) != 4 or tuple(s) != shape for s in shapes) or len(set(dtypes)) != 1:
+        raise ValueError(
+            f"q, k, v must share one [B, S, H, D] shape, dtype and device; got shapes "
+            f"{[tuple(s) for s in shapes]} and dtypes {list(dtypes)}"
+        )
+    dtype = dtypes[0]
+    if dtype not in VARIANTS:
+        raise TypeError(f"dtype {dtype} not supported (float32 or bfloat16)")
+    b, s, h, d = shape
+    if b * h > _MAX_GRID_Y:
+        raise ValueError(f"batch*heads = {b * h} exceeds the kernel grid limit {_MAX_GRID_Y}")
+    dp = _padded_head_dim(d)
+    if dp != d:  # the padded copies are contiguous
+        return KernelLayout(VARIANTS[dtype], dp, True, ((s * h * dp, h * dp),) * 3)
+    item = 2 if dtype == torch.bfloat16 else 4
+    for name, st, addr in zip("qkv", strides, addresses):
+        if d > 1 and st[3] != 1:
+            raise ValueError(f"{name}: the kernel needs a unit stride on D; got strides {st}")
+        if h > 1 and st[2] != d:
+            raise ValueError(f"{name}: the kernel needs head stride == D = {d}; got strides {st}")
+        if dtype == torch.bfloat16 and (
+            addr % 16 or (b > 1 and st[0] * item % 16) or (s > 1 and st[1] * item % 16)
+        ):
+            raise ValueError(
+                f"{name}: bf16 rows must be 16-byte aligned (address {addr}, strides {st})"
+            )
+    return KernelLayout(VARIANTS[dtype], d, False, tuple((st[0], st[1]) for st in strides))
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     global launches
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -65,34 +124,29 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
                 f"flash_attention_cuda launches a CUDA kernel and needs CUDA tensors; "
                 f"{name} is on {where} (use flash_attention_reference off the card)"
             )
-        if x.dtype not in _DTYPE_CODES:
-            raise TypeError(f"{name}: dtype {x.dtype} not supported (float32 or bfloat16)")
-        if x.dim() != 4 or x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
-            raise ValueError(
-                f"q, k, v must share one [B, S, H, D] shape, dtype and device; "
-                f"got {tuple(q.shape)}/{q.dtype}/{q.device} and "
-                f"{tuple(x.shape)}/{x.dtype}/{x.device} for {name}"
-            )
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if x.device != q.device:
+            raise ValueError(f"q, k, v must share one [B, S, H, D] shape, dtype and device; "
+                             f"{name} is on {x.device}, q on {q.device}")
+    layout = kernel_layout(*zip(*((x.shape, x.stride(), x.dtype, x.data_ptr())
+                                  for x in (q, k, v))))
     b, s, h, d = q.shape
-    if b * h > 65535:
-        raise ValueError(f"batch*heads = {b * h} exceeds the kernel grid limit 65535")
-    dp = _padded_head_dim(d)
-    if dp != d:
+    dp = layout.head_dim
+    if layout.padded:
         # zero columns change no score and give zero output columns
         q, k, v = (F.pad(x, (0, dp - d)) for x in (q, k, v))
-    out = torch.empty_like(q)
+    out = torch.empty((b, s, h, dp), dtype=q.dtype, device=q.device)
     built = build_library()
     with torch.cuda.device(q.device):
         rc = built.lib.sbgm_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *(st for pair in layout.strides for st in pair),
             b, s, h, dp, _DTYPE_CODES[q.dtype], ctypes.c_float(1.0 / math.sqrt(d)),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     _nvcc.check_launch(built, rc, "flash attention")
     launches += 1
-    return out[..., :d] if dp != d else out
+    launches_by_variant[layout.variant] += 1
+    return out[..., :d].contiguous() if layout.padded else out
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -109,7 +163,7 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T / sqrt(D)) v on the card for contiguous q/k/v [B, S, H, D]."""
+    """softmax(q k^T / sqrt(D)) v on the card for q/k/v [B, S, H, D] (see kernel_layout)."""
     return _FlashAttention.apply(q, k, v)
 
 

@@ -4,7 +4,9 @@ Counterpart of ``sbgm_danra_tpu/ops/flash_attention.py:31-42``: long token
 counts on the card go to the hand-written CUDA flash kernel
 (``ops/cuda_attention.py``), shorter ones to dense attention, which JAX leaves
 to XLA and the port leaves to PyTorch's ``scaled_dot_product_attention``.
-Tensors on the CPU take the kernel's plain version.
+Tensors on the CPU take the kernel's plain version. q, k and v reach the
+kernel as they come (the model's are strided chunks of its packed QKV
+projection, which the kernel reads in place).
 """
 
 from __future__ import annotations
@@ -36,5 +38,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v)
     if _FORCE_KERNEL or q.shape[1] >= _MIN_TOKENS_FOR_KERNEL:
-        return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous())
+        return flash_attention_cuda(q, k, v)
     return dense_attention(q, k, v)

@@ -15,9 +15,11 @@ from sbgm_danra_tpu_torch.models.attention import SpatialSelfAttention
 from sbgm_danra_tpu_torch.ops import _nvcc, cuda_attention
 from sbgm_danra_tpu_torch.ops import flash_attention as fa
 from sbgm_danra_tpu_torch.ops.cuda_attention import (
+    KernelLayout,
     _padded_head_dim,
     flash_attention_cuda,
     flash_attention_reference,
+    kernel_layout,
 )
 from tests.torch_parity import random_variables
 
@@ -64,6 +66,15 @@ class TestDispatcher:
         torch.testing.assert_close(fa.dense_attention(q, k, v),
                                    flash_attention_reference(q, k, v), rtol=1e-5, atol=1e-5)
 
+    def test_views_reach_the_kernel_uncopied(self, monkeypatch):
+        """The dispatcher hands the model's strided QKV chunks to the kernel as
+        they are (the kernel reads them in place)."""
+        seen = []
+        monkeypatch.setattr(fa, "flash_attention_cuda", lambda *qkv: seen.extend(qkv) or qkv[0])
+        q, k, v = _packed_views(2, 4096, 4, 32)
+        fa.flash_attention(q, k, v)
+        assert all(a is b for a, b in zip(seen, (q, k, v)))
+
     @pytest.mark.parametrize(
         "s, forced, route",
         [(4096, False, "kernel"), (7600, False, "kernel"), (4095, False, "dense"),
@@ -101,6 +112,18 @@ class TestCudaEntryPoint:
         finally:
             cuda_attention.build_library.cache_clear()
 
+    def test_build_hash_covers_included_headers(self, tmp_path):
+        """An edited header of csrc builds anew: the library name hashes the
+        local headers a source includes."""
+        (tmp_path / "h.cuh").write_text("// v1\n")
+        source = tmp_path / "k.cu"
+        source.write_text('#include <stdint.h>\n#include "h.cuh"\nint f() { return 0; }\n')
+        before = _nvcc.digest(source)
+        (tmp_path / "h.cuh").write_text("// v2\n")
+        assert _nvcc.digest(source) != before
+        assert _nvcc.digest(_nvcc.CSRC_DIR / "flash_attention.cu") != _nvcc.digest(
+            _nvcc.CSRC_DIR / "conv3x3_gn.cu")
+
     @pytest.mark.parametrize("d, padded", [(8, 32), (24, 32), (32, 32), (33, 64), (128, 128)])
     def test_head_dim_padding(self, d, padded):
         assert _padded_head_dim(d) == padded
@@ -112,6 +135,88 @@ class TestCudaEntryPoint:
     def test_backward_raises(self):
         with pytest.raises(NotImplementedError, match="backward"):
             cuda_attention._FlashAttention.backward(None, torch.zeros(1))
+
+
+def _layout(*tensors):
+    """kernel_layout of meta tensors: shapes, strides, dtypes and (offset) addresses."""
+    return kernel_layout(*zip(*((x.shape, x.stride(), x.dtype, x.data_ptr()) for x in tensors)))
+
+
+def _packed_views(b, s, h, d, dtype=torch.bfloat16):
+    """q, k, v as the model makes them: chunks of one [B, S, 3C] projection."""
+    qkv = torch.empty(b, s, 3 * h * d, dtype=dtype, device="meta")
+    return [t.reshape(b, s, h, d) for t in qkv.chunk(3, dim=-1)]
+
+
+class TestKernelLayout:
+    """The wrapper's checks, without a card: what the kernel is handed."""
+
+    def test_packed_qkv_views_pass_with_row_stride_3c(self):
+        q, k, v = _packed_views(2, 7600, 4, 32)
+        assert _layout(q, k, v) == KernelLayout("tc_bf16", 32, False, ((7600 * 384, 384),) * 3)
+
+    @pytest.mark.parametrize("dtype, variant", [(torch.bfloat16, "tc_bf16"),
+                                                (torch.float32, "fp32")])
+    def test_variant_chosen_by_dtype(self, dtype, variant):
+        x = torch.empty(1, 64, 2, 32, dtype=dtype, device="meta")
+        assert _layout(x, x, x) == KernelLayout(variant, 32, False, ((4096, 64),) * 3)
+
+    def test_head_dim_24_pads_to_32(self):
+        """The padded copies are contiguous, so any layout is taken."""
+        q, k, v = _packed_views(2, 1000, 2, 24)
+        assert _layout(q, k, v) == KernelLayout("tc_bf16", 32, True, ((1000 * 64, 64),) * 3)
+
+    def test_refuses_non_unit_d_stride(self):
+        x = torch.empty(1, 64, 32, 2, dtype=torch.bfloat16, device="meta").transpose(2, 3)
+        with pytest.raises(ValueError, match="unit stride on D"):
+            _layout(x, x, x)
+
+    def test_refuses_head_stride_other_than_d(self):
+        x = torch.empty(1, 64, 2, 64, dtype=torch.bfloat16, device="meta")[..., :32]
+        with pytest.raises(ValueError, match="head stride == D"):
+            _layout(x, x, x)
+
+    def test_refuses_mixed_dtypes(self):
+        x = torch.empty(1, 64, 2, 32, device="meta")
+        with pytest.raises(ValueError, match="share one"):
+            _layout(x, x.bfloat16(), x)
+
+    def test_refuses_mixed_shapes(self):
+        x = torch.empty(1, 64, 2, 32, device="meta")
+        with pytest.raises(ValueError, match="share one"):
+            _layout(x, x[:, :32], x)
+
+    def test_refuses_unsupported_dtype(self):
+        x = torch.empty(1, 64, 2, 32, dtype=torch.float16, device="meta")
+        with pytest.raises(TypeError, match="float16"):
+            _layout(x, x, x)
+
+    def test_refuses_head_dim_above_128(self):
+        x = torch.empty(1, 64, 2, 160, dtype=torch.bfloat16, device="meta")
+        with pytest.raises(ValueError, match="head_dim 160"):
+            _layout(x, x, x)
+
+    @pytest.mark.parametrize("dtype, ok", [(torch.bfloat16, False), (torch.float32, True)])
+    def test_bf16_rows_must_be_16_byte_aligned(self, dtype, ok):
+        """Row stride 68 elements: 136 bytes in bf16 (refused, the kernel copies
+        rows 16 bytes at a time), 272 in fp32 (taken)."""
+        x = torch.empty(1, 64, 68, dtype=dtype, device="meta")[..., :64].reshape(1, 64, 2, 32)
+        if ok:
+            assert _layout(x, x, x).strides == ((4352, 68),) * 3
+        else:
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                _layout(x, x, x)
+
+    def test_bf16_address_must_be_16_byte_aligned(self):
+        base = torch.empty(4 + 64 * 64, dtype=torch.bfloat16, device="meta")
+        x = base[4:].view(1, 64, 2, 32)  # 8 bytes past an aligned address
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            _layout(x, x, x)
+
+    def test_refuses_grid_above_limit(self):
+        x = torch.empty(65536, 1, 1, 32, dtype=torch.bfloat16, device="meta")
+        with pytest.raises(ValueError, match="grid limit"):
+            _layout(x, x, x)
 
 
 def _jax_attention_variables(channels, heads, seed):

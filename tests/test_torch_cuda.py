@@ -41,13 +41,75 @@ def test_fp32_matches_plain_version(cuda, shape):
                                rtol=2e-5, atol=2e-5)
 
 
-def test_bf16_matches_plain_version(cuda):
-    """bf16 output rounding (half an ulp is up to ~8e-3 near 2): 2e-2 abs
-    against the fp32 plain version on the same bf16-rounded inputs."""
+def _bf16_tolerance(want):
+    """P is rounded to bf16 as the A operand of P.V, and the output to bf16:
+    2^-8 |ref| + 2^-8 max|ref| against the fp32 plain version."""
+    return 2.0**-8 * want.abs() + 2.0**-8 * want.abs().max()
+
+
+@pytest.mark.parametrize("shape", [(2, 7600, 4, 32), (1, 4096, 4, 64), (2, 300, 4, 128),
+                                   (1, 33, 1, 32), (2, 1000, 2, 24)])
+def test_bf16_matches_plain_version(cuda, shape):
+    """The tensor-core variant against the fp32 plain version on the same
+    bf16-rounded inputs (tolerance: _bf16_tolerance)."""
+    q, k, v = _qkv(shape, torch.bfloat16, cuda)
+    before = dict(cuda_attention.launches_by_variant)
+    got = flash_attention_cuda(q, k, v).float()
+    assert cuda_attention.launches_by_variant == {**before, "tc_bf16": before["tc_bf16"] + 1}
+    want = flash_attention_reference(q.float(), k.float(), v.float())
+    assert ((got - want).abs() <= _bf16_tolerance(want)).all()
+
+
+@pytest.mark.parametrize("first_large_key", [4000, 7590])
+def test_bf16_late_keys_far_above_the_early_max(cuda, first_large_key):
+    """Keys past first_large_key score up to hundreds (in log2 units) above
+    the earlier ones, so the running max must move far beyond the first
+    tiles' (the kernel's rescale path), in a middle tile and in the ragged
+    last one."""
     q, k, v = _qkv((2, 7600, 4, 32), torch.bfloat16, cuda)
+    k[:, first_large_key:] *= 40
     got = flash_attention_cuda(q, k, v).float()
     want = flash_attention_reference(q.float(), k.float(), v.float())
-    assert (got - want).abs().max().item() <= 2e-2
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= _bf16_tolerance(want)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 7600, 4, 32), (1, 1000, 2, 64), (2, 33, 2, 24)])
+def test_packed_qkv_views_bit_identical_to_contiguous(cuda, shape, dtype):
+    """q, k, v as chunks of one packed [B, S, 3C] tensor (row stride 3C, as
+    the model passes them) give exactly the result of contiguous copies."""
+    b, s, h, d = shape
+    g = torch.Generator(cuda).manual_seed(1)
+    packed = torch.randn(b, s, 3 * h * d, generator=g, device=cuda).to(dtype)
+    q, k, v = (t.reshape(shape) for t in packed.chunk(3, dim=-1))
+    assert not q.is_contiguous()
+    got = flash_attention_cuda(q, k, v)
+    assert got.is_contiguous()
+    assert torch.equal(got, flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous()))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_repeated_calls_bit_identical(cuda, dtype):
+    q, k, v = _qkv((2, 7600, 4, 32), dtype, cuda)
+    first = flash_attention_cuda(q, k, v)
+    for _ in range(3):
+        assert torch.equal(flash_attention_cuda(q, k, v), first)
+
+
+@pytest.mark.parametrize("dtype, variant", [(torch.bfloat16, "tc_bf16"), (torch.float32, "fp32")])
+def test_variant_chosen_by_dtype(cuda, dtype, variant):
+    q, k, v = _qkv((1, 64, 2, 32), dtype, cuda)
+    before = dict(cuda_attention.launches_by_variant)
+    flash_attention_cuda(q, k, v)
+    assert cuda_attention.launches_by_variant == {**before, variant: before[variant] + 1}
+
+
+def test_rejects_unaligned_bf16_rows(cuda):
+    x = torch.zeros(1, 64, 2 * 32 + 4, device=cuda, dtype=torch.bfloat16)[..., :64]
+    q = x.reshape(1, 64, 2, 32)  # row stride 68 elements = 136 bytes
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_cuda(q, q, q)
 
 
 def test_dispatcher_counts_one_launch_per_long_call(cuda):
