@@ -25,8 +25,17 @@ Phases, one JSON line each on stdout:
      the output to bf16);
    - K1 conv3x3 + GroupNorm (``conv3x3_stats`` then ``gn_apply``) at every
      decoder chain shape of the 128-px path (batch 16, bf16 and fp32), of the
-     608x800 path (batch 2) and at the two ``perf_probe`` shapes (batch 26);
-     tolerances in each row;
+     608x800 path (batch 2), at the two ``perf_probe`` shapes (batch 26) and
+     at ragged shapes (H, W off every tile, Cin and Cout off the chunk and off
+     64), where every launch shape the plan could choose is forced in turn
+     and held to the same tolerance; each row names the variant, tile and
+     chunk the plan chose and gives ``ms`` (the wrapper as the model calls
+     it) beside ``kernel_ms`` (the kernel's device time alone with its operands
+     cold, as the bound's bytes at the memory rate assume: a CUDA-graph replay
+     of 20 calls, each on its own copy of the operands, after a flush of L2;
+     ``profile_port.device_ms``), and ``library_ms`` (one PyTorch call) beside
+     ``library_kernel_ms`` (the device time of the kernels that call launches,
+     measured the same way); tolerances in each row;
 4. model: a tiny fp32 UNet on the card against the same weights on the CPU
    (TF32 off, attention kernel forced: max |err| <= 1e-4 max |ref|, with 8 K1
    launches), and flagship bf16 forwards at 128 px (batch 16) and 608x800
@@ -54,6 +63,7 @@ prints nothing on stdout.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -65,6 +75,8 @@ from http.server import ThreadingHTTPServer
 
 import numpy as np
 import torch
+
+from profile_port import CHAINS_128, CHAINS_FULL, COLD_COPIES, K1_RAGGED, device_ms
 
 FULL_DOMAIN = (589, 789)
 EDM_NODES = 18
@@ -93,15 +105,6 @@ K2_SHAPES = [  # (shape, dtype, packed QKV chunks, through the dispatcher with t
 K2_VARIANT = {torch.bfloat16: "tc_bf16", torch.float32: "fp32"}
 BF16_TOLERANCE = ("bf16: |err| <= 2^-8 |ref| + 2^-8 max|ref| against the fp32 plain version on "
                   "the same bf16-rounded inputs (P rounded to bf16 for P.V, bf16 output)")
-
-
-# Decoder chains (H, W, Cin, Cout) of one flagship UNet evaluation, blocks 0-3,
-# conv_up -> norm1 then conv -> norm2; block 3's two chains share a shape.
-CHAINS_128 = [(8, 8, 512, 512), (8, 8, 512, 256), (16, 16, 256, 256), (16, 16, 256, 128),
-              (32, 32, 128, 128), (32, 32, 128, 64), (64, 64, 64, 64), (64, 64, 64, 64)]
-CHAINS_FULL = [(38, 50, 512, 512), (38, 50, 512, 256), (76, 100, 256, 256),
-               (76, 100, 256, 128), (152, 200, 128, 128), (152, 200, 128, 64),
-               (304, 400, 64, 64), (304, 400, 64, 64)]
 K1_SHAPES = (  # (path, batch, (H, W, Cin, Cout), dtype, activation)
     [("serve-128", 16, c, torch.bfloat16, False) for c in dict.fromkeys(CHAINS_128)]
     + [("serve-128", 16, c, torch.float32, False) for c in dict.fromkeys(CHAINS_128)]
@@ -109,6 +112,8 @@ K1_SHAPES = (  # (path, batch, (H, W, Cin, Cout), dtype, activation)
     + [("perf_probe", 26, (64, 64, 64, 64), torch.bfloat16, False),
        ("perf_probe", 26, (32, 32, 128, 64), torch.bfloat16, False),
        ("perf_probe", 26, (64, 64, 64, 64), torch.bfloat16, True)]
+    + [("ragged", n, c, dt, False) for dt in (torch.bfloat16, torch.float32)
+       for n, c in K1_RAGGED]
 )
 
 
@@ -163,6 +168,12 @@ def cuda_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def cold_ms(call, *operands) -> float:
+    """``call(*operands)``'s device time with the operands cold (``device_ms``)."""
+    copies = [[t.clone() for t in operands] for _ in range(COLD_COPIES)]
+    return device_ms(torch, [functools.partial(call, *c) for c in copies])
 
 
 def _k2_inputs(shape, dtype, packed, gen, dev):
@@ -256,6 +267,10 @@ def phase_conv_gn_kernel(dev):
         conv, stats = k1.conv3x3_stats(x, kernel, bias, groups)
         out = k1.gn_apply(conv, stats, gamma, beta, groups, activation=act)
         torch.cuda.synchronize()
+        again = k1.conv3x3_stats(x, kernel, bias, groups)
+        repeat_identical = (torch.equal(again[0], conv) and torch.equal(again[1], stats)
+                            and torch.equal(k1.gn_apply(*again, gamma, beta, groups,
+                                                        activation=act), out))
         plain_conv, plain_stats = k1.plain_conv3x3_stats(x.float(), kernel.to(dtype),
                                                          bias.to(dtype), groups)
         conv_err = (conv.float() - plain_conv).abs()
@@ -291,9 +306,36 @@ def phase_conv_gn_kernel(dev):
                          "ulp (<= 2^-8 relative), which the normalisation carries into |ref|")
         stats_ok = stats_rel <= 1e-4
         args = (x, kernel, bias, groups)
+        chosen = k1.plan(n, h, w, cin, cout, dtype)
+        forced = {}
+        if path == "ragged" and dtype == torch.bfloat16:
+            # every launch shape that fits, at the same tolerance; and on x at the
+            # end of a buffer with NaN behind it, which must change no bit: a Cin
+            # off the chunk is zero-filled, not read past
+            x_tail = torch.full((x.numel() + 256,), float("nan"), dtype=dtype, device=dev)
+            x_tail = x_tail[:x.numel()].view(x.shape).copy_(x)
+            for force in k1.LAUNCH_SHAPES:
+                try:
+                    k1.plan(n, h, w, cin, cout, dtype, force=force)
+                except ValueError:
+                    continue  # above the shared memory a block may use
+                f_conv, f_stats = k1.conv3x3_stats(*args, force=force)
+                f_err = (f_conv.float() - plain_conv).abs()
+                f_ok = bool((f_err <= 4e-3 * plain_conv.abs()
+                             + 1e-4 * plain_conv.abs().max()).all())
+                f_rel = ((f_stats - plain_stats).abs().max() / plain_stats.abs().max()).item()
+                t_conv, t_stats = k1.conv3x3_stats(x_tail, kernel, bias, groups, force=force)
+                tail_ok = torch.equal(t_conv, f_conv) and torch.equal(t_stats, f_stats)
+                forced["x".join(map(str, map(int, force)))] = dict(
+                    max_abs_err=f_err.max().item(), stats_rel_err=f_rel,
+                    nan_behind_x_changes_nothing=tail_ok,
+                    ok=f_ok and f_rel <= 1e-4 and tail_ok)
         ms_conv = cuda_ms(lambda: k1.conv3x3_stats(*args), 20)
         ms_apply = cuda_ms(lambda: k1.gn_apply(conv, stats, gamma, beta, groups,
                                                activation=act), 20)
+        kernel_ms_conv = cold_ms(lambda *a: k1.conv3x3_stats(*a, groups), x, kernel, bias)
+        kernel_ms_apply = cold_ms(lambda *a: k1.gn_apply(*a, groups, activation=act),
+                                  conv, stats, gamma, beta)
         plain_ms_conv = cuda_ms(lambda: k1.plain_conv3x3_stats(*args), 5)
         plain_ms_apply = cuda_ms(lambda: k1.plain_gn_apply(conv, stats, gamma, beta, groups,
                                                            activation=act), 5)
@@ -305,11 +347,13 @@ def phase_conv_gn_kernel(dev):
         g_d, b_d, bias_d = gamma.to(dtype), beta.to(dtype), bias.to(dtype)
         lib_conv = cuda_ms(lambda: F.conv2d(x_nchw, w_oihw, bias_d, padding=1), 20)
 
-        def lib_gn():
-            y = F.group_norm(conv_nchw, groups, g_d, b_d, 1e-5)
+        def lib_gn(c=conv_nchw, g=g_d, b=b_d):
+            y = F.group_norm(c, groups, g, b, 1e-5)
             return torch.relu(y) if act else y
 
         lib_apply = cuda_ms(lib_gn, 20)
+        lib_kernel_conv = cold_ms(lambda *a: F.conv2d(*a, padding=1), x_nchw, w_oihw, bias_d)
+        lib_kernel_apply = cold_ms(lib_gn, conv_nchw, g_d, b_d)
         es, pixels = x.element_size(), n * h * w
         flops = 2.0 * 9 * cin * cout * pixels
         conv_bytes = (pixels * (cin + cout) + 9 * cin * cout) * es + 4 * (cout + 2 * n * groups)
@@ -317,17 +361,27 @@ def phase_conv_gn_kernel(dev):
         row = dict(phase="kernel", kernel="conv3x3_gn", path=path, batch=n,
                    hw=[h, w], cin=cin, cout=cout, groups=groups,
                    dtype=str(dtype).split(".")[-1], activation=act,
-                   conv3x3_stats=dict(max_abs_err=conv_err.max().item(), ok=conv_ok,
+                   repeat_bit_identical=repeat_identical,
+                   conv3x3_stats=dict(variant=chosen.variant, tile=list(chosen.tile),
+                                      chunk=chosen.chunk, grid=list(chosen.grid),
+                                      shared_bytes=chosen.shared_bytes,
+                                      forced_rows_cols_chunk_resident=forced,
+                                      max_abs_err=conv_err.max().item(), ok=conv_ok,
                                       tolerance=conv_tol, stats_rel_err=stats_rel,
-                                      stats_ok=stats_ok, ms=ms_conv, plain_ms=plain_ms_conv,
+                                      stats_ok=stats_ok, ms=ms_conv,
+                                      kernel_ms=kernel_ms_conv, plain_ms=plain_ms_conv,
                                       library_ms=lib_conv, library="F.conv2d",
+                                      library_kernel_ms=lib_kernel_conv,
                                       **bound(flops, conv_bytes, dtype)),
                    gn_apply=dict(max_abs_err=apply_err, ok=apply_ok, tolerance=out_tol,
-                                 ms=ms_apply, plain_ms=plain_ms_apply, library_ms=lib_apply,
+                                 ms=ms_apply, kernel_ms=kernel_ms_apply,
+                                 plain_ms=plain_ms_apply, library_ms=lib_apply,
+                                 library_kernel_ms=lib_kernel_apply,
                                  library="F.group_norm" + (" + relu" if act else ""),
                                  **bound(4.0 * pixels * cout, apply_bytes, torch.float32)),
                    chain=dict(max_abs_err=chain_err, ok=chain_ok, tolerance=chain_tol,
                               ms=ms_conv + ms_apply,
+                              kernel_ms=kernel_ms_conv + kernel_ms_apply,
                               plain_ms=plain_ms_conv + plain_ms_apply,
                               library_ms=lib_conv + lib_apply))
         emit(**row)
@@ -335,6 +389,11 @@ def phase_conv_gn_kernel(dev):
               f"K1 disagrees with its plain version at {path} {n}x{h}x{w}x{cin}->{cout} "
               f"{dtype}: conv {conv_err.max().item()}, stats {stats_rel}, apply {apply_err}, "
               f"chain {chain_err}")
+        check(repeat_identical, f"K1 did not repeat bit-identically at {path} "
+                                f"{n}x{h}x{w}x{cin}->{cout} {dtype}")
+        check(all(f["ok"] for f in forced.values()),
+              f"a forced launch shape of conv3x3_stats disagrees at {n}x{h}x{w}x{cin}->{cout}: "
+              f"{forced}")
         rows.append(row)
     torch.backends.cudnn.allow_tf32 = True
     return rows
@@ -656,7 +715,8 @@ def _k1_summary(rows, kernel: str) -> dict:
                 if r["path"] == "full-domain"}
     chains = [by_shape[c] for c in CHAINS_FULL]
     total = {key: sum(c[key] for c in chains)
-             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+             for key in ("ms", "kernel_ms", "plain_ms", "library_ms", "library_kernel_ms",
+                         "bound_ms")}
     ops = sum(c["bound_ms"] for c in chains if c["bound_by"] == "operations")
     return dict(max_abs_err=max(r[kernel]["max_abs_err"] for r in rows), **total,
                 bound_by="operations" if ops >= total["bound_ms"] / 2 else "bytes",

@@ -20,6 +20,27 @@ kernels by name, device busy time (the union of kernel intervals) and the
 idle share of the profiled window. One JSON object per path on stdout, all of
 them in ``--out``. Without a CUDA card it exits 1.
 
+``--paths k1`` times K1's two kernels alone (``conv3x3_stats`` and
+``gn_apply`` on seeded inputs, bf16) at the decoder chains of the 608x800 path
+(batch 2) and the 128-px path (batch 16) and at ragged shapes: ``ms`` (the
+wrapper as the model calls it, mean of 20 calls after a warm-up),
+``kernel_ms`` (the kernel's device time alone with its operands cold: a
+CUDA-graph replay of 20 calls, each on its own copy of the operands, after a
+flush of L2, which is what the bound's bytes at the HBM rate assume) beside
+``kernel_warm_ms`` (the same 20 calls on one set of operands, which L2 then
+serves where they fit in its 50 MB; in the model a chain's input was written
+by the kernel before it, so the truth lies between), cuDNN's ``F.conv2d`` and
+``F.group_norm`` (the call, and the device time of the kernels it launches,
+measured the same two ways), the card's bound, and the errors against the
+plain versions. One JSON object per shape, then the host's time per chain call
+(enqueue only) and the sums per path. With ``--k1-sweep`` every launch shape
+``plan`` can choose is forced in turn and timed (kernel time only, cold),
+which is how the plan's choices were made.
+
+The decoder's chain shapes, the ragged shapes and ``device_ms`` are kept here
+and imported by ``chip_smoke.py`` and the tests: this script measures the
+package of another checkout, so it cannot take them from the package.
+
 ``--paths k2`` times K2 alone (``flash_attention_cuda`` on contiguous
 seeded inputs, which every version takes) at the full-domain shape in bf16
 and fp32 and at the card tests' bf16 shapes: mean device ms of 20 launches
@@ -32,6 +53,7 @@ shape.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -43,8 +65,8 @@ CLASSES = (
     # both variants (flash_attention_fwd_kernel and flash_attention_fwd_kernel_tc);
     # before "attention (SDPA)", whose patterns would also match them
     ("K2 flash_attention_fwd", ("flash_attention_fwd_kernel",)),
-    ("K1 conv3x3_stats", ("conv3x3_stats_kernel",)),
-    ("K1 gn_apply", ("gn_apply_kernel",)),
+    ("K1 conv3x3_stats", ("conv3x3_stats",)),
+    ("K1 gn_apply", ("gn_apply",)),
     ("GroupNorm (PyTorch)", ("GroupNorm", "group_norm", "RowwiseMoments", "ComputeFusedParams")),
     ("BatchNorm", ("batch_norm", "BatchNorm")),
     ("cat", ("CatArrayBatchedCopy",)),
@@ -150,13 +172,195 @@ def k2_rows(torch, dev) -> list:
     return rows
 
 
+# Decoder chains (H, W, Cin, Cout) of one flagship UNet evaluation, blocks 0-3,
+# conv_up -> norm1 then conv -> norm2; block 3's two chains share a shape.
+# 128 px runs them at batch 16 (8 rows with CFG), 608x800 at batch 2.
+CHAINS_128 = [(8, 8, 512, 512), (8, 8, 512, 256), (16, 16, 256, 256), (16, 16, 256, 128),
+              (32, 32, 128, 128), (32, 32, 128, 64), (64, 64, 64, 64), (64, 64, 64, 64)]
+CHAINS_FULL = [(38, 50, 512, 512), (38, 50, 512, 256), (76, 100, 256, 256),
+               (76, 100, 256, 128), (152, 200, 128, 128), (152, 200, 128, 64),
+               (304, 400, 64, 64), (304, 400, 64, 64)]
+# (batch, chain) off every tile, off the Cin chunk and off the 64-channel Cout tile
+K1_RAGGED = [(2, (37, 51, 12, 24)), (2, (37, 51, 200, 72)), (1, (9, 7, 12, 24)),
+             (1, (9, 7, 200, 72))]
+L2_BYTES = 50 * 2**20  # an H100's L2 cache
+COLD_COPIES = 20  # calls per timed replay, each on its own copy of the operands
+
+
+def device_ms(torch, fns, cold: bool = True) -> float:
+    """Device time of one call: the callables ``fns`` captured in one CUDA graph
+    and replayed, so that no host work lies in the timed window (it holds the
+    kernels they launch and the gaps between them in the graph).
+
+    ``cold``: every callable is the same call on its own copy of the operands;
+    their results are kept through the capture, so that each writes its own
+    output, and L2 is flushed before the timed replay. No call then finds in L2
+    what another read or wrote. Not ``cold``: as many calls of one callable on
+    one set of operands, which L2 serves where they fit.
+    """
+    for fn in fns:  # builds, caches and warm-up allocations happen outside the capture
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    kept = []
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            out = fn()
+            if cold:
+                kept.append(out)
+    graph.replay()
+    if cold:  # reading four times its size leaves nothing of the replay above in L2
+        torch.empty(4 * L2_BYTES, dtype=torch.uint8, device="cuda").sum()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del kept
+    return start.elapsed_time(stop) / len(fns)
+
+
+def both_ms(torch, call, *operands) -> dict:
+    """``call(*operands)``'s device time cold and warm (see ``device_ms``)."""
+    copies = [[t.clone() for t in operands] for _ in range(COLD_COPIES)]
+    return dict(
+        cold=device_ms(torch, [functools.partial(call, *c) for c in copies]),
+        warm=device_ms(torch, [functools.partial(call, *operands)] * COLD_COPIES, cold=False))
+
+
+def k1_rows(torch, dev, sweep: bool) -> list:
+    """K1's kernels alone against plain versions, cuDNN and the bound, per shape."""
+    import torch.nn.functional as F
+
+    from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
+
+    def ms(fn, iters=20):
+        fn()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / iters
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(dev).manual_seed(1)
+    shapes = ([("full-domain", 2, c) for c in dict.fromkeys(CHAINS_FULL)]
+              + [("serve-128", 16, c) for c in dict.fromkeys(CHAINS_128)]
+              + [("ragged", n, c) for n, c in K1_RAGGED])
+    rows, groups, dtype = [], 8, torch.bfloat16
+    for path, n, (h, w, cin, cout) in shapes:
+        x = torch.randn(n, h, w, cin, generator=gen, device=dev).to(dtype)
+        kernel = torch.randn(3, 3, cin, cout, generator=gen, device=dev) / (3 * cin**0.5)
+        bias = 0.1 * torch.randn(cout, generator=gen, device=dev)
+        gamma = 1.0 + 0.1 * torch.randn(cout, generator=gen, device=dev)
+        beta = 0.1 * torch.randn(cout, generator=gen, device=dev)
+        plain_conv, plain_stats = k1.plain_conv3x3_stats(x.float(), kernel.to(dtype),
+                                                         bias.to(dtype), groups)
+
+        def conv_check(conv, stats):
+            err = (conv.float() - plain_conv).abs()
+            tol = 4e-3 * plain_conv.abs() + 1e-4 * plain_conv.abs().max()
+            return dict(conv_worst_err_over_tolerance=(err / tol).max().item(),
+                        stats_rel_err=((stats - plain_stats).abs().max()
+                                       / plain_stats.abs().max()).item())
+
+        conv, stats = k1.conv3x3_stats(x, kernel, bias, groups)
+        out = k1.gn_apply(conv, stats, gamma, beta, groups, activation=False)
+        apply_ref = k1.plain_gn_apply(conv, stats, gamma, beta, groups, activation=False,
+                                      out_dtype=torch.float32)
+        repeat = k1.conv3x3_stats(x, kernel, bias, groups)
+        x_nchw = x.permute(0, 3, 1, 2)
+        w_oihw = kernel.permute(3, 2, 0, 1).to(dtype).contiguous(memory_format=torch.channels_last)
+        conv_nchw, bias_d = conv.permute(0, 3, 1, 2), bias.to(dtype)
+        g_d, b_d = gamma.to(dtype), beta.to(dtype)
+        pixels, es = n * h * w, x.element_size()
+        conv_bound = max(2.0 * 9 * cin * cout * pixels / 989e12,
+                         ((pixels * (cin + cout) + 9 * cin * cout) * es
+                          + 4 * (cout + 2 * n * groups)) / 3.35e12)
+        apply_bound = (2 * pixels * cout * es + 4 * (2 * n * groups + 2 * cout)) / 3.35e12
+        conv_fn = lambda: k1.conv3x3_stats(x, kernel, bias, groups)  # noqa: E731
+        apply_fn = lambda: k1.gn_apply(conv, stats, gamma, beta, groups,  # noqa: E731
+                                       activation=False)
+        conv_dev = both_ms(torch, lambda *a: k1.conv3x3_stats(*a, groups), x, kernel, bias)
+        conv_lib_dev = both_ms(torch, lambda *a: F.conv2d(*a, padding=1), x_nchw, w_oihw, bias_d)
+        apply_dev = both_ms(torch, lambda *a: k1.gn_apply(*a, groups, activation=False),
+                            conv, stats, gamma, beta)
+        apply_lib_dev = both_ms(torch, lambda c, g, b: F.group_norm(c, groups, g, b, 1e-5),
+                                conv_nchw, g_d, b_d)
+        row = dict(
+            path=path, batch=n, hw=[h, w], cin=cin, cout=cout,
+            plan=str(k1.plan(n, h, w, cin, cout, dtype)) if hasattr(k1, "plan") else None,
+            **conv_check(conv, stats),
+            repeat_bit_identical=bool(torch.equal(repeat[0], conv)
+                                      and torch.equal(repeat[1], stats)),
+            apply_max_abs_err=(out.float() - apply_ref).abs().max().item(),
+            conv_ms=ms(conv_fn), conv_kernel_ms=conv_dev["cold"],
+            conv_kernel_warm_ms=conv_dev["warm"],
+            conv_library_ms=ms(lambda: F.conv2d(x_nchw, w_oihw, bias_d, padding=1)),
+            conv_library_kernel_ms=conv_lib_dev["cold"],
+            conv_library_kernel_warm_ms=conv_lib_dev["warm"],
+            conv_bound_ms=1e3 * conv_bound,
+            apply_ms=ms(apply_fn), apply_kernel_ms=apply_dev["cold"],
+            apply_kernel_warm_ms=apply_dev["warm"],
+            apply_library_ms=ms(lambda: F.group_norm(conv_nchw, groups, g_d, b_d, 1e-5)),
+            apply_library_kernel_ms=apply_lib_dev["cold"],
+            apply_library_kernel_warm_ms=apply_lib_dev["warm"],
+            apply_bound_ms=1e3 * apply_bound)
+        if sweep and hasattr(k1, "plan"):
+            forced = {}
+            for force in k1.LAUNCH_SHAPES:
+                try:
+                    k1.plan(n, h, w, cin, cout, dtype, force=force)
+                except ValueError:
+                    continue  # does not fit in shared memory
+                forced_fn = lambda *a: k1.conv3x3_stats(*a, groups, force=force)  # noqa: E731
+                forced["x".join(map(str, map(int, force)))] = dict(
+                    **both_ms(torch, forced_fn, x, kernel, bias),
+                    **conv_check(*forced_fn(x, kernel, bias)))
+            row["forced_rows_cols_chunk_resident"] = forced
+        rows.append(row)
+    # what one chain costs the host: calls enqueued back to back, the device
+    # (far faster at this shape) never waited for
+    x = torch.randn(16, 16, 16, 64, generator=gen, device=dev).to(dtype)
+    kernel = torch.randn(3, 3, 64, 64, generator=gen, device=dev) / 24
+    vec = torch.ones(64, device=dev)
+    with torch.inference_mode():
+        chain = lambda: k1.conv3x3_gn_relu(x, kernel, vec, vec, vec, groups,  # noqa: E731
+                                           activation=False)
+        for _ in range(20):
+            chain()
+        host_us = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(400):
+                chain()
+            host_us.append((time.perf_counter() - t0) / 400 * 1e6)
+            torch.cuda.synchronize()
+    rows.append(dict(path="host", what="host microseconds per conv3x3_gn_relu call, enqueue "
+                                       "only, 5 x 400 calls at 16x16x16x64->64 bf16",
+                     chain_host_us=host_us))
+    keys = [f"{kernel}_{key}" for kernel in ("conv", "apply")
+            for key in ("ms", "kernel_ms", "kernel_warm_ms", "library_ms", "library_kernel_ms",
+                        "library_kernel_warm_ms", "bound_ms")]
+    for path, chains in (("full-domain", CHAINS_FULL), ("serve-128", CHAINS_128)):
+        by_shape = {(*r["hw"], r["cin"], r["cout"]): r for r in rows if r["path"] == path}
+        rows.append(dict(path=path, sum_over="the 8 chains of one UNet evaluation",
+                         **{k: sum(by_shape[c][k] for c in chains) for k in keys}))
+    return rows
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
                    help="checkout whose sbgm_danra_tpu_torch is measured")
     p.add_argument("--label", default="change")
     p.add_argument("--paths", default="full_domain,serving",
-                   help="comma-separated: full_domain, serving, k2")
+                   help="comma-separated: full_domain, serving, k1, k2")
+    p.add_argument("--k1-sweep", action="store_true",
+                   help="with k1: also time every launch shape the plan could choose")
     p.add_argument("--repeats", type=int, default=3)
     p.add_argument("--out", default=None)
     args = p.parse_args()
@@ -216,6 +420,11 @@ def main() -> int:
         runs["serving"] = ("one 8-row dpmpp-25 dispatch at 128 px, CFG w=3", dispatch)
 
     results = []
+    if "k1" in args.paths.split(","):
+        for row in k1_rows(torch, dev, args.k1_sweep):
+            row = dict(label=args.label, root=args.root, card=smi, kernel="k1", **row)
+            print(json.dumps(row), flush=True)
+            results.append(row)
     if "k2" in args.paths.split(","):
         for row in k2_rows(torch, dev):
             row = dict(label=args.label, root=args.root, path="k2", card=smi, **row)

@@ -10,38 +10,73 @@
 // optional ReLU. The JAX package leaves the normalise pass to XLA; here it is
 // the second kernel, so that no fp32 copy of the activation is made.
 //
-// Two kernels:
-//   conv3x3_stats  implicit-GEMM conv. A block owns a slot of 8x8 output tiles
-//                  of one sample and a 64-channel Cout tile, and walks its
-//                  tiles in a fixed order. For each tile it loops over Cin in
-//                  chunks staged in shared memory: the 10x10 input halo (the
-//                  SAME padding is a mask on the halo loads, no padded copy)
-//                  and the chunk's 9 x 64 weights. The nine taps are nine
-//                  shifted products out of the one halo tile. bf16 runs on the
-//                  tensor cores (mma.sync m16n8k16, fp32 accumulators); fp32
-//                  runs the same thread-to-output map as FMAs on the CUDA
-//                  cores. The epilogue adds the bias in fp32, stores the
-//                  output in the input's dtype and adds the fp32 values into
-//                  per-thread channel sums. Each block writes its per-channel
-//                  partials; no float atomics. The last block of a sample to
-//                  finish (an integer ticket) reduces that sample's partials
-//                  per group in a fixed order, so the statistics do not
-//                  depend on the order in which blocks ran.
-//   gn_apply       reads the statistics and the stored conv output once and
-//                  writes (v - mean) * rstd * gamma + beta (+ ReLU) in the
-//                  output dtype; 16-byte vectors where the channel count
-//                  allows.
-//
 // What bounds it on the card: a 3x3 conv from C to C channels does 18 C^2
 // FLOPs per pixel against 4 C bytes of bf16 input and output, 4.5 C FLOP per
 // byte. The H100 needs about 295 FLOP per byte (989 TFLOP/s bf16 dense over
 // 3.35 TB/s) before the tensor cores and not the memory are the limit, so on
-// the decoder's chains (C = 64 ... 512) conv3x3_stats is compute-bound on the
-// tensor cores from C = 128 up and near the line at C = 64. gn_apply is
-// memory-bound: one read and one write of the activation. This first version
-// feeds mma.sync from shared memory without a copy pipeline: each chunk's loads
-// wait for the previous chunk's products. wgmma with TMA-fed, multi-stage
-// tiles is the next step.
+// the decoder's chains (C = 64 ... 512) conv3x3_stats is bound by tensor-core
+// operations from C = 128 up and near the line at C = 64. Below that bound,
+// what a 64-channel Cout tile costs is the traffic into shared memory: every
+// block of a streamed layer reads its whole weight slice from L2 once per
+// pixel tile. gn_apply is bound by bytes: one read and one write of the
+// activation.
+//
+// conv3x3_stats, bf16 (conv3x3_stats_tc_kernel): an implicit GEMM on the
+// tensor cores with warpgroup products, wgmma m64n64k16, fp32 accumulators,
+// both operands read from shared memory through descriptors.
+//   - A block owns one sample, a 64-channel Cout tile and a slot of 16x16 or
+//     8x16 pixel tiles (chosen per layer by the wrapper's plan), which it walks
+//     in a fixed order. A warpgroup owns 8 tile rows x 16 columns as two m64
+//     products (columns 0-7 and 8-15): 64 fp32 accumulators a thread.
+//   - Shared memory is k-chunk-major without swizzle: the halo as [Cin/8][halo
+//     pixel][8 channels] and the weights as [tap][Cin/8][64 output
+//     channels][8 channels]. A core matrix (8 rows x 16 bytes) is then 8
+//     pixels of a tile row, or 8 output channels, in 128 contiguous bytes; the
+//     8 row groups of an m64 A operand are 8 tile rows at the halo pitch; and
+//     a tap is a shift of the descriptor's start address (dx by 16 bytes, dy
+//     by the halo pitch). No im2col copy, no padding, no bank conflict.
+//   - Weights never pass through registers: the wrapper keeps them tiled as
+//     shared memory holds them, and one thread asks for them as bulk copies
+//     (cp.async.bulk) that report to an mbarrier. Weight-stationary where the
+//     slice fits and pays (Cin <= 128, at least 3 tiles a block): the block
+//     copies its [9][Cin][64] slice once and then stages only halos. Elsewhere
+//     each pipeline stage carries its Cin chunk's weights (nine runs, one per
+//     tap) beside the halo chunk.
+//   - A ring of three stages over the flattened (tile, Cin chunk) sequence, one
+//     block barrier per stage. Halos come by cp.async, 16 bytes a thread, at
+//     offsets each thread computes once per kernel; the SAME padding, the
+//     ragged edge and the channels past Cin in the last chunk are zero-fills
+//     (src-size 0: the weights there are zero, but 0 x stale NaN is NaN); a Cin
+//     that is not a multiple of 8 or an unaligned x takes guarded scalar copies
+//     into the same slots. The copies of step s + 2 are issued right after
+//     the products of step s, so they run beside them.
+//   - Epilogue per warp: bias in fp32, the statistics from the fp32 values,
+//     then the rounded 32 x 64 tile through a padded shared-memory buffer and
+//     out as 16 bytes a thread (128 contiguous bytes a pixel).
+//   - Statistics without float atomics: per-thread channel sums over the
+//     block's tiles, reduced over the warp and the warps in a fixed order
+//     into per-block, per-channel partials; the last block of a sample to
+//     finish (an integer ticket, which it resets to zero for the next call)
+//     reduces the partials per group in a fixed order. Repeated calls are
+//     bit-identical.
+//   Where it stands (NVIDIA H100 80GB HBM3, 700 W; profile_port.py --paths k1,
+//   operands cold in L2): 0.050 ms at 2 x 304 x 400, 64 -> 64 against a bound of
+//   0.0186 ms, and 0.42 ms over the eight chains of a 608x800 evaluation against
+//   a bound of 0.119 ms. Beside the products stand the launch, the resident weights' copy, the
+//   halo copies' issue and the epilogue, which no product overlaps yet (one
+//   block an SM where the weights are resident, all warps in the same phase);
+//   on the small maps (38 x 50, 512 -> 512) every 256-pixel tile re-reads its
+//   whole weight slice from L2 and 192 tiles fill 132 SMs one and a half times.
+// conv3x3_stats, fp32 (conv3x3_stats_fp32_kernel): FMAs on the CUDA cores over
+// 8x8 tiles and 8-channel chunks, without a copy pipeline. It serves the fp32
+// tests and the tiny fp32 model, not the bf16 main path.
+//
+// gn_apply: one read and one write. Each block folds the statistics and the
+// affine into scale = rstd * gamma and shift = beta - mean * scale per
+// channel; a thread owns the same 16-byte channel vector on every trip of its
+// loop, holds its scale and shift in registers, keeps four independent loads
+// in flight and does one FMA per element. Channel counts that are not a
+// multiple of the vector take an element loop.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,27 +86,9 @@
 
 namespace {
 
-constexpr int kThreads = 128;       // 4 warps: 2 over pixels x 2 over channels
-constexpr int kTile = 8;            // 8 x 8 output pixels per spatial tile
-constexpr int kHalo = kTile + 2;    // 10 x 10 input pixels feed one tile
 constexpr int kBN = 64;             // output channels per block
 constexpr int kApplyThreads = 256;
-
-// Cin chunk and shared-memory row stride (elements) per input dtype. The
-// strides (48 bytes) put the eight pixels or channels one fragment load reads
-// on distinct banks.
-template <typename T>
-struct Chunk;
-template <>
-struct Chunk<__nv_bfloat16> {
-  static constexpr int kBK = 16;
-  static constexpr int kLd = 24;
-};
-template <>
-struct Chunk<float> {
-  static constexpr int kBK = 8;
-  static constexpr int kLd = 12;
-};
+constexpr int kApplyUnroll = 4;     // independent 16-byte loads in flight per thread
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -91,75 +108,402 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Copy 16 bytes of elements src[0..) to dst, zero from `valid` on (valid <= 0:
-// all zero, src is not read).
-template <typename T>
-__device__ __forceinline__ void load16(T* dst, const T* src, int valid, bool vec_ok) {
-  constexpr int kVec = 16 / sizeof(T);
-  if (vec_ok && valid >= kVec) {
-    *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
-  } else {
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) dst[i] = i < valid ? src[i] : from_float<T>(0.f);
+// The block's per-channel sums are in red_s[warps][kBN][2], written by every
+// warp. Writes this block's partials, takes a ticket, and in the last block of
+// sample n reduces the sample's partials per group in a fixed order; that block
+// also resets the ticket counter for the next call.
+__device__ __forceinline__ void finish_statistics(const float* red_s, int n_warps,
+                                                  float* __restrict__ partials,
+                                                  int* __restrict__ counters,
+                                                  float* __restrict__ stats, int n, int n0,
+                                                  int cout, int groups, bool* last_s) {
+  const int slot = blockIdx.x, slots = gridDim.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();
+  const int col = threadIdx.x;
+  if (col < kBN && n0 + col < cout) {
+    float s = 0.f, ss = 0.f;
+    for (int wi = 0; wi < n_warps; ++wi) {
+      s += red_s[(wi * kBN + col) * 2];
+      ss += red_s[(wi * kBN + col) * 2 + 1];
+    }
+    float* dst = partials + (((int64_t)n * slots + slot) * cout + n0 + col) * 2;
+    dst[0] = s;
+    dst[1] = ss;
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *last_s = atomicAdd(&counters[n], 1) == slots * (int)gridDim.y - 1;
+  __syncthreads();
+  if (!*last_s) return;
+  __threadfence();
+  if (threadIdx.x == 0) counters[n] = 0;
+  const int cpg = cout / groups;
+  const int count = slots * cpg;
+  for (int grp = warp; grp < groups; grp += blockDim.x / 32) {
+    float s = 0.f, ss = 0.f;
+    for (int i = lane; i < count; i += 32) {
+      const float* src =
+          partials + (((int64_t)n * slots + i / cpg) * cout + grp * cpg + i % cpg) * 2;
+      s += __ldcg(src);
+      ss += __ldcg(src + 1);
+    }
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    if (lane == 0) {
+      stats[((int64_t)n * groups + grp) * 2] = s;
+      stats[((int64_t)n * groups + grp) * 2 + 1] = ss;
+    }
   }
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// ---------------------------------------------------------------------------
+// conv3x3_stats, bf16: tensor cores
+
+constexpr int kStages = 3;
+constexpr int kTW = 16;          // tile columns: a warpgroup owns 8 tile rows x 16 columns
+constexpr int kOutLd = kBN + 8;  // staged output row pitch (144 B): rows on distinct banks
+
+template <int TH, int KC>
+struct TcTile {
+  static constexpr int kThreads = TH * kTW;  // a warp per 32 pixels, a warpgroup per 8 rows
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kHW = kTW + 2;                // halo pitch in pixels
+  static constexpr int kHP = (TH + 2) * (kTW + 2);   // halo pixels
+  static constexpr int kK8 = KC / 8;                 // 16-byte vectors per pixel and chunk
+  static constexpr int kHaloElems = KC * kHP;
+  static constexpr int kWChunkElems = 9 * KC * kBN;
+  // a thread's copies per stage: it keeps vector k8 = tid % kK8 of the halo
+  // pixels (weight rows) tid / kK8 + i * kRowsPerPass
+  static constexpr int kRowsPerPass = kThreads / kK8;
+  static constexpr int kHaloSlots = (kHP + kRowsPerPass - 1) / kRowsPerPass;
+};
+
+// Eight elements src[0..8) -> 16 bytes of shared memory, zero from `valid` on.
+// Whole vectors go by cp.async when `vec` allows, nothing to copy is a cp.async
+// zero-fill, and the rest are guarded scalar loads and one shared store.
+__device__ __forceinline__ void stage16(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                        const __nv_bfloat16* base, int valid, bool vec) {
+  if (valid <= 0) {
+    cp_async16(dst, base, false);
+  } else if (vec && valid >= 8) {
+    cp_async16(dst, src, true);
+  } else {
+    alignas(16) __nv_bfloat16 buf[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) buf[i] = i < valid ? src[i] : __float2bfloat16(0.f);
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(buf);
+  }
 }
 
-// One Cin chunk, nine taps, into the warp's 32 pixels x 32 channels. acc[mi][ni]
-// is the m16n8 accumulator fragment: element i sits at pixel row
-// wm*32 + mi*16 + g + 8*(i/2) and channel column wn*32 + ni*8 + 2q + i%2.
-// Pixel row r of the tile is output (r / 8, r % 8), so rows g and g + 8 of a
-// fragment are tile rows 2*(2wm + mi) and one below, column g.
-__device__ __forceinline__ void chunk_products(
-    __nv_bfloat16 (*in_s)[Chunk<__nv_bfloat16>::kLd],
-    __nv_bfloat16 (*w_s)[kBN][Chunk<__nv_bfloat16>::kLd], float (&acc)[2][4][4], int wm, int wn,
-    int g, int q) {
+// x [N, H, W, cin] bf16; w [ceil(cout / 64), 9, cin8, 64, 8] bf16, the weights
+// tiled as shared memory holds them (Cout tile, tap, 8-channel group of Cin,
+// output channel, channel), zero-padded to cin8 = 4 ceil(cin / 32) groups and
+// whole Cout tiles; bias [cout] bf16 -> y [N, H, W, cout] bf16; partials
+// [N, slots, cout, 2] fp32 scratch; counters [N] int, zero on entry and on
+// exit; stats [N, groups, 2] fp32 (sum, sum of squares). Grid (slots,
+// ceil(cout / 64), N); dynamic shared memory: resident weights (WS), kStages
+// stages, the output staging, the warps' channel sums and the barriers. fast:
+// cin is a multiple of 8, x is 16-byte aligned and H W cin fits in 31 bits, so
+// every halo copy is a whole cp.async at an offset the thread computes once.
+template <int TH, int KC, bool WS>
+__global__ void __launch_bounds__(TH * kTW)
+conv3x3_stats_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                        const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y,
+                        float* __restrict__ partials, int* __restrict__ counters,
+                        float* __restrict__ stats, int height, int width, int cin, int cout,
+                        int groups, int tiles_x, int n_tiles, bool vec_in, bool vec_out,
+                        bool fast) {
+  using T = TcTile<TH, KC>;
+  constexpr int kStageElems = T::kHaloElems + (WS ? 0 : T::kWChunkElems);
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ bool last_s;
+
+  const int chunks = (cin + KC - 1) / KC;
+  const int cin8 = (cin + 31) / 32 * 4;  // 8-channel groups of the zero-padded weights
+  __nv_bfloat16* w_res = reinterpret_cast<__nv_bfloat16*>(smem);  // WS: [9][cin8][64][8]
+  __nv_bfloat16* ring = w_res + (WS ? 9 * cin8 * kBN * 8 : 0);    // [kStages][kStageElems]
+  __nv_bfloat16* out_s = ring + kStages * kStageElems;            // [warps][32][kOutLd]
+  float* red_s = reinterpret_cast<float*>(out_s + T::kWarps * 32 * kOutLd);  // [warps][64][2]
+  // weights arrive by bulk copies: one barrier per stage and one for the resident slice
+  uint64_t* bars = reinterpret_cast<uint64_t*>(red_s + T::kWarps * kBN * 2);  // [kStages + 1]
+
+  const int slot = blockIdx.x, slots = gridDim.x;
+  const int n0 = blockIdx.y * kBN;
+  const int n = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int64_t pixels = (int64_t)height * width;
+  const __nv_bfloat16* xn = x + n * pixels * cin;
+  __nv_bfloat16* yn = y + n * pixels * cout;
+  const int my_tiles = (n_tiles - slot + slots - 1) / slots;
+  const int total = my_tiles * chunks;
+
+  // The fast path's per-thread constants: halo pixel (hy, hx) of each of its
+  // slots and that pixel's element offset from the halo's first pixel.
+  const int k8 = threadIdx.x % T::kK8, row0 = threadIdx.x / T::kK8;
+  int halo_yx[T::kHaloSlots], halo_off[T::kHaloSlots];
 #pragma unroll
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3, dx = tap % 3;
-    uint32_t a[2][4], b[4][2];
+  for (int i = 0; i < T::kHaloSlots; ++i) {
+    const int hp = row0 + i * T::kRowsPerPass;
+    const int hy = hp / T::kHW, hx = hp % T::kHW;
+    halo_yx[i] = hp < T::kHP ? (hy << 16) | hx : 0x7fff7fff;  // past the halo: never inside
+    halo_off[i] = (hy * width + hx) * cin;
+  }
+
+  // One stage: the halo chunk [kK8][kHP][8] and, unless the weights are
+  // resident, the chunk's weights [9][kK8][64][8]. SAME padding and the ragged
+  // edge are zero-fills.
+  const __nv_bfloat16* w_tile = w + (int64_t)blockIdx.y * 9 * cin8 * kBN * 8;
+  auto issue = [&](int tile, int chunk, int stage) {
+    __nv_bfloat16* in_s = ring + stage * kStageElems;
+    if (!WS && threadIdx.x == 0) {  // the chunk's weights: per tap one run of kK8 groups
+      __nv_bfloat16* w_s = in_s + T::kHaloElems;
+      mbarrier_expect(&bars[stage], T::kWChunkElems * 2);
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int py = (2 * wm + mi) * 2 + dy;
-      const __nv_bfloat16* r0 = in_s[py * kHalo + g + dx] + 2 * q;
-      const __nv_bfloat16* r1 = in_s[(py + 1) * kHalo + g + dx] + 2 * q;
-      a[mi][0] = ld32(r0);
-      a[mi][1] = ld32(r1);
-      a[mi][2] = ld32(r0 + 8);
-      a[mi][3] = ld32(r1 + 8);
+      for (int tap = 0; tap < 9; ++tap)
+        bulk_copy(w_s + tap * T::kK8 * kBN * 8,
+                  w_tile + ((int64_t)tap * cin8 + chunk * T::kK8) * kBN * 8, T::kK8 * kBN * 16,
+                  &bars[stage]);
     }
+    const int oy0 = (tile / tiles_x) * TH, ox0 = (tile % tiles_x) * kTW, c0 = chunk * KC;
+    if (fast) {
+      // a Cin off the chunk ends inside the last chunk: its vectors past cin are
+      // zero-fills too (the weights there are zero, but 0 x stale NaN is NaN)
+      const bool in_cin = c0 + k8 * 8 < cin;
+      const int ty = oy0 - 1, tx = ox0 - 1;
+      const __nv_bfloat16* src = xn + ((int64_t)ty * width + tx) * cin + c0 + k8 * 8;
+      __nv_bfloat16* dst = in_s + (k8 * T::kHP + row0) * 8;
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const __nv_bfloat16* col = w_s[tap][wn * 32 + ni * 8 + g] + 2 * q;
-      b[ni][0] = ld32(col);
-      b[ni][1] = ld32(col + 8);
+      for (int i = 0; i < T::kHaloSlots; ++i) {
+        const unsigned iy = ty + (halo_yx[i] >> 16), ix = tx + (halo_yx[i] & 0xffff);
+        const bool inside = in_cin && iy < (unsigned)height && ix < (unsigned)width;
+        if (i + 1 < T::kHaloSlots || halo_yx[i] != 0x7fff7fff)
+          cp_async16(dst + i * T::kRowsPerPass * 8, inside ? src + halo_off[i] : x, inside);
+      }
+      return;
     }
+    for (int u = threadIdx.x; u < T::kHP * T::kK8; u += T::kThreads) {
+      const int v8 = u % T::kK8, hp = u / T::kK8;
+      const int iy = oy0 - 1 + hp / T::kHW, ix = ox0 - 1 + hp % T::kHW;
+      const int c = c0 + v8 * 8;
+      const bool inside = iy >= 0 && iy < height && ix >= 0 && ix < width;
+      stage16(in_s + (v8 * T::kHP + hp) * 8, xn + ((int64_t)iy * width + ix) * cin + c, x,
+              inside ? cin - c : 0, vec_in);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i <= kStages; ++i) mbarrier_init(&bars[i], 1);
+    mbarrier_init_fence();
+  }
+  __syncthreads();
+  if (WS && threadIdx.x == 0) {  // the block's whole weight slice, once
+    mbarrier_expect(&bars[kStages], 9 * cin8 * kBN * 16);
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+      bulk_copy(w_res + tap * cin8 * kBN * 8, w_tile + (int64_t)tap * cin8 * kBN * 8,
+                cin8 * kBN * 16, &bars[kStages]);
+  }
+  // Step s = (tile, chunk) goes to stage s % kStages, one cp.async group per
+  // step; a group is committed every iteration, empty or not, so that "all but
+  // the newest kStages - 2 groups done" always means "step s has landed".
+  int ld_step = 0, ld_tile = slot, ld_chunk = 0, ld_stage = 0;
+  auto issue_next = [&]() {
+    if (ld_step < total) {
+      issue(ld_tile, ld_chunk, ld_stage);
+      ++ld_step;
+      ld_stage = ld_stage + 1 == kStages ? 0 : ld_stage + 1;
+      if (++ld_chunk == chunks) {
+        ld_chunk = 0;
+        ld_tile += slots;
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) issue_next();
+
+  // A warpgroup owns 8 tile rows. Its product mi covers their columns 8 mi ..
+  // 8 mi + 7: one m64 A operand, 8 row groups of 8 pixels at the halo pitch. In
+  // the accumulator, warp w of the warpgroup holds tile rows 2w (h = 0: fragment
+  // rows g) and 2w + 1 (h = 1: rows g + 8), pixel column 8 mi + g.
+  const int wg_row = 8 * (warp / 4);
+  const int my_row = wg_row + 2 * (warp % 4);
+  const uint32_t ring_addr = smem_addr(ring);
+  const uint32_t tap_stride = (WS ? cin8 : T::kK8) * kBN * 16;  // bytes
+
+  float bias_r[8][2], csum[8][2], csq[8][2];
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int co = n0 + ni * 8 + 2 * q + j;
+      bias_r[ni][j] = co < cout ? __bfloat162float(bias[co]) : 0.f;
+      csum[ni][j] = 0.f;
+      csq[ni][j] = 0.f;
+    }
+  float acc[2][32];  // acc[mi][4 ni + i]: element i of the m16n8 fragment at channels 8 ni ..
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[mi][i] = 0.f;
+
+  // A finished tile's epilogue. acc[mi][4 ni + i] is pixel (my_row + i / 2,
+  // 8 mi + g), channel ni*8 + 2q + i%2 of the tile; it leaves acc zero.
+  auto epilogue = [&](int tile) {
+    const int oy0 = (tile / tiles_x) * TH, ox0 = (tile % tiles_x) * kTW;
+    __nv_bfloat16* o_s = out_s + warp * 32 * kOutLd;
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
+      for (int h = 0; h < 2; ++h) {
+        const int oy = oy0 + my_row + h, ox = ox0 + 8 * mi + g;
+        const bool inside = oy < height && ox < width;
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni) {
+          const float v0 = acc[mi][4 * ni + 2 * h] + bias_r[ni][0];
+          const float v1 = acc[mi][4 * ni + 2 * h + 1] + bias_r[ni][1];
+          acc[mi][4 * ni + 2 * h] = 0.f;
+          acc[mi][4 * ni + 2 * h + 1] = 0.f;
+          const int co = n0 + ni * 8 + 2 * q;
+          if (inside && co < cout) {
+            csum[ni][0] += v0;
+            csq[ni][0] += v0 * v0;
+          }
+          if (inside && co + 1 < cout) {
+            csum[ni][1] += v1;
+            csq[ni][1] += v1 * v1;
+          }
+          *reinterpret_cast<uint32_t*>(o_s + (mi * 16 + h * 8 + g) * kOutLd + ni * 8 + 2 * q) =
+              pack_bf16(v0, v1);
+        }
+      }
+    __syncwarp();
+#pragma unroll
+    for (int it = 0; it < 8; ++it) {  // 32 pixels x 8 vectors of 8 channels
+      const int r = it * 4 + lane / 8, cv = lane % 8;  // staged row: 16 mi + 8 h + pixel
+      const int oy = oy0 + my_row + (r / 8) % 2, ox = ox0 + 8 * (r / 16) + r % 8;
+      const int co = n0 + cv * 8;
+      if (oy < height && ox < width && co < cout) {
+        const __nv_bfloat16* src = o_s + r * kOutLd + cv * 8;
+        __nv_bfloat16* dst = yn + ((int64_t)oy * width + ox) * cout + co;
+        if (vec_out) {
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        } else {
+          for (int i = 0; i < 8 && co + i < cout; ++i) dst[i] = src[i];
+        }
+      }
+    }
+    __syncwarp();
+  };
+
+  if (WS) mbarrier_wait(&bars[kStages], 0);
+  int tile = slot, chunk = 0, stage = 0, parity = 0;
+  for (int step = 0; step < total; ++step) {
+    if (!WS) mbarrier_wait(&bars[stage], parity);  // this step's weights have landed,
+    cp_async_wait<kStages - 2>();  // and this thread's halo copies,
+    fence_proxy_async();           // also for wgmma's reads,
+    wgmma_wait<0>();               // and this warpgroup's products of the previous step are done
+    __syncthreads();               // ... all of that for every thread
+
+    // 9 taps x KC/16 k-steps x 2 column segments of m64n64k16, asynchronous; the
+    // copies of step + 2 (into the previous step's stage) are issued while they run.
+    const uint32_t in_addr = ring_addr + stage * kStageElems * 2;
+    const uint32_t w_addr = WS ? smem_addr(w_res) + chunk * T::kK8 * kBN * 16
+                               : in_addr + T::kHaloElems * 2;
+    const uint64_t a_base =
+        wgmma_descriptor(in_addr + wg_row * T::kHW * 16, T::kHP * 16, T::kHW * 16);
+    const uint64_t b_base = wgmma_descriptor(w_addr, kBN * 16, 128);
+    wgmma_fence();
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        const uint64_t b_desc = b_base + ((tap * tap_stride) >> 4) + kk * 2 * kBN;
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          wgmma_m64n64k16(
+              acc[mi], a_base + (kk * 2 * T::kHP + (tap / 3) * T::kHW + 8 * mi + tap % 3),
+              b_desc);
+      }
+    wgmma_commit();
+    issue_next();
+    if (++stage == kStages) {
+      stage = 0;
+      parity ^= 1;
+    }
+    if (++chunk < chunks) continue;
+
+    wgmma_wait<0>();  // the tile is complete
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) register_fence(acc[mi][i]);
+    epilogue(tile);
+    chunk = 0;
+    tile += slots;
+  }
+
+  // Channel sums of this block: over the 8 lanes that share q, then (in
+  // finish_statistics) over the warps, always in the same order.
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        csum[ni][j] += __shfl_xor_sync(0xffffffffu, csum[ni][j], off);
+        csq[ni][j] += __shfl_xor_sync(0xffffffffu, csq[ni][j], off);
+      }
+      if (g == 0) {
+        float* dst = red_s + ((warp * kBN) + ni * 8 + 2 * q + j) * 2;
+        dst[0] = csum[ni][j];
+        dst[1] = csq[ni][j];
+      }
+    }
+  finish_statistics(red_s, T::kWarps, partials, counters, stats, n, n0, cout, groups, &last_s);
+}
+
+// ---------------------------------------------------------------------------
+// conv3x3_stats, fp32: CUDA cores
+
+constexpr int kFpThreads = 128;  // 4 warps: 2 over pixels x 2 over channels
+constexpr int kFpTile = 8;       // 8 x 8 output pixels per spatial tile
+constexpr int kFpHalo = kFpTile + 2;
+constexpr int kFpBK = 8;         // Cin chunk
+constexpr int kFpLd = 12;        // shared row stride (48 bytes): fragment rows on distinct banks
+
+// Copy 16 bytes of elements src[0..4) to dst, zero from `valid` on (valid <= 0:
+// all zero, src is not read).
+__device__ __forceinline__ void load16(float* dst, const float* src, int valid, bool vec_ok) {
+  if (vec_ok && valid >= 4) {
+    *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dst[i] = i < valid ? src[i] : 0.f;
   }
 }
 
-// fp32: the same fragment map, as FMAs on the CUDA cores.
-__device__ __forceinline__ void chunk_products(float (*in_s)[Chunk<float>::kLd],
-                                               float (*w_s)[kBN][Chunk<float>::kLd],
+// One Cin chunk, nine taps, into the warp's 32 pixels x 32 channels, in the
+// thread-to-output map of an m16n8 accumulator fragment: element i of
+// acc[mi][ni] sits at pixel row wm*32 + mi*16 + g + 8*(i/2) and channel column
+// wn*32 + ni*8 + 2q + i%2. Pixel row r of the tile is output (r / 8, r % 8).
+__device__ __forceinline__ void chunk_products(float (*in_s)[kFpLd], float (*w_s)[kBN][kFpLd],
                                                float (&acc)[2][4][4], int wm, int wn, int g,
                                                int q) {
 #pragma unroll
   for (int tap = 0; tap < 9; ++tap) {
     const int dy = tap / 3, dx = tap % 3;
 #pragma unroll
-    for (int k = 0; k < Chunk<float>::kBK; ++k) {
+    for (int k = 0; k < kFpBK; ++k) {
       float a[2][2], b[4][2];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
         const int py = (2 * wm + mi) * 2 + dy;
-        a[mi][0] = in_s[py * kHalo + g + dx][k];
-        a[mi][1] = in_s[(py + 1) * kHalo + g + dx][k];
+        a[mi][0] = in_s[py * kFpHalo + g + dx][k];
+        a[mi][1] = in_s[(py + 1) * kFpHalo + g + dx][k];
       }
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
@@ -180,23 +524,15 @@ __device__ __forceinline__ void chunk_products(float (*in_s)[Chunk<float>::kLd],
   }
 }
 
-// x [N, H, W, cin], w [9, cout, cin] (tap-major, then output channel), bias
-// [cout], all in T -> y [N, H, W, cout] in T; partials [N, slots, cout, 2]
-// fp32 scratch; counters [N] int zeroed by the caller; stats [N, groups, 2]
-// fp32 (sum, sum of squares). Grid (slots, ceil(cout / 64), N).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                     const T* __restrict__ bias, T* __restrict__ y,
-                     float* __restrict__ partials, int* __restrict__ counters,
-                     float* __restrict__ stats, int height, int width, int cin, int cout,
-                     int groups, int tiles_x, int n_tiles, bool vec_ok) {
-  constexpr int kBK = Chunk<T>::kBK;
-  constexpr int kLd = Chunk<T>::kLd;
-  constexpr int kVec = 16 / sizeof(T);
-  static_assert(kBK == 2 * kVec, "a staged pixel row is two 16-byte vectors");
-  __shared__ __align__(16) T in_s[kHalo * kHalo][kLd];
-  __shared__ __align__(16) T w_s[9][kBN][kLd];
+// The same arrays as the bf16 kernel, in fp32. Grid (slots, ceil(cout / 64), N).
+__global__ void __launch_bounds__(kFpThreads)
+conv3x3_stats_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                          const float* __restrict__ bias, float* __restrict__ y,
+                          float* __restrict__ partials, int* __restrict__ counters,
+                          float* __restrict__ stats, int height, int width, int cin, int cout,
+                          int groups, int tiles_x, int n_tiles, bool vec_ok) {
+  __shared__ __align__(16) float in_s[kFpHalo * kFpHalo][kFpLd];
+  __shared__ __align__(16) float w_s[9][kBN][kFpLd];
   __shared__ float red_s[2][kBN][2];
   __shared__ bool last_s;
 
@@ -207,8 +543,8 @@ conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int wm = warp / 2, wn = warp % 2;
   const int g = lane / 4, q = lane % 4;
   const int64_t pixels = (int64_t)height * width;
-  const T* xn = x + n * pixels * cin;
-  T* yn = y + n * pixels * cout;
+  const float* xn = x + n * pixels * cin;
+  float* yn = y + n * pixels * cout;
 
   float bias_r[4][2];
   float csum[4][2], csq[4][2];
@@ -217,13 +553,13 @@ conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int co = n0 + wn * 32 + ni * 8 + 2 * q + j;
-      bias_r[ni][j] = co < cout ? to_float(bias[co]) : 0.f;
+      bias_r[ni][j] = co < cout ? bias[co] : 0.f;
       csum[ni][j] = 0.f;
       csq[ni][j] = 0.f;
     }
 
   for (int tile = slot; tile < n_tiles; tile += slots) {
-    const int oy0 = (tile / tiles_x) * kTile, ox0 = (tile % tiles_x) * kTile;
+    const int oy0 = (tile / tiles_x) * kFpTile, ox0 = (tile % tiles_x) * kFpTile;
     float acc[2][4][4];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
@@ -232,19 +568,19 @@ conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0.f;
 
-    for (int c0 = 0; c0 < cin; c0 += kBK) {
+    for (int c0 = 0; c0 < cin; c0 += kFpBK) {
       __syncthreads();  // the previous chunk has been consumed
-      for (int u = threadIdx.x; u < kHalo * kHalo * 2; u += kThreads) {
-        const int p = u >> 1, c = c0 + (u & 1) * kVec;
-        const int iy = oy0 - 1 + p / kHalo, ix = ox0 - 1 + p % kHalo;
+      for (int u = threadIdx.x; u < kFpHalo * kFpHalo * 2; u += kFpThreads) {
+        const int p = u >> 1, c = c0 + (u & 1) * 4;
+        const int iy = oy0 - 1 + p / kFpHalo, ix = ox0 - 1 + p % kFpHalo;
         const bool inside = iy >= 0 && iy < height && ix >= 0 && ix < width;
-        load16(&in_s[p][(u & 1) * kVec], xn + ((int64_t)iy * width + ix) * cin + c,
+        load16(&in_s[p][(u & 1) * 4], xn + ((int64_t)iy * width + ix) * cin + c,
                inside ? cin - c : 0, vec_ok);
       }
-      for (int u = threadIdx.x; u < 9 * kBN * 2; u += kThreads) {
+      for (int u = threadIdx.x; u < 9 * kBN * 2; u += kFpThreads) {
         const int nn = (u >> 1) % kBN, tap = (u >> 1) / kBN;
-        const int co = n0 + nn, c = c0 + (u & 1) * kVec;
-        load16(&w_s[tap][nn][(u & 1) * kVec], w + ((int64_t)tap * cout + co) * cin + c,
+        const int co = n0 + nn, c = c0 + (u & 1) * 4;
+        load16(&w_s[tap][nn][(u & 1) * 4], w + ((int64_t)tap * cout + co) * cin + c,
                co < cout ? cin - c : 0, vec_ok);
       }
       __syncthreads();
@@ -259,10 +595,10 @@ conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
         for (int i = 0; i < 4; ++i) {
           const int row = wm * 32 + mi * 16 + g + 8 * (i >> 1);
           const int co = n0 + wn * 32 + ni * 8 + 2 * q + (i & 1);
-          const int oy = oy0 + row / kTile, ox = ox0 + row % kTile;
+          const int oy = oy0 + row / kFpTile, ox = ox0 + row % kFpTile;
           if (oy < height && ox < width && co < cout) {
             const float v = acc[mi][ni][i] + bias_r[ni][i & 1];
-            yn[((int64_t)oy * width + ox) * cout + co] = from_float<T>(v);
+            yn[((int64_t)oy * width + ox) * cout + co] = v;
             csum[ni][i & 1] += v;
             csq[ni][i & 1] += v * v;
           }
@@ -290,50 +626,23 @@ conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
         red_s[wm][col][1] = csq[ni][j];
       }
   }
-  __syncthreads();
-  const int col = threadIdx.x;
-  if (col < kBN && n0 + col < cout) {
-    float* dst = partials + (((int64_t)n * slots + slot) * cout + n0 + col) * 2;
-    dst[0] = red_s[0][col][0] + red_s[1][col][0];
-    dst[1] = red_s[0][col][1] + red_s[1][col][1];
-  }
-
-  // The last block of sample n to finish reduces the sample's partials.
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last_s = atomicAdd(&counters[n], 1) == slots * (int)gridDim.y - 1;
-  __syncthreads();
-  if (!last_s) return;
-  __threadfence();
-  const int cpg = cout / groups;
-  const int count = slots * cpg;
-  for (int grp = warp; grp < groups; grp += kThreads / 32) {
-    float s = 0.f, ss = 0.f;
-    for (int i = lane; i < count; i += 32) {
-      const float* src =
-          partials + (((int64_t)n * slots + i / cpg) * cout + grp * cpg + i % cpg) * 2;
-      s += __ldcg(src);
-      ss += __ldcg(src + 1);
-    }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    if (lane == 0) {
-      stats[((int64_t)n * groups + grp) * 2] = s;
-      stats[((int64_t)n * groups + grp) * 2 + 1] = ss;
-    }
-  }
+  finish_statistics(&red_s[0][0][0], 2, partials, counters, stats, n, n0, cout, groups, &last_s);
 }
 
+// ---------------------------------------------------------------------------
+// gn_apply
+
 // y, out [N, pixels, c] in T; stats [N, groups, 2]; gamma, beta [c] fp32.
-// Grid (blocks, N); dynamic shared memory c * 16 bytes.
+// Grid (blocks, N); dynamic shared memory c * 8 bytes. vec: c is a multiple of
+// the 16-byte vector, at most kApplyThreads vectors a pixel, aligned pointers.
 template <typename T>
 __global__ void __launch_bounds__(kApplyThreads)
 gn_apply_kernel(const T* __restrict__ y, const float* __restrict__ stats,
                 const float* __restrict__ gamma, const float* __restrict__ beta,
                 T* __restrict__ out, int64_t pixels, int c, int groups, float eps, bool relu,
-                bool vec_ok) {
+                bool vec) {
   constexpr int kVec = 16 / sizeof(T);
-  extern __shared__ float4 chan_s[];  // per channel: mean, rstd, gamma, beta
+  extern __shared__ float2 chan_s[];  // per channel: scale, shift
   const int n = blockIdx.y;
   const int cpg = c / groups;
   const float count = (float)(pixels * cpg);
@@ -341,64 +650,137 @@ gn_apply_kernel(const T* __restrict__ y, const float* __restrict__ stats,
     const float* st = stats + ((int64_t)n * groups + ch / cpg) * 2;
     const float mean = st[0] / count;
     const float var = fmaxf(st[1] / count - mean * mean, 0.f);
-    chan_s[ch] = make_float4(mean, rsqrtf(var + eps), gamma[ch], beta[ch]);
+    const float scale = rsqrtf(var + eps) * gamma[ch];
+    chan_s[ch] = make_float2(scale, beta[ch] - mean * scale);
   }
   __syncthreads();
 
   const int64_t total = pixels * c;
   const T* yn = y + n * total;
   T* on = out + n * total;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  if (vec_ok) {  // c % kVec == 0: a vector never straddles two pixels
-    for (int64_t v = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; v * kVec < total;
-         v += stride) {
-      alignas(16) T buf[kVec];
-      *reinterpret_cast<uint4*>(buf) = __ldg(reinterpret_cast<const uint4*>(yn) + v);
-      const int ch0 = (int)((v * kVec) % c);
+  if (vec) {
+    // a thread keeps vector column cv of the pixels p, p + stride, ...
+    const int vp = c / kVec, ppb = kApplyThreads / vp;
+    if ((int)threadIdx.x >= ppb * vp) return;
+    const int cv = threadIdx.x % vp;
+    float sc[kVec], sh[kVec];
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        const float4 a = chan_s[ch0 + i];
-        float r = (to_float(buf[i]) - a.x) * a.y * a.z + a.w;
-        buf[i] = from_float<T>(relu ? fmaxf(r, 0.f) : r);
-      }
-      reinterpret_cast<uint4*>(on)[v] = *reinterpret_cast<const uint4*>(buf);
+    for (int i = 0; i < kVec; ++i) {
+      const float2 a = chan_s[cv * kVec + i];
+      sc[i] = a.x;
+      sh[i] = a.y;
+    }
+    const int64_t stride = (int64_t)gridDim.x * ppb;
+    const uint4* src = reinterpret_cast<const uint4*>(yn) + cv;
+    uint4* dst = reinterpret_cast<uint4*>(on) + cv;
+    for (int64_t p = (int64_t)blockIdx.x * ppb + threadIdx.x / vp; p < pixels;
+         p += kApplyUnroll * stride) {
+      uint4 v[kApplyUnroll];
+#pragma unroll
+      for (int u = 0; u < kApplyUnroll; ++u)
+        if (p + u * stride < pixels) v[u] = __ldg(src + (p + u * stride) * vp);
+#pragma unroll
+      for (int u = 0; u < kApplyUnroll; ++u)
+        if (p + u * stride < pixels) {
+          alignas(16) T buf[kVec];
+          *reinterpret_cast<uint4*>(buf) = v[u];
+#pragma unroll
+          for (int i = 0; i < kVec; ++i) {
+            const float r = fmaf(to_float(buf[i]), sc[i], sh[i]);
+            buf[i] = from_float<T>(relu ? fmaxf(r, 0.f) : r);
+          }
+          dst[(p + u * stride) * vp] = *reinterpret_cast<const uint4*>(buf);
+        }
     }
   } else {
+    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < total; e += stride) {
-      const float4 a = chan_s[e % c];
-      const float r = (to_float(yn[e]) - a.x) * a.y * a.z + a.w;
+      const float2 a = chan_s[e % c];
+      const float r = fmaf(to_float(yn[e]), a.x, a.y);
       on[e] = from_float<T>(relu ? fmaxf(r, 0.f) : r);
     }
   }
 }
 
+// ---------------------------------------------------------------------------
+// launches
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <typename T>
-int launch_conv(const void* x, const void* w, const void* bias, void* y, float* partials,
-                int* counters, float* stats, int batch, int height, int width, int cin,
-                int cout, int groups, int slots, cudaStream_t stream) {
-  const int tiles_x = (width + kTile - 1) / kTile;
-  const int n_tiles = tiles_x * ((height + kTile - 1) / kTile);
-  const bool vec_ok = cin % (16 / sizeof(T)) == 0 && aligned16(x) && aligned16(w);
-  const dim3 grid(slots, (cout + kBN - 1) / kBN, batch);
-  conv3x3_stats_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(bias),
-      static_cast<T*>(y), partials,
-      counters, stats, height, width, cin, cout, groups, tiles_x, n_tiles, vec_ok);
+struct ConvArgs {
+  const void *x, *w, *bias;
+  void* y;
+  float* partials;
+  int* counters;
+  float* stats;
+  int batch, height, width, cin, cout, groups, slots, smem_bytes;
+  cudaStream_t stream;
+};
+
+template <int TH, int KC, bool WS>
+int launch_conv_tc(const ConvArgs& a) {
+  using T = TcTile<TH, KC>;
+  const int cin_pad = (a.cin + 31) / 32 * 32;
+  const int smem = ((WS ? 9 * cin_pad * kBN : 0) +
+                    kStages * (T::kHaloElems + (WS ? 0 : T::kWChunkElems)) +
+                    T::kWarps * 32 * kOutLd) * 2 + T::kWarps * kBN * 2 * 4 + (kStages + 1) * 8;
+  if (smem != a.smem_bytes) return static_cast<int>(cudaErrorInvalidValue);  // the plan disagrees
+  auto kernel = conv3x3_stats_tc_kernel<TH, KC, WS>;
+  if (smem > 48 * 1024) {  // above 48 KB only after opting in (per device)
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int tiles_x = (a.width + kTW - 1) / kTW;
+  const int n_tiles = tiles_x * ((a.height + TH - 1) / TH);
+  if (a.slots > n_tiles) return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16(a.w)) return static_cast<int>(cudaErrorInvalidValue);  // bulk copies
+  const bool vec_in = a.cin % 8 == 0 && aligned16(a.x);
+  const bool vec_out = a.cout % 8 == 0 && aligned16(a.y);
+  const bool fast = vec_in && (int64_t)a.height * a.width * a.cin < (int64_t)1 << 31;
+  const dim3 grid(a.slots, (a.cout + kBN - 1) / kBN, a.batch);
+  kernel<<<grid, T::kThreads, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.x), static_cast<const __nv_bfloat16*>(a.w),
+      static_cast<const __nv_bfloat16*>(a.bias), static_cast<__nv_bfloat16*>(a.y), a.partials,
+      a.counters, a.stats, a.height, a.width, a.cin, a.cout, a.groups, tiles_x, n_tiles, vec_in,
+      vec_out, fast);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launch shapes the wrapper's plan can choose: 32-channel chunks on either
+// tile, streamed or resident, and 16-channel chunks where 32 do not fit beside
+// the resident weights of a 16-row tile.
+int launch_conv_bf16(const ConvArgs& a, int tile_h, int tile_w, int kc, bool ws) {
+  if (tile_w != kTW) return static_cast<int>(cudaErrorInvalidValue);
+  if (tile_h == 16 && kc == 32)
+    return ws ? launch_conv_tc<16, 32, true>(a) : launch_conv_tc<16, 32, false>(a);
+  if (tile_h == 8 && kc == 32)
+    return ws ? launch_conv_tc<8, 32, true>(a) : launch_conv_tc<8, 32, false>(a);
+  if (tile_h == 16 && kc == 16 && ws) return launch_conv_tc<16, 16, true>(a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_conv_fp32(const ConvArgs& a) {
+  const int tiles_x = (a.width + kFpTile - 1) / kFpTile;
+  const int n_tiles = tiles_x * ((a.height + kFpTile - 1) / kFpTile);
+  if (a.slots > n_tiles) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec_ok = a.cin % 4 == 0 && aligned16(a.x) && aligned16(a.w);
+  const dim3 grid(a.slots, (a.cout + kBN - 1) / kBN, a.batch);
+  conv3x3_stats_fp32_kernel<<<grid, kFpThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.x), static_cast<const float*>(a.w),
+      static_cast<const float*>(a.bias), static_cast<float*>(a.y), a.partials, a.counters,
+      a.stats, a.height, a.width, a.cin, a.cout, a.groups, tiles_x, n_tiles, vec_ok);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_apply(const void* y, const float* stats, const float* gamma, const float* beta,
                  void* out, int batch, int64_t pixels, int c, int groups, float eps, bool relu,
-                 cudaStream_t stream) {
+                 int blocks, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
-  const bool vec_ok = c % kVec == 0 && aligned16(y) && aligned16(out);
-  const int64_t units = vec_ok ? pixels * c / kVec : pixels * c;
-  const int64_t want = (units + kApplyThreads - 1) / kApplyThreads;
-  const int blocks = (int)(want < 4096 ? want : 4096);
-  const size_t smem = (size_t)c * sizeof(float4);
+  const bool vec =
+      c % kVec == 0 && c / kVec <= kApplyThreads && aligned16(y) && aligned16(out);
+  const size_t smem = (size_t)c * sizeof(float2);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         gn_apply_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -406,7 +788,7 @@ int launch_apply(const void* y, const float* stats, const float* gamma, const fl
   }
   gn_apply_kernel<T><<<dim3(blocks, batch), kApplyThreads, smem, stream>>>(
       static_cast<const T*>(y), stats, gamma, beta, static_cast<T*>(out), pixels, c, groups,
-      eps, relu, vec_ok);
+      eps, relu, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -414,42 +796,51 @@ int launch_apply(const void* y, const float* stats, const float* gamma, const fl
 
 extern "C" {
 
-// x: [batch, height, width, cin] NHWC; w: [9, cout, cin]; bias: [cout];
+// x: [batch, height, width, cin] NHWC; w: [9, cout, cin] in fp32, and in bf16
+// the same tiled as conv3x3_stats_tc_kernel documents it; bias: [cout];
 // y: [batch, height, width, cout]; partials: [batch, slots, cout, 2] fp32;
-// counters: [batch] int32, zero on entry; stats: [batch, groups, 2] fp32.
-// dtype 0 = float32, 1 = bfloat16 (x, w, bias, y). 1 <= slots <= number of
-// 8x8 tiles; cout % groups == 0. Returns cudaGetLastError() (0 on success).
+// counters: [batch] int32, zero on entry (the kernel leaves them zero);
+// stats: [batch, groups, 2] fp32. dtype 0 = float32, 1 = bfloat16 (x, w, bias,
+// y). The launch shape is the wrapper's plan: tile_h x tile_w output pixels a
+// tile (bf16: 16x16 or 8x16; fp32: 8x8), kc input channels a chunk (bf16: 32,
+// or 16 with resident weights on 16x16 tiles; fp32: 8), ws != 0 for resident
+// weights (bf16 only), smem_bytes of
+// dynamic shared memory (checked against the kernel's own count), and
+// 1 <= slots <= number of tiles. cout % groups == 0. Returns
+// cudaGetLastError() (0 on success).
 int sbgm_conv3x3_stats(const void* x, const void* w, const void* bias, void* y,
                        float* partials, int* counters, float* stats, int batch, int height,
                        int width, int cin, int cout, int groups, int slots, int dtype,
-                       void* stream) {
+                       int tile_h, int tile_w, int kc, int ws, int smem_bytes, void* stream) {
   if (batch <= 0 || batch > 65535 || height <= 0 || width <= 0 || cin <= 0 || cout <= 0 ||
       groups <= 0 || cout % groups != 0 || slots <= 0 || (cout + kBN - 1) / kBN > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_conv<float>(x, w, bias, y, partials, counters, stats, batch, height, width,
-                              cin, cout, groups, slots, s);
-  if (dtype == 1)
-    return launch_conv<__nv_bfloat16>(x, w, bias, y, partials, counters, stats, batch, height,
-                                      width, cin, cout, groups, slots, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const ConvArgs a{x, w, bias, y, partials, counters, stats, batch, height, width, cin, cout,
+                   groups, slots, smem_bytes, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) {
+    if (tile_h != kFpTile || tile_w != kFpTile || kc != kFpBK || ws || smem_bytes != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_conv_fp32(a);
+  }
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_conv_bf16(a, tile_h, tile_w, kc, ws != 0);
 }
 
 // y, out: [batch, pixels, c] NHWC; stats: [batch, groups, 2] from
-// sbgm_conv3x3_stats; gamma, beta: [c] fp32. relu: 0 or 1.
+// sbgm_conv3x3_stats; gamma, beta: [c] fp32. relu: 0 or 1. Grid (blocks, batch).
 int sbgm_gn_apply(const void* y, const float* stats, const float* gamma, const float* beta,
                   void* out, int batch, long long pixels, int c, int groups, float eps,
-                  int relu, int dtype, void* stream) {
-  if (batch <= 0 || batch > 65535 || pixels <= 0 || c <= 0 || groups <= 0 || c % groups != 0)
+                  int relu, int dtype, int blocks, void* stream) {
+  if (batch <= 0 || batch > 65535 || pixels <= 0 || c <= 0 || groups <= 0 ||
+      c % groups != 0 || blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_apply<float>(y, stats, gamma, beta, out, batch, pixels, c, groups, eps,
-                               relu != 0, s);
+                               relu != 0, blocks, s);
   if (dtype == 1)
     return launch_apply<__nv_bfloat16>(y, stats, gamma, beta, out, batch, pixels, c, groups,
-                                       eps, relu != 0, s);
+                                       eps, relu != 0, blocks, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,9 +1,11 @@
-// The tensor-core product shared by the kernels of this directory (sm_90a).
-// ops/_nvcc.py hashes this header with each source that includes it, so an
-// edit rebuilds both libraries.
+// Tensor-core and asynchronous-copy primitives shared by the kernels of this
+// directory (sm_90a). ops/_nvcc.py hashes this header with each source that
+// includes it, so an edit rebuilds both libraries.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
 
 // c += a b, mma.sync m16n8k16: a is the row-major A fragment (4 registers of
 // 2 bf16), b the column-major B fragment (2 registers), c fp32. Lane l holds
@@ -14,4 +16,157 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; valid = false writes 16 zero
+// bytes and reads nothing (src-size 0).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
+// register i receives matrix i (lane l: row l/4, columns 2(l%4), +1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// The same, each matrix transposed (lane l: rows 2(l%4), +1 of column l/4).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  uint32_t r;
+  memcpy(&r, &v, sizeof(r));
+  return r;
+}
+
+// ---------------------------------------------------------------------------
+// Warpgroup products (wgmma): four warps issue one asynchronous m64nNk16
+// product whose A and B both come from shared memory through descriptors.
+
+// Shared-memory matrix descriptor without swizzle, for an operand whose rows
+// (M or N) hold K contiguously: a core matrix is 8 rows x 16 bytes stored as
+// 128 contiguous bytes; `k_stride` is the byte offset between the two core
+// matrices of a k16 step, `row_stride` between one 8-row group and the next.
+__device__ __forceinline__ uint64_t wgmma_descriptor(uint32_t addr, uint32_t k_stride,
+                                                     uint32_t row_stride) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(k_stride >> 4) << 16) |
+         ((uint64_t)(row_stride >> 4) << 32);
+}
+
+// Writes to shared memory by this thread (st.shared, completed cp.async)
+// become visible to the asynchronous proxy that wgmma reads through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d += a b, m64n64k16, bf16 in, fp32 out. Warp w of the warpgroup holds rows
+// 16w .. 16w + 15 of d as eight m16n8 fragments: d[4j + i] is element i of the
+// fragment at columns 8j .. 8j + 7 (row l/4 + 8 (i/2), column 2 (l%4) + i%2).
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// Keeps the compiler from moving reads or writes of `x` across this point
+// (around wgmma's asynchronous register writes).
+__device__ __forceinline__ void register_fence(float& x) { asm volatile("" : "+f"(x)::"memory"); }
+
+// ---------------------------------------------------------------------------
+// Bulk copies (the TMA's one-dimensional form) that report to an mbarrier: one
+// thread asks for a contiguous run of global memory to be copied into shared
+// memory; the barrier's phase completes when the expected bytes have landed.
+
+__device__ __forceinline__ void mbarrier_init(uint64_t* bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(arrivals)
+               : "memory");
+}
+
+// Makes initialised barriers visible to the asynchronous proxy.
+__device__ __forceinline__ void mbarrier_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also announces `bytes` of copies to come in this phase.
+__device__ __forceinline__ void mbarrier_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of the given parity has completed; traps rather than
+// hang if it never does.
+__device__ __forceinline__ void mbarrier_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  for (int spins = 0; spins < (1 << 22); ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+  }
+  __trap();
+}
+
+// `bytes` (a multiple of 16; 16-byte aligned addresses) global -> shared.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }

@@ -22,6 +22,17 @@ rounded to x's dtype, an optional ReLU, and the result in x's dtype.
 - ``conv3x3_stats`` / ``gn_apply``: each kernel's own entry point, and
   ``plain_conv3x3_stats`` / ``plain_gn_apply`` their plain versions, which
   ``chip_smoke.py`` holds them against one by one.
+- ``plan``: the pure function that picks ``conv3x3_stats``'s launch shape
+  (variant, pixel tile, Cin chunk, shared memory, grid) from the call's shape;
+  the wrapper launches what it returns and the CPU tests call it.
+- ``packed_weights`` / ``tiled_weights``: the kernels' copies of the HWIO
+  weights in x's dtype, ``[9, Cout, Cin]`` for the fp32 kernel and the same
+  cut into the tiles that the bf16 kernel copies into shared memory
+  (``[Cout tiles, 9, Cin / 8, 64, 8]``, zero-padded). The wrapper keeps one
+  per parameter and remakes it when the
+  parameter's version counter, storage or layout changes (``load_state_dict``,
+  an in-place update, a move to another device). A write through ``.data``
+  bumps no version counter and is not seen.
 - ``conv3x3_stats_launches`` / ``gn_apply_launches``: how many times each
   kernel was launched in this process.
 
@@ -35,7 +46,8 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+import weakref
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -44,10 +56,21 @@ from sbgm_danra_tpu_torch.ops import _nvcc
 
 SOURCE = _nvcc.CSRC_DIR / "conv3x3_gn.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE = 8  # the kernel's spatial tile is 8 x 8 output pixels
-_BN = 64  # and its Cout tile 64 channels
-_TARGET_BLOCKS = 4 * 132  # conv blocks to aim for: four per SM of an H100
-_MAX_CHANNELS = 227 * 1024 // 16  # gn_apply keeps 16 bytes per channel in shared memory
+_BN = 64  # the kernels' Cout tile
+_SMS = 132  # streaming multiprocessors of an H100
+MAX_SHARED_BYTES = 232_448  # shared memory one block may use on Hopper (227 KB)
+_SM_SHARED_BYTES = 233_472  # per SM (228 KB); every resident block reserves 1 KB
+_STAGES = 3  # cp.async ring of the bf16 conv kernel
+# The bf16 conv kernel's launch shapes, (tile rows, tile columns, Cin chunk,
+# resident weights): one warpgroup per 8 rows x 16 columns; 16-channel chunks
+# only where 32 do not fit beside resident weights, which is on 16-row tiles.
+LAUNCH_SHAPES = ((16, 16, 32, False), (8, 16, 32, False), (16, 16, 32, True), (8, 16, 32, True),
+                 (16, 16, 16, True))
+_WS_MAX_CIN = 128  # resident weights up to here: 9 x 128 x 64 bf16 = 147 KB
+_FP32_TILE, _FP32_CHUNK = (8, 8), 8
+_APPLY_THREADS, _APPLY_UNROLL = 256, 4
+_APPLY_BLOCKS_PER_SM = 16  # gn_apply blocks in flight per SM over the whole batch
+_MAX_CHANNELS = MAX_SHARED_BYTES // 8  # gn_apply keeps 8 bytes per channel in shared memory
 
 conv3x3_stats_launches = 0
 gn_apply_launches = 0
@@ -58,10 +81,10 @@ def build_library() -> _nvcc.BuiltLibrary:
     """Compile (once per source and flags) and load the kernels' library."""
     built = _nvcc.build(SOURCE, "sbgm_conv3x3_gn")
     p, i = ctypes.c_void_p, ctypes.c_int
-    built.lib.sbgm_conv3x3_stats.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    built.lib.sbgm_conv3x3_stats.argtypes = [p] * 7 + [i] * 13 + [p]
     built.lib.sbgm_conv3x3_stats.restype = i
     built.lib.sbgm_gn_apply.argtypes = [p, p, p, p, p, i, ctypes.c_longlong, i, i,
-                                        ctypes.c_float, i, i, p]
+                                        ctypes.c_float, i, i, i, p]
     built.lib.sbgm_gn_apply.restype = i
     return built
 
@@ -140,10 +163,173 @@ def _require_cuda(what: str, **tensors) -> torch.device:
     return device
 
 
+class ConvPlan(NamedTuple):
+    """``conv3x3_stats``'s launch shape for one call shape."""
+
+    variant: str  # "ws": resident weights; "stream": weights staged per Cin chunk; "fp32"
+    mma: str  # "wgmma" (bf16, tensor cores) | "fma" (fp32, CUDA cores)
+    tile: tuple  # (rows, columns) of output pixels per tile
+    chunk: int  # input channels per pipeline stage
+    stages: int  # stages of the cp.async ring (1: no pipeline)
+    shared_bytes: int  # dynamic shared memory of one block
+    threads: int
+    grid: tuple  # (slots, Cout tiles, batch); a block walks tiles slot, slot + slots, ...
+    blocks_per_sm: int
+
+
+def _conv_shared_bytes(tile, chunk: int, resident: bool, cin: int) -> int:
+    """The bf16 kernel's dynamic shared memory, as conv3x3_gn.cu lays it out."""
+    th, tw = tile
+    warps = th * tw // 32
+    halo = (th + 2) * (tw + 2) * chunk
+    stage = halo + (0 if resident else 9 * chunk * _BN)
+    weights = 9 * math.ceil(cin / 32) * 32 * _BN if resident else 0  # Cin zero-padded to 32
+    return (2 * (weights + _STAGES * stage + warps * 32 * (_BN + 8)) + warps * _BN * 2 * 4
+            + (_STAGES + 1) * 8)  # ... the warps' channel sums and the copy barriers
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(n: int, h: int, w: int, cin: int, cout: int, dtype: torch.dtype,
+         force: Optional[tuple] = None) -> ConvPlan:
+    """Pick the conv kernel's variant, tile, chunk and grid for x [n, h, w, cin] -> cout.
+
+    fp32 has one launch shape. bf16, by the rules that the sweep of
+    ``profile_port.py --paths k1 --k1-sweep`` gave on an H100:
+
+    - tile: 16x16 pixels, or 8x16 where the map has at most 8 rows or where
+      16x16 tiles would give at most half an SM's worth of blocks
+      (n x tiles x Cout tiles <= 132 / 2);
+    - weights resident in shared memory ("ws") where Cin <= 128 and each block
+      walks at least 3 tiles, so that copying its [9, Cin, 64] slice once pays;
+      else staged with every Cin chunk ("stream");
+    - chunk: 32 channels, or 16 where 32 do not fit beside resident weights
+      (Cin 128);
+    - grid: one block per resident slot of the card, (slots, Cout tiles, n);
+      block ``slot`` of a sample walks tiles slot, slot + slots, ...
+
+    ``force``, one of ``LAUNCH_SHAPES``, overrides the choice (measurements and
+    the card tests of each launch shape). Raises where the shape does not fit
+    in ``MAX_SHARED_BYTES``.
+    """
+    if min(n, h, w, cin, cout) < 1 or n > 65535:
+        raise ValueError(f"conv3x3_stats: unsupported shape {(n, h, w, cin)} -> {cout}")
+    cout_tiles = math.ceil(cout / _BN)
+
+    def shaped(variant, mma, tile, chunk, stages, shared, threads):
+        if shared > MAX_SHARED_BYTES:
+            raise ValueError(f"conv3x3_stats: tile {tile}, chunk {chunk}, {variant} at Cin {cin} "
+                             f"needs {shared} bytes of shared memory, above {MAX_SHARED_BYTES}")
+        tiles = math.ceil(h / tile[0]) * math.ceil(w / tile[1])
+        per_sm = max(1, min(_SM_SHARED_BYTES // (shared + 1024), 2048 // threads, 16))
+        slots = min(tiles, max(1, _SMS * per_sm // (n * cout_tiles)))
+        return ConvPlan(variant, mma, tile, chunk, stages, shared, threads,
+                        (slots, cout_tiles, n), per_sm)
+
+    if dtype == torch.float32:
+        return shaped("fp32", "fma", _FP32_TILE, _FP32_CHUNK, 1, 0, 128)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"conv3x3_stats: dtype {dtype} not supported (float32 or bfloat16)")
+
+    def bf16(tile, chunk, resident):
+        return shaped("ws" if resident else "stream", "wgmma", tile, chunk, _STAGES,
+                      _conv_shared_bytes(tile, chunk, resident, cin), tile[0] * tile[1])
+
+    if force is not None:
+        if tuple(force) not in LAUNCH_SHAPES:
+            raise ValueError(f"conv3x3_stats: no kernel for the forced launch shape {force}")
+        return bf16(tuple(force[:2]), force[2], bool(force[3]))
+    big_tiles = math.ceil(h / 16) * math.ceil(w / 16)
+    tile = (8, 16) if h <= 8 or n * big_tiles * cout_tiles <= _SMS // 2 else (16, 16)
+    streamed = bf16(tile, 32, False)
+    if cin <= _WS_MAX_CIN:
+        for chunk in (32, 16):
+            if _conv_shared_bytes(tile, chunk, True, cin) <= MAX_SHARED_BYTES:
+                resident = bf16(tile, chunk, True)
+                tiles = math.ceil(h / tile[0]) * math.ceil(w / tile[1])
+                if tiles >= 3 * resident.grid[0]:
+                    return resident
+                break
+    return streamed
+
+
+_packed = {}  # (id(parameter), tag) -> (weak reference, signature, packed copy)
+
+
+def _cached(t: torch.Tensor, tag, make):
+    """``make()`` once per parameter behind ``t`` (itself or the base it views)
+    and state of it: version counter, storage, layout, device."""
+    root = t._base if t._base is not None else t
+    if root.is_inference():  # no version counter to watch
+        return make()
+    key = (id(root), tag)
+    signature = (root._version, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.device)
+    hit = _packed.get(key)
+    if hit is not None and hit[0]() is root and hit[1] == signature:
+        return hit[2]
+    made = make()
+    _packed[key] = (weakref.ref(root, lambda _: _packed.pop(key, None)), signature, made)
+    return made
+
+
+def packed_weights(kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The HWIO ``kernel`` [3, 3, Cin, Cout] as the conv kernel reads it:
+    [9, Cout, Cin] in ``dtype``, kept per parameter (see the module's notes)."""
+    def make():
+        _, _, cin, cout = kernel.shape
+        out = torch.empty((9, cout, cin), dtype=dtype, device=kernel.device)
+        return out.copy_(kernel.detach().permute(0, 1, 3, 2).reshape(9, cout, cin))
+    return _cached(kernel, ("weights", dtype), make)
+
+
+def tiled_weights(kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The HWIO ``kernel`` as the tensor-core conv kernel copies it into shared
+    memory, [Cout tiles, 9, Cin / 8, 64, 8] in ``dtype``: element
+    [t, tap, k, o, j] is ``packed_weights``' [tap, 64 t + o, 8 k + j], zero
+    where that is past Cout or Cin; Cin is padded to a multiple of 32. One
+    (tap, run of k) slice of a Cout tile is then one contiguous bulk copy. Kept
+    per parameter like ``packed_weights``."""
+    def make():
+        _, _, cin, cout = kernel.shape
+        tiles, cin_pad = math.ceil(cout / _BN), math.ceil(cin / 32) * 32
+        padded = torch.zeros((9, tiles * _BN, cin_pad), dtype=dtype, device=kernel.device)
+        padded[:, :cout, :cin] = kernel.detach().permute(0, 1, 3, 2).reshape(9, cout, cin)
+        return (padded.view(9, tiles, _BN, cin_pad // 8, 8).permute(1, 0, 3, 2, 4)
+                .contiguous())
+    return _cached(kernel, ("tiled", dtype), make)
+
+
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` contiguous in ``dtype``: itself where it already is, else a copy
+    kept per parameter."""
+    if t.dtype == dtype and t.is_contiguous():
+        return t
+    return _cached(t, ("cast", dtype), lambda: t.detach().to(dtype).contiguous())
+
+
+_counters = {}  # (device, stream) -> int32 ticket counters, zero between launches
+
+
+def _ticket_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """One ticket per sample; the kernel's last block of a sample resets it, so
+    the buffer is zeroed only when it is made."""
+    key = (dev, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _counters[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+    return buf
+
+
+def _current_stream(dev: torch.device) -> int:
+    """The raw handle of ``dev``'s current stream (a tenth of the host time of
+    ``torch.cuda.current_stream(dev).cuda_stream``, which builds a Stream)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
 def conv3x3_stats(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-                  groups: int) -> tuple:
+                  groups: int, force: Optional[tuple] = None) -> tuple:
     """The conv kernel: x [N, H, W, Cin], HWIO kernel -> (conv [N, H, W, Cout] in
-    x's dtype, stats [N, groups, 2] fp32 sum and sum of squares)."""
+    x's dtype, stats [N, groups, 2] fp32 sum and sum of squares). ``force`` is
+    ``plan``'s, for measurements and tests of each launch shape."""
     global conv3x3_stats_launches
     dev = _require_cuda("conv3x3_stats", x=x, kernel=kernel, bias=bias)
     if x.dtype not in _DTYPE_CODES:
@@ -151,27 +337,40 @@ def conv3x3_stats(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     cin, cout = _check_args(x, kernel, bias, groups)
     x = x.contiguous()
     n, h, w, _ = x.shape
-    # [9, Cout, Cin] in x's dtype: one copy that also casts
-    wk = torch.empty((9, cout, cin), dtype=x.dtype, device=dev)
-    wk.copy_(kernel.permute(0, 1, 3, 2).reshape(9, cout, cin))
-    bias_t = bias.to(x.dtype).contiguous()
-    tiles = math.ceil(h / _TILE) * math.ceil(w / _TILE)
-    slots = min(tiles, max(1, math.ceil(_TARGET_BLOCKS / (n * math.ceil(cout / _BN)))))
+    p = plan(n, h, w, cin, cout, x.dtype, force=force)
+    pack = tiled_weights if p.mma == "wgmma" else packed_weights
+    wk, bias_t = pack(kernel, x.dtype), _as(bias, x.dtype)
+    slots = p.grid[0]
     conv = torch.empty((n, h, w, cout), dtype=x.dtype, device=dev)
-    partials = torch.empty((n, slots, cout, 2), dtype=torch.float32, device=dev)
-    counters = torch.zeros((n,), dtype=torch.int32, device=dev)
-    stats = torch.empty((n, groups, 2), dtype=torch.float32, device=dev)
+    # partials [n, slots, cout, 2] and stats [n, groups, 2] in one allocation
+    scratch = torch.empty((n * slots * cout * 2 + n * groups * 2,), dtype=torch.float32,
+                          device=dev)
+    stats = scratch[n * slots * cout * 2:].view(n, groups, 2)
     built = build_library()
     with torch.cuda.device(dev):
+        stream = _current_stream(dev)
         rc = built.lib.sbgm_conv3x3_stats(
             x.data_ptr(), wk.data_ptr(), bias_t.data_ptr(), conv.data_ptr(),
-            partials.data_ptr(), counters.data_ptr(), stats.data_ptr(),
-            n, h, w, cin, cout, groups, slots, _DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream(dev).cuda_stream,
+            scratch.data_ptr(), _ticket_counters(dev, stream, n).data_ptr(), stats.data_ptr(),
+            n, h, w, cin, cout, groups, slots, _DTYPE_CODES[x.dtype], p.tile[0], p.tile[1],
+            p.chunk, int(p.variant == "ws"), p.shared_bytes, stream,
         )
-    _nvcc.check_launch(built, rc, "conv3x3_stats")
+    if rc != 0:
+        _nvcc.check_launch(built, rc, f"conv3x3_stats ({p})")
     conv3x3_stats_launches += 1
     return conv, stats
+
+
+def apply_blocks(n: int, pixels: int, c: int, itemsize: int) -> int:
+    """``gn_apply``'s blocks per sample: enough for every thread's
+    ``_APPLY_UNROLL`` vectors, at most ``_APPLY_BLOCKS_PER_SM`` blocks an SM over the batch."""
+    vec = 16 // itemsize
+    if c % vec == 0 and c // vec <= _APPLY_THREADS:
+        per_trip = (_APPLY_THREADS // (c // vec)) * _APPLY_UNROLL  # pixels
+        want = math.ceil(pixels / per_trip)
+    else:
+        want = math.ceil(pixels * c / (_APPLY_THREADS * _APPLY_UNROLL))
+    return max(1, min(want, _APPLY_BLOCKS_PER_SM * _SMS // n, 65535))
 
 
 def gn_apply(conv: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -185,17 +384,22 @@ def gn_apply(conv: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor, beta:
         raise ValueError(f"conv must be a contiguous float32 or bfloat16 tensor, not {conv.dtype}")
     if stats.shape != (n, groups, 2) or stats.dtype != torch.float32 or c % groups != 0:
         raise ValueError(f"stats must be float32 [{n}, {groups}, 2], got {tuple(stats.shape)}")
-    if c > _MAX_CHANNELS:
-        raise ValueError(f"{c} channels > {_MAX_CHANNELS} are not supported by gn_apply")
-    gamma_f, beta_f = gamma.float().contiguous(), beta.float().contiguous()
+    if gamma.shape != (c,) or beta.shape != (c,):
+        raise ValueError(f"gamma and beta must be [{c}], got {tuple(gamma.shape)} and "
+                         f"{tuple(beta.shape)}")
+    if c > _MAX_CHANNELS or n > 65535:
+        raise ValueError(f"gn_apply: {c} channels (at most {_MAX_CHANNELS}) or batch {n} (at "
+                         "most 65535) not supported")
+    gamma_f, beta_f = _as(gamma, torch.float32), _as(beta, torch.float32)
     stats = stats.contiguous()
     out = torch.empty_like(conv)
     built = build_library()
     with torch.cuda.device(conv.device):
+        stream = _current_stream(conv.device)
         rc = built.lib.sbgm_gn_apply(
             conv.data_ptr(), stats.data_ptr(), gamma_f.data_ptr(), beta_f.data_ptr(),
             out.data_ptr(), n, h * w, c, groups, eps, int(activation),
-            _DTYPE_CODES[conv.dtype], torch.cuda.current_stream(conv.device).cuda_stream,
+            _DTYPE_CODES[conv.dtype], apply_blocks(n, h * w, c, conv.element_size()), stream,
         )
     _nvcc.check_launch(built, rc, "gn_apply")
     gn_apply_launches += 1
@@ -205,9 +409,7 @@ def gn_apply(conv: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor, beta:
 class _Conv3x3GN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, kernel, bias, gamma, beta, groups, eps, activation):
-        _require_cuda("conv3x3_gn_cuda", x=x, gamma=gamma, beta=beta)
-        _check_args(x, kernel, bias, groups, gamma, beta)
-        conv, stats = conv3x3_stats(x, kernel, bias, groups)
+        conv, stats = conv3x3_stats(x, kernel, bias, groups)  # checks x, kernel, bias
         return gn_apply(conv, stats, gamma, beta, groups, eps, activation)
 
     @staticmethod

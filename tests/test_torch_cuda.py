@@ -181,6 +181,145 @@ def test_k1_bf16_matches_plain_version(cuda):
     assert ((out - chain).abs() <= 2e-2 + 2.0**-7 * chain.abs()).all()
 
 
+def _force_id(force):
+    return "x".join(map(str, map(int, force)))
+
+
+# (N, H, W, Cin, Cout, groups): aligned; ragged H x W with Cin off the chunk and
+# groups of 3 channels; Cin and Cout off 64 with 9-channel groups that straddle
+# the 64-channel Cout tile; one channel per group; batch 16; a single ragged tile
+K1_BF16_SHAPES = [(2, 32, 48, 64, 64, 8), (2, 37, 51, 12, 24, 8), (2, 37, 51, 200, 72, 8),
+                  (3, 19, 13, 16, 8, 8), (16, 16, 16, 128, 64, 8), (1, 9, 7, 40, 136, 4)]
+
+
+@pytest.mark.parametrize("shape", K1_BF16_SHAPES, ids=str)
+@pytest.mark.parametrize("force", k1.LAUNCH_SHAPES, ids=_force_id)
+def test_k1_bf16_every_launch_shape_matches_plain_version(cuda, force, shape):
+    """Each tile, chunk and weight placement of the bf16 conv kernel, forced,
+    with the tolerances of test_k1_bf16_matches_plain_version; repeated calls
+    are bit-identical."""
+    torch.backends.cudnn.allow_tf32 = False
+    n, h, w, cin, cout, groups = shape
+    try:
+        k1.plan(n, h, w, cin, cout, torch.bfloat16, force=force)
+    except ValueError:
+        pytest.skip("this launch shape does not fit in shared memory at this Cin")
+    x, kernel, bias, gamma, beta = _k1_args(n, h, w, cin, cout, torch.bfloat16, cuda)
+    conv, stats = k1.conv3x3_stats(x, kernel, bias, groups, force=force)
+    again = k1.conv3x3_stats(x, kernel, bias, groups, force=force)
+    assert torch.equal(again[0], conv) and torch.equal(again[1], stats)
+    plain_conv, plain_stats = k1.plain_conv3x3_stats(x.float(), kernel.bfloat16(),
+                                                     bias.bfloat16(), groups)
+    conv_err = (conv.float() - plain_conv).abs()
+    assert (conv_err <= 4e-3 * plain_conv.abs() + 1e-4 * plain_conv.abs().max()).all()
+    assert ((stats - plain_stats).abs().max() <= 1e-4 * plain_stats.abs().max())
+    out = k1.gn_apply(conv, stats, gamma, beta, groups, activation=True).float()
+    want = k1.plain_gn_apply(conv, stats, gamma, beta, groups, activation=True,
+                             out_dtype=torch.float32)
+    assert (out - want).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("shape", [(1, 9, 7, 40, 136, 4), (2, 37, 51, 200, 72, 8),
+                                   (2, 20, 33, 24, 24, 8), (1, 16, 16, 72, 64, 8)], ids=str)
+@pytest.mark.parametrize("force", k1.LAUNCH_SHAPES, ids=_force_id)
+def test_k1_bf16_reads_nothing_past_cin_or_the_end_of_x(cuda, force, shape):
+    """Cin a multiple of 8 but not of the chunk: the last chunk's channels past
+    Cin must be zero-fills, not the bytes that follow the pixel. With x at the
+    end of a buffer whose next bytes are NaN (0 x NaN = NaN would poison the
+    window, the group's statistics and then the whole group), the result is
+    finite and bit-identical to the same call with zeros there."""
+    n, h, w, cin, cout, groups = shape
+    try:
+        k1.plan(n, h, w, cin, cout, torch.bfloat16, force=force)
+    except ValueError:
+        pytest.skip("this launch shape does not fit in shared memory at this Cin")
+    x, kernel, bias, _, _ = _k1_args(n, h, w, cin, cout, torch.bfloat16, cuda)
+    results = []
+    for after in (0.0, float("nan")):
+        buf = torch.full((x.numel() + 256,), after, dtype=torch.bfloat16, device=cuda)
+        x_tail = buf[:x.numel()].view(x.shape).copy_(x)
+        assert x_tail.data_ptr() % 16 == 0  # the vector path
+        results.append(k1.conv3x3_stats(x_tail, kernel, bias, groups, force=force))
+    (conv, stats), (conv_nan, stats_nan) = results
+    assert torch.isfinite(conv_nan.float()).all() and torch.isfinite(stats_nan).all()
+    assert torch.equal(conv_nan, conv) and torch.equal(stats_nan, stats)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 5, 7, 12), (2, 9, 4, 72), (16, 8, 8, 512), (1, 3, 3, 4096),
+                                   (2, 304, 400, 64)])
+def test_gn_apply_matches_plain_version(cuda, shape, dtype):
+    """The vector path (C a multiple of the 16-byte vector), the element path
+    (C = 12 in bf16; more than 256 vectors a pixel) and one channel per group,
+    on statistics taken from the input itself: bf16 2e-2 abs, fp32 1e-4 max|ref|."""
+    n, h, w, c = shape
+    g = torch.Generator(cuda).manual_seed(3)
+    conv = torch.randn(n, h, w, c, generator=g, device=cuda).to(dtype)
+    gamma = 1.0 + 0.1 * torch.randn(c, generator=g, device=cuda)
+    beta = 0.1 * torch.randn(c, generator=g, device=cuda)
+    for groups in (4, c):
+        grouped = conv.float().reshape(n, h * w, groups, c // groups)
+        stats = torch.stack([grouped.sum((1, 3)), (grouped * grouped).sum((1, 3))], dim=-1)
+        for act in (False, True):
+            out = k1.gn_apply(conv, stats, gamma, beta, groups, activation=act)
+            want = k1.plain_gn_apply(conv, stats, gamma, beta, groups, activation=act,
+                                     out_dtype=torch.float32)
+            assert torch.equal(out, k1.gn_apply(conv, stats, gamma, beta, groups, activation=act))
+            tol = 2e-2 if dtype == torch.bfloat16 else 1e-4 * want.abs().max().item()
+            assert (out.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k1_takes_pointers_off_16_bytes(cuda, dtype):
+    """x (and so the conv output's consumer, gn_apply's input) 8 bytes off a
+    16-byte boundary: the kernels take their scalar copy paths and agree with
+    the aligned call bit for bit."""
+    x, kernel, bias, gamma, beta = _k1_args(2, 19, 13, 16, 24, dtype, cuda)
+    shift = 8 // x.element_size()
+    buf = torch.empty(x.numel() + shift, dtype=dtype, device=cuda)
+    x_off = buf[shift:].view(x.shape).copy_(x)
+    assert x_off.data_ptr() % 16 == 8 and x_off.is_contiguous()
+    conv, stats = k1.conv3x3_stats(x, kernel, bias, 8)
+    conv_off, stats_off = k1.conv3x3_stats(x_off, kernel, bias, 8)
+    assert torch.equal(conv_off, conv) and torch.equal(stats_off, stats)
+    out = k1.gn_apply(conv, stats, gamma, beta, 8)
+    buf2 = torch.empty(conv.numel() + shift, dtype=dtype, device=cuda)
+    conv_shifted = buf2[shift:].view(conv.shape).copy_(conv)
+    assert torch.equal(k1.gn_apply(conv_shifted, stats, gamma, beta, 8), out)
+
+
+def test_k1_two_models_keep_their_own_weights(cuda):
+    """The packed weights are kept per parameter: two blocks of one shape with
+    different weights, called in turn, each match their own plain chain; so
+    does a block after load_state_dict and after an in-place update."""
+    from sbgm_danra_tpu_torch.models.unet import DecoderBlock
+
+    torch.backends.cudnn.allow_tf32 = False
+    blocks = [DecoderBlock(16, 8, time_embedding=16, gn_groups=4).to(cuda) for _ in range(2)]
+    for i, block in enumerate(blocks):
+        with torch.no_grad():
+            for prm in block.parameters():
+                prm.copy_(torch.randn(prm.shape, generator=torch.Generator().manual_seed(i + 1))
+                          .to(cuda) * 0.2)
+    fmap = torch.randn(2, 16, 6, 10, device=cuda)
+
+    def check():
+        for block in blocks:
+            with torch.no_grad():
+                got = block(fmap)
+                block.cpu()
+                want = block(fmap.cpu())
+                block.to(cuda)
+            assert (got.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+    check()
+    check()  # served from the cache
+    blocks[0].load_state_dict(blocks[1].state_dict())
+    with torch.no_grad():
+        blocks[1].conv.weight.mul_(1.5)
+    check()
+
+
 def test_k1_statistics_are_deterministic(cuda):
     args = _k1_args(2, 76, 100, 128, 128, torch.bfloat16, cuda)
     first = k1.conv3x3_gn_cuda(*args, groups=8, activation=False)

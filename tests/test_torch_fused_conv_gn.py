@@ -19,6 +19,7 @@ from sbgm_danra_tpu.ops import fused_conv_gn as jax_k1
 from sbgm_danra_tpu_torch.convert import state_dict_from_flax
 from sbgm_danra_tpu_torch.models.unet import DecoderBlock
 from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
+from profile_port import CHAINS_128, CHAINS_FULL, K1_RAGGED
 from tests.torch_parity import random_variables, rel_err
 
 # the shapes of tests/test_fused_conv_gn.py (cout = 2 cin), and a decoder chain
@@ -104,6 +105,176 @@ class TestConv3x3GN:
     def test_backward_raises(self):
         with pytest.raises(NotImplementedError, match="no backward"):
             k1._Conv3x3GN.backward(None, torch.zeros(1))
+
+
+# the decoder chains of one flagship UNet evaluation (128 px at batch 16,
+# 608x800 at batch 2) and the shapes off every tile, chunk and Cout tile, as
+# the card's measurements take them
+PLAN_SHAPES = ([(16, c) for c in dict.fromkeys(CHAINS_128)]
+               + [(2, c) for c in dict.fromkeys(CHAINS_FULL)]
+               + K1_RAGGED + [(26, (64, 64, 64, 64)), (3, (19, 13, 16, 8))])
+# where the sweep on the card found resident weights faster: Cin <= 128 and
+# at least three tiles a block
+RESIDENT = {(2, (152, 200, 128, 128)), (2, (304, 400, 64, 64)), (26, (64, 64, 64, 64))}
+
+
+def _coverage(p, h, w):
+    """How often each output pixel of one (sample, Cout tile) is computed by
+    the plan's blocks: block ``slot`` walks tiles slot, slot + slots, ..."""
+    th, tw = p.tile
+    tiles_x = -(-w // tw)
+    n_tiles = tiles_x * -(-h // th)
+    count = np.zeros((h, w), np.int64)
+    for slot in range(p.grid[0]):
+        for tile in range(slot, n_tiles, p.grid[0]):
+            y0, x0 = (tile // tiles_x) * th, (tile % tiles_x) * tw
+            count[y0:y0 + th, x0:x0 + tw] += 1
+    return count
+
+
+class TestPlan:
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+    @pytest.mark.parametrize("n, chain", PLAN_SHAPES, ids=lambda v: str(v))
+    def test_plan_covers_the_output_once_within_shared_memory(self, n, chain, dtype):
+        h, w, cin, cout = chain
+        p = k1.plan(n, h, w, cin, cout, dtype)
+        assert p.shared_bytes <= k1.MAX_SHARED_BYTES == 232_448
+        assert (_coverage(p, h, w) == 1).all()
+        slots, cout_tiles, batch = p.grid
+        assert batch == n and 1 <= slots
+        # 64-channel Cout tiles cover every channel exactly once
+        assert (cout_tiles - 1) * 64 < cout <= cout_tiles * 64
+        assert p.threads <= 1024 and p.blocks_per_sm >= 1
+        if dtype == torch.float32:
+            assert (p.variant, p.mma, p.tile, p.chunk, p.stages) == ("fp32", "fma", (8, 8), 8, 1)
+            return
+        assert p.mma == "wgmma" and p.stages == 3 and p.chunk in (16, 32)
+        assert p.tile in ((16, 16), (8, 16)) and p.threads == p.tile[0] * p.tile[1]
+        assert p.variant == ("ws" if (n, chain) in RESIDENT else "stream")
+        if p.variant == "ws":
+            assert cin <= 128
+        # the bytes the kernel lays out: resident weights, three stages, output
+        # staging (144-byte rows) and the warps' channel sums
+        warps = p.threads // 32
+        halo = (p.tile[0] + 2) * (p.tile[1] + 2) * p.chunk
+        cin_pad = -(-cin // 32) * 32
+        elems = (9 * cin_pad * 64 + 3 * halo if p.variant == "ws"
+                 else 3 * (halo + 9 * p.chunk * 64))
+        assert p.shared_bytes == 2 * (elems + warps * 32 * 72) + warps * 64 * 2 * 4 + 4 * 8
+
+    def test_small_maps_take_the_small_tile(self):
+        assert k1.plan(16, 8, 8, 512, 512, torch.bfloat16).tile == (8, 16)
+        assert k1.plan(16, 16, 16, 256, 256, torch.bfloat16).tile == (8, 16)
+        assert k1.plan(2, 304, 400, 64, 64, torch.bfloat16).tile == (16, 16)
+
+    def test_forced_plans_and_what_does_not_fit(self):
+        p = k1.plan(2, 152, 200, 128, 128, torch.bfloat16, force=(8, 16, 32, 1))
+        assert (p.variant, p.tile, p.chunk) == ("ws", (8, 16), 32)
+        for force in ((16, 16, 16, 0), (8, 16, 16, 0), (8, 16, 16, 1)):
+            # tried on the card and not kept: plan never picks them, so no kernel is built
+            with pytest.raises(ValueError, match="no kernel"):
+                k1.plan(2, 38, 50, 512, 512, torch.bfloat16, force=force)
+        with pytest.raises(ValueError, match="shared memory"):  # 295 KB of weights
+            k1.plan(2, 38, 50, 256, 256, torch.bfloat16, force=(16, 16, 32, 1))
+        with pytest.raises(ValueError, match="shared memory"):
+            k1.plan(2, 152, 200, 128, 128, torch.bfloat16, force=(16, 16, 32, 1))
+        with pytest.raises(ValueError, match="no kernel"):
+            k1.plan(2, 38, 50, 64, 64, torch.bfloat16, force=(8, 8, 32, 0))
+        with pytest.raises(TypeError, match="not supported"):
+            k1.plan(2, 38, 50, 64, 64, torch.float16)
+        with pytest.raises(ValueError, match="unsupported shape"):
+            k1.plan(0, 38, 50, 64, 64, torch.bfloat16)
+
+    @pytest.mark.parametrize("n, pixels, c, itemsize", [
+        (2, 304 * 400, 64, 2), (16, 64, 512, 2), (1, 63, 12, 2), (2, 1881, 72, 4),
+        (3, 5, 4096, 2)])
+    def test_apply_blocks_cover_every_vector(self, n, pixels, c, itemsize):
+        blocks = k1.apply_blocks(n, pixels, c, itemsize)
+        assert 1 <= blocks <= 65535 and blocks * n <= max(n, 16 * 132)
+
+
+class TestPackedWeights:
+    def _conv(self, seed, cin=12, cout=24):
+        torch.manual_seed(seed)
+        return torch.nn.Conv2d(cin, cout, 3, padding=1)
+
+    def test_layout_is_tap_major_then_output_channel(self):
+        kernel = torch.from_numpy(_inputs((1, 4, 4, 12), 24, seed=1)[1])
+        packed = k1.packed_weights(kernel, torch.bfloat16)
+        want = kernel.permute(0, 1, 3, 2).reshape(9, 24, 12).bfloat16()
+        assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+        torch.testing.assert_close(packed, want, rtol=0, atol=0)
+        assert k1.packed_weights(kernel, torch.bfloat16) is packed  # kept
+        fp32 = k1.packed_weights(kernel, torch.float32)  # per dtype
+        torch.testing.assert_close(fp32, kernel.permute(0, 1, 3, 2).reshape(9, 24, 12),
+                                   rtol=0, atol=0)
+        assert k1.packed_weights(kernel, torch.bfloat16) is packed
+
+    @pytest.mark.parametrize("cin, cout", [(12, 24), (64, 64), (200, 72), (40, 136)])
+    def test_tiled_layout_is_the_packed_one_cut_into_cout_tiles(self, cin, cout):
+        kernel = torch.from_numpy(_inputs((1, 4, 4, cin), cout, seed=2)[1])
+        tiled = k1.tiled_weights(kernel, torch.bfloat16)
+        packed = k1.packed_weights(kernel, torch.bfloat16)
+        tiles, cin8 = -(-cout // 64), -(-cin // 32) * 4
+        assert tiled.shape == (tiles, 9, cin8, 64, 8) and tiled.is_contiguous()
+        want = torch.zeros(9, tiles * 64, cin8 * 8, dtype=torch.bfloat16)
+        want[:, :cout, :cin] = packed
+        for t in range(tiles):
+            for k in range(cin8):
+                torch.testing.assert_close(tiled[t, :, k], want[:, 64 * t:64 * t + 64,
+                                                                8 * k:8 * k + 8], rtol=0, atol=0)
+        assert k1.tiled_weights(kernel, torch.bfloat16) is tiled
+        with torch.no_grad():
+            kernel.mul_(2.0)
+        assert k1.tiled_weights(kernel, torch.bfloat16) is not tiled
+
+    def test_remade_after_load_state_dict_and_in_place_update(self):
+        conv = self._conv(0)
+        hwio = lambda: conv.weight.permute(2, 3, 1, 0)  # noqa: E731  a fresh view per call
+        want = lambda: hwio().detach().permute(0, 1, 3, 2).reshape(9, 24, 12)  # noqa: E731
+        first = k1.packed_weights(hwio(), torch.float32)
+        assert k1.packed_weights(hwio(), torch.float32) is first
+        conv.load_state_dict(self._conv(1).state_dict())
+        second = k1.packed_weights(hwio(), torch.float32)
+        assert second is not first
+        torch.testing.assert_close(second, want(), rtol=0, atol=0)
+        with torch.no_grad():
+            conv.weight.mul_(2.0)
+        third = k1.packed_weights(hwio(), torch.float32)
+        torch.testing.assert_close(third, want(), rtol=0, atol=0)
+        torch.testing.assert_close(third, 2.0 * second, rtol=0, atol=0)
+        with torch.inference_mode():  # the serving path reads through the same cache
+            assert k1.packed_weights(hwio(), torch.float32) is third
+
+    def test_each_parameter_has_its_own_copy_and_it_dies_with_it(self):
+        a, b = self._conv(2), self._conv(3)
+        pa = k1.packed_weights(a.weight.permute(2, 3, 1, 0), torch.float32)
+        pb = k1.packed_weights(b.weight.permute(2, 3, 1, 0), torch.float32)
+        assert not torch.equal(pa, pb)
+        assert k1.packed_weights(a.weight.permute(2, 3, 1, 0), torch.float32) is pa
+        kept = len(k1._packed)
+        del a, pa
+        import gc
+        gc.collect()
+        assert len(k1._packed) == kept - 1
+
+    def test_casts_are_kept_per_parameter_and_fp32_passes_through(self):
+        bias = torch.nn.Parameter(torch.randn(24))
+        assert k1._as(bias, torch.float32) is bias  # nothing to do
+        cast = k1._as(bias, torch.bfloat16)
+        assert cast.dtype == torch.bfloat16 and k1._as(bias, torch.bfloat16) is cast
+        with torch.no_grad():
+            bias.add_(1.0)
+        torch.testing.assert_close(k1._as(bias, torch.bfloat16), bias.detach().bfloat16(),
+                                   rtol=0, atol=0)
+
+    def test_inference_tensors_are_packed_anew(self):
+        with torch.inference_mode():
+            kernel = torch.randn(3, 3, 4, 8)
+            first = k1.packed_weights(kernel, torch.float32)
+            kernel.mul_(3.0)  # no version counter: never served from the cache
+            torch.testing.assert_close(k1.packed_weights(kernel, torch.float32),
+                                       3.0 * first, rtol=0, atol=0)
 
 
 def _block_pair(in_ch, out_ch, norm, seed, hw):
