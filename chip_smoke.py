@@ -18,14 +18,15 @@ Phases, one JSON line each on stdout:
      chunks of one packed QKV tensor (as the model passes them; bit-identical
      to the same call on contiguous copies), and at padded-D / ragged-S /
      forced shapes. Every call is made twice and must repeat bit-identically,
-     and must run the variant its dtype selects (bf16: tensor cores, fp32:
-     CUDA cores). fp32: |err| <= 2e-5 + 2e-5 |ref| with TF32 off; bf16:
+     and must run the variant its dtype selects (bf16: bf16 tensor cores,
+     fp32: 3xTF32 tensor cores). fp32: |err| <= 2e-5 + 2e-5 |ref| against the
+     plain version with TF32 off; bf16:
      |err| <= 2^-8 |ref| + 2^-8 max|ref| against the fp32 plain version on the
      same bf16-rounded inputs (P is rounded to bf16 for the P.V product, and
      the output to bf16);
    - K1 conv3x3 + GroupNorm (``conv3x3_stats`` then ``gn_apply``) at every
-     decoder chain shape of the 128-px path (batch 16, bf16 and fp32), of the
-     608x800 path (batch 2), at the two ``perf_probe`` shapes (batch 26) and
+     decoder chain shape of the 128-px path (batch 16) and of the 608x800 path
+     (batch 2), each in bf16 and fp32, at the two ``perf_probe`` shapes (batch 26) and
      at ragged shapes (H, W off every tile, Cin and Cout off the chunk and off
      64), where every launch shape the plan could choose is forced in turn
      and held to the same tolerance; each row names the variant, tile and
@@ -35,7 +36,8 @@ Phases, one JSON line each on stdout:
      of 20 calls, each on its own copy of the operands, after a flush of L2;
      ``profile_port.device_ms``), and ``library_ms`` (one PyTorch call) beside
      ``library_kernel_ms`` (the device time of the kernels that call launches,
-     measured the same way); tolerances in each row;
+     measured the same way); tolerances in each row. Bounds: ``profile_port.bound``
+     (fp32 operations by the faster of FMAs at 67 and 3xTF32 at 495 TFLOP/s);
 4. model: a tiny fp32 UNet on the card against the same weights on the CPU
    (TF32 off, attention kernel forced: max |err| <= 1e-4 max |ref|, with 8 K1
    launches), and flagship bf16 forwards at 128 px (batch 16) and 608x800
@@ -46,6 +48,14 @@ Phases, one JSON line each on stdout:
    samples; each must be finite of shape (1, 589, 789) with exactly 34 K2
    launches, all of the tensor-core variant, and 272 K1 launches (8 per UNet
    evaluation, 2 x 17 evaluations);
+5b. fp32_full_width: the flagship in fp32 (the 3xTF32 kernels) at 608x800:
+   one forward at batch 2 against the plain attention and the plain chain
+   (TF32 off: max |err| <= 1e-4 max |ref|, 1 ``fp32`` K2 and 8 + 8 K1
+   launches), the same forward under PyTorch's default flags
+   (``cudnn.allow_tf32`` True) and TF32 off against the CPU (reported, ROADMAP
+   F7), and one EDM-18 sample under the default flags: 34 ``fp32`` and no
+   ``tc_bf16`` K2 launches, 272 + 272 K1, finite (1, 589, 789), its wall time
+   beside the bf16 samples';
 6. serving: the engine with the flagship_synth settings behind the HTTP
    handler on a localhost port: /healthz, three concurrent /generate requests
    (1, 2 and 4 members), then each again alone, which must come back
@@ -76,7 +86,8 @@ from http.server import ThreadingHTTPServer
 import numpy as np
 import torch
 
-from profile_port import CHAINS_128, CHAINS_FULL, COLD_COPIES, K1_RAGGED, device_ms
+from profile_port import (CHAINS_128, CHAINS_FULL, COLD_COPIES, K1_RAGGED, bound, device_ms,
+                          sfu_rate)
 
 FULL_DOMAIN = (589, 789)
 EDM_NODES = 18
@@ -84,10 +95,6 @@ SERVE_HW = (128, 128)
 CONTRACT_BATCH = 13  # bench.py's PC+CFG headline batch
 SAMPLER_STEPS = 10
 K1_PER_EVAL = 8  # decoder chains per UNet evaluation: 4 GroupNorm blocks x 2
-# H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, fp32 CUDA cores, HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES = 3.35e12
-EXP_PER_CLOCK_PER_SM = 16  # the SFU's ex2 rate on Hopper
 K2_MAIN = ((2, 7600, 4, 32), torch.bfloat16)  # decoder block 1 at 608x800
 K2_SHAPES = [  # (shape, dtype, packed QKV chunks, through the dispatcher with the kernel forced)
     ((2, 7600, 4, 32), torch.bfloat16, False, False),
@@ -108,7 +115,8 @@ BF16_TOLERANCE = ("bf16: |err| <= 2^-8 |ref| + 2^-8 max|ref| against the fp32 pl
 K1_SHAPES = (  # (path, batch, (H, W, Cin, Cout), dtype, activation)
     [("serve-128", 16, c, torch.bfloat16, False) for c in dict.fromkeys(CHAINS_128)]
     + [("serve-128", 16, c, torch.float32, False) for c in dict.fromkeys(CHAINS_128)]
-    + [("full-domain", 2, c, torch.bfloat16, False) for c in dict.fromkeys(CHAINS_FULL)]
+    + [("full-domain", 2, c, dt, False) for dt in (torch.bfloat16, torch.float32)
+       for c in dict.fromkeys(CHAINS_FULL)]
     + [("perf_probe", 26, (64, 64, 64, 64), torch.bfloat16, False),
        ("perf_probe", 26, (32, 32, 128, 64), torch.bfloat16, False),
        ("perf_probe", 26, (64, 64, 64, 64), torch.bfloat16, True)]
@@ -117,15 +125,8 @@ K1_SHAPES = (  # (path, batch, (H, W, Cin, Cout), dtype, activation)
 )
 
 
-def bound(flops: float, nbytes: float, dtype, exps: float = 0.0,
-          exp_rate: float = float("inf")) -> dict:
-    """The least time the card could take: operations at the dtype's peak,
-    bytes at the memory rate or exponentials at ``exp_rate`` per second,
-    whichever is longest."""
-    times = {"operations": flops / PEAK_FLOPS[dtype], "bytes": nbytes / PEAK_BYTES,
-             "exponentials": exps / exp_rate}
-    by = max(times, key=times.get)
-    return dict(bound_ms=1e3 * times[by], bound_by=by)
+def dtype_name(dtype) -> str:
+    return str(dtype).split(".")[-1]
 
 
 def emit(**fields) -> None:
@@ -143,19 +144,6 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def sfu_rate() -> dict:
-    """The SFU's exponentials per second: 16 ex2 per clock per SM at the
-    card's SM count and its maximum SM clock as nvidia-smi reads it."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    mhz = float(out.stdout.split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return dict(sm_count=sms, max_sm_clock_mhz=mhz,
-                exp_per_s=EXP_PER_CLOCK_PER_SM * sms * mhz * 1e6)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -237,7 +225,8 @@ def phase_attention_kernel(dev, exp_rate: float):
                    plain_ms=plain_ms, library_ms=library_ms,
                    library="F.scaled_dot_product_attention", **extra,
                    **bound(4.0 * b * h * s_len * s_len * d, 4 * q.numel() * q.element_size(),
-                           dtype, exps=float(b * h * s_len * s_len), exp_rate=exp_rate))
+                           dtype_name(dtype), exps=float(b * h * s_len * s_len),
+                           exp_rate=exp_rate))
         emit(**row)
         if not ok:
             failed.append(f"{shape} {dtype} (packed {packed}): worst err/tol {worst}, repeat "
@@ -287,7 +276,8 @@ def phase_conv_gn_kernel(dev):
         ref_max = chain_ref.abs().max().item()
         if dtype == torch.float32:
             conv_ok = bool((conv_err <= 1e-4 * plain_conv.abs().max()).all())
-            conv_tol = "fp32, TF32 off: |err| <= 1e-4 max|ref| (summation order only)"
+            conv_tol = ("fp32 (3xTF32 on the card), plain version with TF32 off: |err| <= 1e-4 "
+                        "max|ref|")
             apply_ok, chain_ok = apply_err <= 1e-4 * ref_max, chain_err <= 1e-4 * ref_max
             out_tol = chain_tol = "fp32: |err| <= 1e-4 max|ref| (summation order only)"
         else:
@@ -308,21 +298,24 @@ def phase_conv_gn_kernel(dev):
         args = (x, kernel, bias, groups)
         chosen = k1.plan(n, h, w, cin, cout, dtype)
         forced = {}
-        if path == "ragged" and dtype == torch.bfloat16:
+        if path == "ragged":
             # every launch shape that fits, at the same tolerance; and on x at the
             # end of a buffer with NaN behind it, which must change no bit: a Cin
             # off the chunk is zero-filled, not read past
             x_tail = torch.full((x.numel() + 256,), float("nan"), dtype=dtype, device=dev)
             x_tail = x_tail[:x.numel()].view(x.shape).copy_(x)
-            for force in k1.LAUNCH_SHAPES:
+            shapes = k1.LAUNCH_SHAPES if dtype == torch.bfloat16 else k1.FP32_LAUNCH_SHAPES
+            for force in shapes:
                 try:
                     k1.plan(n, h, w, cin, cout, dtype, force=force)
                 except ValueError:
                     continue  # above the shared memory a block may use
                 f_conv, f_stats = k1.conv3x3_stats(*args, force=force)
                 f_err = (f_conv.float() - plain_conv).abs()
-                f_ok = bool((f_err <= 4e-3 * plain_conv.abs()
-                             + 1e-4 * plain_conv.abs().max()).all())
+                f_tol = 1e-4 * plain_conv.abs().max()
+                if dtype == torch.bfloat16:
+                    f_tol = f_tol + 4e-3 * plain_conv.abs()
+                f_ok = bool((f_err <= f_tol).all())
                 f_rel = ((f_stats - plain_stats).abs().max() / plain_stats.abs().max()).item()
                 t_conv, t_stats = k1.conv3x3_stats(x_tail, kernel, bias, groups, force=force)
                 tail_ok = torch.equal(t_conv, f_conv) and torch.equal(t_stats, f_stats)
@@ -372,13 +365,13 @@ def phase_conv_gn_kernel(dev):
                                       kernel_ms=kernel_ms_conv, plain_ms=plain_ms_conv,
                                       library_ms=lib_conv, library="F.conv2d",
                                       library_kernel_ms=lib_kernel_conv,
-                                      **bound(flops, conv_bytes, dtype)),
+                                      **bound(flops, conv_bytes, dtype_name(dtype))),
                    gn_apply=dict(max_abs_err=apply_err, ok=apply_ok, tolerance=out_tol,
                                  ms=ms_apply, kernel_ms=kernel_ms_apply,
                                  plain_ms=plain_ms_apply, library_ms=lib_apply,
                                  library_kernel_ms=lib_kernel_apply,
                                  library="F.group_norm" + (" + relu" if act else ""),
-                                 **bound(4.0 * pixels * cout, apply_bytes, torch.float32)),
+                                 **bound(4.0 * pixels * cout, apply_bytes, "float32")),
                    chain=dict(max_abs_err=chain_err, ok=chain_ok, tolerance=chain_tol,
                               ms=ms_conv + ms_apply,
                               kernel_ms=kernel_ms_conv + kernel_ms_apply,
@@ -583,7 +576,87 @@ def phase_full_domain(dev, model):
           f"K2 launches by variant {k2_first} / {k2_second}, expected {tc_only}")
     check_k1(k1_first, evaluations, "full-domain sample")
     check_k1(k1_second, evaluations, "second full-domain sample")
-    return {"k2": k2_first, "conv3x3_stats": k1_first[0], "gn_apply": k1_first[1]}
+    return {"k2": k2_first, "conv3x3_stats": k1_first[0], "gn_apply": k1_first[1],
+            "wall_s": [first_s, second_s]}
+
+
+def phase_fp32_full_width(dev, bf16_wall_s):
+    """The fp32 full-domain path at full width, where K1 and K2 run their 3xTF32
+    kernels: a 608x800 forward at batch 2 against the plain versions (TF32 off
+    everywhere), the same forward under PyTorch's default flags against the
+    CPU (ROADMAP F7), then one EDM-18 sample under the default flags."""
+    from sbgm_danra_tpu_torch.evaluate.full_domain import padded_dims, sample_full_domain
+    from sbgm_danra_tpu_torch.models.unet import build_score_model, inference_spec
+    from sbgm_danra_tpu_torch.ops import cuda_attention, flash_attention as fa
+    from sbgm_danra_tpu_torch.sampling.samplers import SamplerConfig
+
+    default_tf32 = torch.backends.cudnn.allow_tf32
+    hw = padded_dims(*FULL_DOMAIN)
+    spec = inference_spec(flagship_spec(compute_dtype="float32", attention_backend="pallas"), hw)
+    model = build_score_model(spec, generator=torch.Generator().manual_seed(0)).to(dev)
+    cond = make_cond(2, hw, dev, 6)
+    x = 2.0 * torch.randn(2, *hw, 1, generator=torch.Generator(dev).manual_seed(7), device=dev)
+    t = torch.full((2,), 0.5, device=dev)
+    with torch.inference_mode():
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            reset_counts()  # the fp32 forward's run starts here
+            got = model(x, t, **cond)
+            forward_k2, forward_k1 = k2_counts(), k1_counts()
+            fa.flash_attention_cuda = cuda_attention.flash_attention_reference
+            try:
+                ref_attn = model(x, t, **cond)
+            finally:
+                fa.flash_attention_cuda = cuda_attention.flash_attention_cuda
+            restore = plain_k1()
+            try:
+                ref_k1 = model(x, t, **cond)
+            finally:
+                restore()
+        finally:
+            torch.backends.cudnn.allow_tf32 = default_tf32
+        got_default = model(x, t, **cond)
+    model.cpu()  # outside inference mode, so that the parameters keep their version counters
+    with torch.inference_mode():
+        ref_cpu = model(x.cpu(), t.cpu(), **{k: v.cpu() for k, v in cond.items()})
+    model.to(dev)
+    rel_attn, rel_k1 = _rel(got, ref_attn), _rel(got, ref_k1)
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(got_default).all())
+    emit(phase="fp32_full_width", check="flagship fp32 forward at 608x800, batch 2, kernels vs "
+         "plain versions, cudnn.allow_tf32 False", rel_err_k2_vs_plain_attention=rel_attn,
+         rel_err_k1_vs_plain_chain=rel_k1, tolerance=1e-4, finite=finite,
+         k1_launches=list(forward_k1), k2_launches_by_variant=forward_k2,
+         rel_err_card_vs_cpu_tf32_off=_rel(got.cpu(), ref_cpu),
+         rel_err_card_vs_cpu_default_flags=_rel(got_default.cpu(), ref_cpu),
+         default_cudnn_allow_tf32=default_tf32)
+    check(rel_attn <= 1e-4 and rel_k1 <= 1e-4 and finite,
+          f"fp32 608x800 forward rel err {rel_attn} (K2) / {rel_k1} (K1)")
+    check(forward_k2 == {"tc_bf16": 0, "fp32": 1}, f"fp32 forward: K2 launches {forward_k2}")
+    check_k1(forward_k1, 1, "fp32 608x800 forward")
+
+    config = SamplerConfig(num_steps=EDM_NODES, guidance_scale=3.0, s_churn=0.0)
+    sample_cond = make_cond(1, FULL_DOMAIN, dev, 8)
+    torch.cuda.synchronize()
+    reset_counts()  # the fp32 full-domain sample's run starts here
+    t0 = time.perf_counter()
+    out = sample_full_domain(
+        lambda x, t, **c: model(x, t, **c), torch.Generator(dev).manual_seed(0), sample_cond,
+        domain_hw=FULL_DOMAIN, batch=1, config=config, sampler="edm_sampler",
+    )
+    wall = time.perf_counter() - t0
+    k2, k1c = k2_counts(), k1_counts()
+    evaluations = 2 * (EDM_NODES - 1)
+    finite = bool(np.isfinite(out).all())
+    emit(phase="fp32_full_width", domain="589x789->608x800", sampler=f"edm-{EDM_NODES}", cfg=3.0,
+         dtype="float32", cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+         shape=list(out.shape), finite=finite, k2_launches_by_variant=k2, k1_launches=list(k1c),
+         k1_expected=K1_PER_EVAL * evaluations, wall_s=wall, bf16_wall_s=bf16_wall_s,
+         field_std=float(out.std()))
+    check(out.shape == (1, *FULL_DOMAIN) and finite, f"bad fp32 full-domain output {out.shape}")
+    expected = {"tc_bf16": 0, "fp32": evaluations}
+    check(k2 == expected, f"fp32 sample: K2 launches by variant {k2}, expected {expected}")
+    check_k1(k1c, evaluations, "fp32 full-domain sample")
+    return {"k2": k2, "conv3x3_stats": k1c[0], "gn_apply": k1c[1]}
 
 
 def _post(url: str, body: dict):
@@ -708,9 +781,11 @@ def phase_samplers(dev, model):
     return launches
 
 
-def _k1_summary(rows, kernel: str) -> dict:
-    """A K1 kernel's numbers summed over the 8 chains of one full-domain UNet
-    evaluation (bf16, batch 2); its largest error over every row."""
+def _k1_summary(rows, kernel: str, dtype: str) -> dict:
+    """A K1 kernel's numbers in ``dtype`` summed over the 8 chains of one
+    full-domain UNet evaluation (batch 2); its largest error over every row of
+    that dtype."""
+    rows = [r for r in rows if r["dtype"] == dtype]
     by_shape = {(r["hw"][0], r["hw"][1], r["cin"], r["cout"]): r[kernel] for r in rows
                 if r["path"] == "full-domain"}
     chains = [by_shape[c] for c in CHAINS_FULL]
@@ -721,10 +796,11 @@ def _k1_summary(rows, kernel: str) -> dict:
     return dict(max_abs_err=max(r[kernel]["max_abs_err"] for r in rows), **total,
                 bound_by="operations" if ops >= total["bound_ms"] / 2 else "bytes",
                 library_ms_is=chains[0]["library"],
-                at="sum over the 8 decoder chains of one 608x800 UNet evaluation, bf16, batch 2")
+                at=f"sum over the 8 decoder chains of one 608x800 UNet evaluation, {dtype}, "
+                   "batch 2")
 
 
-def _k2_summary(rows, variant: str, **launches) -> dict:
+def _k2_summary(rows, variant: str, mma: str, **launches) -> dict:
     """One K2 variant: its time, plain, library and bound at the full-domain
     shape in its dtype; its largest errors over every row of that variant."""
     mine = [r for r in rows if r["variant"] == variant]
@@ -732,6 +808,7 @@ def _k2_summary(rows, variant: str, **launches) -> dict:
     return {
         "name": f"flash_attention_fwd_{variant}",
         "route": "cuda",
+        "mma": mma,
         "source": "sbgm_danra_tpu_torch/csrc/flash_attention.cu",
         "replaces": "sbgm_danra_tpu/ops/pallas_attention.py:86",
         **launches,
@@ -755,7 +832,7 @@ def main() -> int:
 
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
-    smi, sfu = nvidia_smi(), sfu_rate()
+    smi, sfu = nvidia_smi(), sfu_rate(torch)
     emit(phase="device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi, **sfu,
          torch=torch.__version__, cuda=torch.version.cuda)
 
@@ -775,29 +852,48 @@ def main() -> int:
     launches = phase_full_domain(dev, model)
     del model
     torch.cuda.empty_cache()
+    fp32 = phase_fp32_full_width(dev, launches["wall_s"])
+    torch.cuda.empty_cache()
     serving = phase_serving(dev)
     samplers = phase_samplers(dev, serve_model)
 
+    # each kernel's launches on the path that runs it: bf16 full domain (and
+    # serving and the samplers) for the bf16 kernels, fp32 full domain for
+    # the 3xTF32 ones; the tiny fp32 UNet of the model phase is no main path
     k2 = launches["k2"]
     kernels = [
-        _k2_summary(attention_rows, variant, launches=k2[variant],
-                    launches_by_path={"full_domain": k2[variant]})
-        for variant in ("tc_bf16", "fp32")
+        _k2_summary(attention_rows, "tc_bf16", "mma.sync bf16", launches=k2["tc_bf16"],
+                    launches_by_path={"full_domain": k2["tc_bf16"],
+                                      "fp32_full_domain": fp32["k2"]["tc_bf16"]}),
+        _k2_summary(attention_rows, "fp32", "tf32x3 (mma.sync)", launches=fp32["k2"]["fp32"],
+                    launches_by_path={"full_domain": k2["fp32"],
+                                      "fp32_full_domain": fp32["k2"]["fp32"]},
+                    launches_outside_main_path={"model/tiny_fp32_unet": tiny_k2["fp32"]}),
     ]
-    # the bf16 main path never runs the fp32 variant; the tiny fp32 UNet
-    # forward of the model phase does (not a main path)
-    kernels[1]["launches_outside_main_path"] = {"model/tiny_fp32_unet": tiny_k2["fp32"]}
     for name in ("conv3x3_stats", "gn_apply"):
         kernels.append({
             "name": name,
             "route": "cuda",
+            "mma": "wgmma bf16" if name == "conv3x3_stats" else None,
             "source": "sbgm_danra_tpu_torch/csrc/conv3x3_gn.cu",
             "replaces": "sbgm_danra_tpu/ops/fused_conv_gn.py:66",
             "launches": launches[name],
             "launches_by_path": {"full_domain": launches[name], "serving": serving[name],
                                  **{f"samplers/{k}": v for k, v in samplers.items()}},
-            **_k1_summary(k1_rows, name),
+            **_k1_summary(k1_rows, name, "bfloat16"),
         })
+        kernels.append({
+            "name": f"{name}_fp32",
+            "route": "cuda",
+            "mma": "tf32x3 (wgmma)" if name == "conv3x3_stats" else None,
+            "source": "sbgm_danra_tpu_torch/csrc/conv3x3_gn.cu",
+            "replaces": "sbgm_danra_tpu/ops/fused_conv_gn.py:66",
+            "launches": fp32[name],
+            "launches_by_path": {"fp32_full_domain": fp32[name]},
+            **_k1_summary(k1_rows, name, "float32"),
+        })
+    check(all(k["launches"] > 0 for k in kernels),
+          "a kernel was not launched on its path: " + str({k["name"]: k["launches"] for k in kernels}))
     emit(kernels=kernels)
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()})

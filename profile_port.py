@@ -20,8 +20,13 @@ kernels by name, device busy time (the union of kernel intervals) and the
 idle share of the profiled window. One JSON object per path on stdout, all of
 them in ``--out``. Without a CUDA card it exits 1.
 
+``--dtype float32`` runs ``full_domain``, ``k1`` and ``k2`` in fp32 (the
+3xTF32 kernels; the model then computes in fp32 with PyTorch's default flags,
+so its other cuDNN convs take TF32; the kernel timings set TF32 off for their
+library calls); the default is bfloat16.
+
 ``--paths k1`` times K1's two kernels alone (``conv3x3_stats`` and
-``gn_apply`` on seeded inputs, bf16) at the decoder chains of the 608x800 path
+``gn_apply`` on seeded inputs, in ``--dtype``) at the decoder chains of the 608x800 path
 (batch 2) and the 128-px path (batch 16) and at ragged shapes: ``ms`` (the
 wrapper as the model calls it, mean of 20 calls after a warm-up),
 ``kernel_ms`` (the kernel's device time alone with its operands cold: a
@@ -42,12 +47,15 @@ and imported by ``chip_smoke.py`` and the tests: this script measures the
 package of another checkout, so it cannot take them from the package.
 
 ``--paths k2`` times K2 alone (``flash_attention_cuda`` on contiguous
-seeded inputs, which every version takes) at the full-domain shape in bf16
-and fp32 and at the card tests' bf16 shapes: mean device ms of 20 launches
+seeded inputs, which every version takes) in ``--dtype`` at the full-domain
+shape and at the card tests' shapes: mean device ms of 20 launches
 after a warm-up, SDPA's in the same process, and the worst |err| over
 ``2^-8 |ref| + 2^-8 max|ref|`` (bf16) or ``2e-5 + 2e-5 |ref|`` (fp32)
 against the fp32 plain version on the same inputs. One JSON object per
-shape.
+shape; in fp32 two more, with the keys past 4000 scaled by 8 and by 40 (the
+rescale path): the kernel's worst |err| over ``2e-5 + 2e-5 |ref|`` against
+the fp32 plain version, and the kernel's and the fp32 plain version's against
+dense attention in fp64.
 """
 
 from __future__ import annotations
@@ -60,9 +68,46 @@ import subprocess
 import sys
 import time
 
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 tensor cores, fp32
+# CUDA cores, HBM3
+PEAK_BF16, PEAK_TF32, PEAK_FP32_FMA, PEAK_BYTES = 989e12, 495e12, 67e12, 3.35e12
+
+
+def bound(flops: float, nbytes: float, dtype_name: str, exps: float = 0.0,
+          exp_rate: float = float("inf")) -> dict:
+    """The least time the card could take for the work: operations, bytes at
+    the memory rate or exponentials at ``exp_rate`` per second, whichever is
+    longest. bf16 operations run at the tensor cores' bf16 peak; fp32 ones by
+    the faster of two routes that keep fp32's accuracy: FMAs on the CUDA cores,
+    or 3xTF32 (three TF32 products each) on the tensor cores."""
+    if dtype_name == "bfloat16":
+        ops = flops / PEAK_BF16
+    else:
+        ops = min(flops / PEAK_FP32_FMA, 3 * flops / PEAK_TF32)
+    times = {"operations": ops, "bytes": nbytes / PEAK_BYTES, "exponentials": exps / exp_rate}
+    by = max(times, key=times.get)
+    return dict(bound_ms=1e3 * times[by], bound_by=by)
+
+
+EXP_PER_CLOCK_PER_SM = 16  # the SFU's ex2 rate on Hopper
+
+
+def sfu_rate(torch) -> dict:
+    """The SFU's exponentials per second: 16 ex2 per clock per SM at the
+    card's SM count and its maximum SM clock as nvidia-smi reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    mhz = float(out.stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(sm_count=sms, max_sm_clock_mhz=mhz,
+                exp_per_s=EXP_PER_CLOCK_PER_SM * sms * mhz * 1e6)
+
+
 # kernel-name patterns, first match wins
 CLASSES = (
-    # both variants (flash_attention_fwd_kernel and flash_attention_fwd_kernel_tc);
+    # every variant (flash_attention_fwd_kernel_tc, flash_attention_fwd_kernel_tf32);
     # before "attention (SDPA)", whose patterns would also match them
     ("K2 flash_attention_fwd", ("flash_attention_fwd_kernel",)),
     ("K1 conv3x3_stats", ("conv3x3_stats",)),
@@ -130,12 +175,12 @@ def profile(torch, fn) -> dict:
     )
 
 
-K2_SHAPES = (((2, 7600, 4, 32), "bfloat16"), ((1, 4096, 4, 64), "bfloat16"),
-             ((2, 300, 4, 128), "bfloat16"), ((1, 33, 1, 32), "bfloat16"),
-             ((2, 1000, 2, 24), "bfloat16"), ((2, 7600, 4, 32), "float32"))
+# the full-domain decoder shape first, then the card tests' shapes
+K2_SHAPES = ((2, 7600, 4, 32), (1, 4096, 4, 64), (2, 300, 4, 128), (1, 33, 1, 32),
+             (2, 1000, 2, 24), (2, 7600, 2, 128))
 
 
-def k2_rows(torch, dev) -> list:
+def k2_rows(torch, dev, dtype_name: str) -> list:
     """K2 alone against its plain version and SDPA, one row per shape."""
     from sbgm_danra_tpu_torch.ops import cuda_attention
     from sbgm_danra_tpu_torch.ops.flash_attention import dense_attention
@@ -152,9 +197,9 @@ def k2_rows(torch, dev) -> list:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(dev).manual_seed(0)
-    rows = []
-    for shape, dtype_name in K2_SHAPES:
-        dtype = getattr(torch, dtype_name)
+    rows, dtype = [], getattr(torch, dtype_name)
+    exp_rate = sfu_rate(torch)["exp_per_s"]
+    for shape in K2_SHAPES:
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
         out = cuda_attention.flash_attention_cuda(q, k, v).float()
         ref = cuda_attention.flash_attention_reference(q.float(), k.float(), v.float())
@@ -163,12 +208,35 @@ def k2_rows(torch, dev) -> list:
         else:
             tol = 2e-5 + 2e-5 * ref.abs()
         err = (out - ref).abs()
+        b, s_len, h, d = shape
         rows.append(dict(
             shape=list(shape), dtype=dtype_name, max_abs_err=err.max().item(),
             max_abs_err_over_ref_max=(err.max() / ref.abs().max()).item(),
             worst_err_over_tolerance=(err / tol).max().item(),
             ms=ms(lambda: cuda_attention.flash_attention_cuda(q, k, v)),
-            sdpa_ms=ms(lambda: dense_attention(q, k, v))))
+            sdpa_ms=ms(lambda: dense_attention(q, k, v)),
+            **bound(4.0 * b * h * s_len * s_len * d, 4 * q.numel() * q.element_size(),
+                    dtype_name, exps=float(b * h * s_len * s_len), exp_rate=exp_rate)))
+    if dtype == torch.float32:
+        # the rescale path's accuracy: keys from 4000 on scaled up, so that the
+        # late scores sit far above the early max
+        def worst(out, ref):
+            return ((out.double() - ref).abs() / (2e-5 + 2e-5 * ref.abs())).max().item()
+
+        q, k, v = (torch.randn(K2_SHAPES[0], generator=gen, device=dev) for _ in range(3))
+        for factor in (8.0, 40.0):
+            kf = k.clone()
+            kf[:, 4000:] *= factor
+            got = cuda_attention.flash_attention_cuda(q, kf, v)
+            plain = cuda_attention.flash_attention_reference(q, kf, v)
+            q64, k64, v64 = q.double(), kf.double(), v.double()
+            scores = torch.einsum("bqhd,bkhd->bhqk", q64 / q.shape[-1] ** 0.5, k64)
+            fp64 = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1), v64)
+            del scores
+            rows.append(dict(shape=list(K2_SHAPES[0]), dtype=dtype_name, late_keys_scaled_by=factor,
+                             worst_err_over_tolerance=worst(got, plain.double()),
+                             worst_err_over_tolerance_vs_fp64=worst(got, fp64),
+                             plain_fp32_worst_err_over_tolerance_vs_fp64=worst(plain, fp64)))
     return rows
 
 
@@ -228,7 +296,7 @@ def both_ms(torch, call, *operands) -> dict:
         warm=device_ms(torch, [functools.partial(call, *operands)] * COLD_COPIES, cold=False))
 
 
-def k1_rows(torch, dev, sweep: bool) -> list:
+def k1_rows(torch, dev, sweep: bool, dtype_name: str) -> list:
     """K1's kernels alone against plain versions, cuDNN and the bound, per shape."""
     import torch.nn.functional as F
 
@@ -249,7 +317,9 @@ def k1_rows(torch, dev, sweep: bool) -> list:
     shapes = ([("full-domain", 2, c) for c in dict.fromkeys(CHAINS_FULL)]
               + [("serve-128", 16, c) for c in dict.fromkeys(CHAINS_128)]
               + [("ragged", n, c) for n, c in K1_RAGGED])
-    rows, groups, dtype = [], 8, torch.bfloat16
+    rows, groups, dtype = [], 8, getattr(torch, dtype_name)
+    launch_shapes = getattr(k1, "FP32_LAUNCH_SHAPES", ()) if dtype == torch.float32 else getattr(
+        k1, "LAUNCH_SHAPES", ())
     for path, n, (h, w, cin, cout) in shapes:
         x = torch.randn(n, h, w, cin, generator=gen, device=dev).to(dtype)
         kernel = torch.randn(3, 3, cin, cout, generator=gen, device=dev) / (3 * cin**0.5)
@@ -261,7 +331,9 @@ def k1_rows(torch, dev, sweep: bool) -> list:
 
         def conv_check(conv, stats):
             err = (conv.float() - plain_conv).abs()
-            tol = 4e-3 * plain_conv.abs() + 1e-4 * plain_conv.abs().max()
+            tol = 1e-4 * plain_conv.abs().max()  # fp32
+            if dtype == torch.bfloat16:
+                tol = tol + 4e-3 * plain_conv.abs()
             return dict(conv_worst_err_over_tolerance=(err / tol).max().item(),
                         stats_rel_err=((stats - plain_stats).abs().max()
                                        / plain_stats.abs().max()).item())
@@ -276,10 +348,11 @@ def k1_rows(torch, dev, sweep: bool) -> list:
         conv_nchw, bias_d = conv.permute(0, 3, 1, 2), bias.to(dtype)
         g_d, b_d = gamma.to(dtype), beta.to(dtype)
         pixels, es = n * h * w, x.element_size()
-        conv_bound = max(2.0 * 9 * cin * cout * pixels / 989e12,
-                         ((pixels * (cin + cout) + 9 * cin * cout) * es
-                          + 4 * (cout + 2 * n * groups)) / 3.35e12)
-        apply_bound = (2 * pixels * cout * es + 4 * (2 * n * groups + 2 * cout)) / 3.35e12
+        conv_bound = bound(2.0 * 9 * cin * cout * pixels,
+                           (pixels * (cin + cout) + 9 * cin * cout) * es
+                           + 4 * (cout + 2 * n * groups), dtype_name)
+        apply_bound = bound(4.0 * pixels * cout,
+                            2 * pixels * cout * es + 4 * (2 * n * groups + 2 * cout), "float32")
         conv_fn = lambda: k1.conv3x3_stats(x, kernel, bias, groups)  # noqa: E731
         apply_fn = lambda: k1.gn_apply(conv, stats, gamma, beta, groups,  # noqa: E731
                                        activation=False)
@@ -290,7 +363,7 @@ def k1_rows(torch, dev, sweep: bool) -> list:
         apply_lib_dev = both_ms(torch, lambda c, g, b: F.group_norm(c, groups, g, b, 1e-5),
                                 conv_nchw, g_d, b_d)
         row = dict(
-            path=path, batch=n, hw=[h, w], cin=cin, cout=cout,
+            path=path, batch=n, hw=[h, w], cin=cin, cout=cout, dtype=dtype_name,
             plan=str(k1.plan(n, h, w, cin, cout, dtype)) if hasattr(k1, "plan") else None,
             **conv_check(conv, stats),
             repeat_bit_identical=bool(torch.equal(repeat[0], conv)
@@ -301,16 +374,16 @@ def k1_rows(torch, dev, sweep: bool) -> list:
             conv_library_ms=ms(lambda: F.conv2d(x_nchw, w_oihw, bias_d, padding=1)),
             conv_library_kernel_ms=conv_lib_dev["cold"],
             conv_library_kernel_warm_ms=conv_lib_dev["warm"],
-            conv_bound_ms=1e3 * conv_bound,
+            conv_bound_ms=conv_bound["bound_ms"], conv_bound_by=conv_bound["bound_by"],
             apply_ms=ms(apply_fn), apply_kernel_ms=apply_dev["cold"],
             apply_kernel_warm_ms=apply_dev["warm"],
             apply_library_ms=ms(lambda: F.group_norm(conv_nchw, groups, g_d, b_d, 1e-5)),
             apply_library_kernel_ms=apply_lib_dev["cold"],
             apply_library_kernel_warm_ms=apply_lib_dev["warm"],
-            apply_bound_ms=1e3 * apply_bound)
+            apply_bound_ms=apply_bound["bound_ms"])
         if sweep and hasattr(k1, "plan"):
             forced = {}
-            for force in k1.LAUNCH_SHAPES:
+            for force in launch_shapes:
                 try:
                     k1.plan(n, h, w, cin, cout, dtype, force=force)
                 except ValueError:
@@ -340,7 +413,7 @@ def k1_rows(torch, dev, sweep: bool) -> list:
             host_us.append((time.perf_counter() - t0) / 400 * 1e6)
             torch.cuda.synchronize()
     rows.append(dict(path="host", what="host microseconds per conv3x3_gn_relu call, enqueue "
-                                       "only, 5 x 400 calls at 16x16x16x64->64 bf16",
+                                       f"only, 5 x 400 calls at 16x16x16x64->64 {dtype_name}",
                      chain_host_us=host_us))
     keys = [f"{kernel}_{key}" for kernel in ("conv", "apply")
             for key in ("ms", "kernel_ms", "kernel_warm_ms", "library_ms", "library_kernel_ms",
@@ -361,6 +434,8 @@ def main() -> int:
                    help="comma-separated: full_domain, serving, k1, k2")
     p.add_argument("--k1-sweep", action="store_true",
                    help="with k1: also time every launch shape the plan could choose")
+    p.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"),
+                   help="the working dtype of full_domain, k1 and k2")
     p.add_argument("--repeats", type=int, default=3)
     p.add_argument("--out", default=None)
     args = p.parse_args()
@@ -394,12 +469,13 @@ def main() -> int:
     runs = {}
     if "full_domain" in args.paths:
         domain = (589, 789)
-        spec = inference_spec(ModelSpec(in_channels=6, num_classes=4, compute_dtype="bfloat16",
+        spec = inference_spec(ModelSpec(in_channels=6, num_classes=4, compute_dtype=args.dtype,
                                         attention_backend="pallas"), padded_dims(*domain))
         model = build_score_model(spec, generator=torch.Generator().manual_seed(0)).to(dev)
         cond = cond_for(1, domain, 8)
         config = SamplerConfig(num_steps=18, guidance_scale=3.0, s_churn=0.0)
-        runs["full_domain"] = ("EDM-18 sample, 589x789 -> 608x800, CFG w=3, batch 1", lambda: (
+        runs["full_domain"] = (f"EDM-18 sample, 589x789 -> 608x800, CFG w=3, batch 1, "
+                               f"{args.dtype}", lambda: (
             sample_full_domain(lambda x, t, **c: model(x, t, **c),
                                torch.Generator(dev).manual_seed(0), cond, domain_hw=domain,
                                batch=1, config=config, sampler="edm_sampler")))
@@ -421,12 +497,12 @@ def main() -> int:
 
     results = []
     if "k1" in args.paths.split(","):
-        for row in k1_rows(torch, dev, args.k1_sweep):
+        for row in k1_rows(torch, dev, args.k1_sweep, args.dtype):
             row = dict(label=args.label, root=args.root, card=smi, kernel="k1", **row)
             print(json.dumps(row), flush=True)
             results.append(row)
     if "k2" in args.paths.split(","):
-        for row in k2_rows(torch, dev):
+        for row in k2_rows(torch, dev, args.dtype):
             row = dict(label=args.label, root=args.root, path="k2", card=smi, **row)
             print(json.dumps(row), flush=True)
             results.append(row)

@@ -67,9 +67,30 @@
 //   block an SM where the weights are resident, all warps in the same phase);
 //   on the small maps (38 x 50, 512 -> 512) every 256-pixel tile re-reads its
 //   whole weight slice from L2 and 192 tiles fill 132 SMs one and a half times.
-// conv3x3_stats, fp32 (conv3x3_stats_fp32_kernel): FMAs on the CUDA cores over
-// 8x8 tiles and 8-channel chunks, without a copy pipeline. It serves the fp32
-// tests and the tiny fp32 model, not the bf16 main path.
+// conv3x3_stats, fp32 (conv3x3_stats_tf32_kernel): the same skeleton on the
+// tensor cores in 3xTF32, which keeps fp32's accuracy (one TF32 pass keeps
+// about three decimal digits and cannot): every operand is split into a TF32
+// hi and lo, and each product is wgmma m64n64k8 .tf32 three times (lo hi, hi
+// lo, hi hi) into the fp32 accumulators. It does 3 x 18 C^2 tensor-core FLOPs
+// per pixel at half the bf16 rate, so it is bound by operations at every C.
+//   - The weights are split once per parameter, on the card, into the tiled
+//     layout [Cout tile][tap][8-channel chunk][hi, lo][2][64][4]: one (tap,
+//     chunk) of a Cout tile is one 4 KB bulk copy with its lo beside its hi.
+//     Split, they need twice the bytes: a 64-channel slice of Cin 64 is 295
+//     KB, more than a block's shared memory, so they are always streamed with
+//     the halo, 8 channels a stage.
+//   - The halo arrives raw by cp.async, 16 bytes (4 channels) a thread; once
+//     it has landed, each thread splits its own vectors in place (hi) and
+//     beside them (lo), before the barrier that every stage takes anyway.
+//     Paths that copy by scalar loads split as they store.
+//   - 16-byte core matrices hold 4 channels, so the descriptors are the bf16
+//     kernel's byte for byte; a k8 step is one 8-channel chunk.
+//   - The epilogue stores from the accumulators: a quad's four float2 stores
+//     fill one 32-byte sector, so no staging buffer takes shared memory.
+//   Where it stands (NVIDIA H100 80GB HBM3, 700 W; profile_port.py --paths k1
+//   --dtype float32, operands cold): 1.82 ms over the eight chains of a 608x800
+//   evaluation against a bound of 0.706 ms (3xTF32 at 495 TFLOP/s) and cuDNN's
+//   exact-fp32 kernels' 3.93-3.96 ms.
 //
 // gn_apply: one read and one write. Each block folds the statistics and the
 // affine into scale = rstd * gamma and shift = beta - mean * scale per
@@ -467,166 +488,286 @@ conv3x3_stats_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16
 }
 
 // ---------------------------------------------------------------------------
-// conv3x3_stats, fp32: CUDA cores
+// conv3x3_stats, fp32: 3xTF32 on the tensor cores
 
-constexpr int kFpThreads = 128;  // 4 warps: 2 over pixels x 2 over channels
-constexpr int kFpTile = 8;       // 8 x 8 output pixels per spatial tile
-constexpr int kFpHalo = kFpTile + 2;
-constexpr int kFpBK = 8;         // Cin chunk
-constexpr int kFpLd = 12;        // shared row stride (48 bytes): fragment rows on distinct banks
+constexpr int kFpKC = 8;  // Cin chunk: one k8 step of wgmma .tf32
+constexpr int kFpV = kFpKC / 4;  // 16-byte vectors (4 channels) per pixel and chunk
 
-// Copy 16 bytes of elements src[0..4) to dst, zero from `valid` on (valid <= 0:
-// all zero, src is not read).
-__device__ __forceinline__ void load16(float* dst, const float* src, int valid, bool vec_ok) {
-  if (vec_ok && valid >= 4) {
-    *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dst[i] = i < valid ? src[i] : 0.f;
-  }
+template <int TH>
+struct Tf32Tile {
+  static constexpr int kThreads = TH * kTW;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kHW = kTW + 2;
+  static constexpr int kHP = (TH + 2) * (kTW + 2);
+  // a stage: the halo [hi, lo][kFpV][kHP][4], then the weights [9][hi, lo][kFpV][64][4]
+  static constexpr int kLoOffset = kFpKC * kHP;  // floats from the halo's hi to its lo
+  static constexpr int kHaloElems = 2 * kLoOffset;
+  static constexpr int kWTapElems = 2 * kFpKC * kBN;
+  static constexpr int kStageElems = kHaloElems + 9 * kWTapElems;
+  static constexpr int kRowsPerPass = kThreads / kFpV;
+  static constexpr int kHaloSlots = (kHP + kRowsPerPass - 1) / kRowsPerPass;
+};
+
+__device__ __forceinline__ void store_split(float* hi, float* lo, float4 v) {
+  uint32_t h[4], l[4];
+  split_tf32(v.x, h[0], l[0]);
+  split_tf32(v.y, h[1], l[1]);
+  split_tf32(v.z, h[2], l[2]);
+  split_tf32(v.w, h[3], l[3]);
+  *reinterpret_cast<uint4*>(hi) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(lo) = make_uint4(l[0], l[1], l[2], l[3]);
 }
 
-// One Cin chunk, nine taps, into the warp's 32 pixels x 32 channels, in the
-// thread-to-output map of an m16n8 accumulator fragment: element i of
-// acc[mi][ni] sits at pixel row wm*32 + mi*16 + g + 8*(i/2) and channel column
-// wn*32 + ni*8 + 2q + i%2. Pixel row r of the tile is output (r / 8, r % 8).
-__device__ __forceinline__ void chunk_products(float (*in_s)[kFpLd], float (*w_s)[kBN][kFpLd],
-                                               float (&acc)[2][4][4], int wm, int wn, int g,
-                                               int q) {
-#pragma unroll
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3, dx = tap % 3;
-#pragma unroll
-    for (int k = 0; k < kFpBK; ++k) {
-      float a[2][2], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int py = (2 * wm + mi) * 2 + dy;
-        a[mi][0] = in_s[py * kFpHalo + g + dx][k];
-        a[mi][1] = in_s[(py + 1) * kFpHalo + g + dx][k];
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        b[ni][0] = w_s[tap][wn * 32 + ni * 8 + 2 * q][k];
-        b[ni][1] = w_s[tap][wn * 32 + ni * 8 + 2 * q + 1][k];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          float* c = acc[mi][ni];
-          c[0] = fmaf(a[mi][0], b[ni][0], c[0]);
-          c[1] = fmaf(a[mi][0], b[ni][1], c[1]);
-          c[2] = fmaf(a[mi][1], b[ni][0], c[2]);
-          c[3] = fmaf(a[mi][1], b[ni][1], c[3]);
-        }
-    }
-  }
-}
-
-// The same arrays as the bf16 kernel, in fp32. Grid (slots, ceil(cout / 64), N).
-__global__ void __launch_bounds__(kFpThreads)
-conv3x3_stats_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+// The bf16 kernel's skeleton in fp32, each product as three TF32 products.
+// x [N, H, W, cin] fp32; w [ceil(cout / 64), 9, ceil(cin / 8), 2, 2, 64, 4]
+// fp32: per (Cout tile, tap, 8-channel chunk) the TF32 hi part of the weights
+// and then their lo part, each as two 4-channel groups of [64 output channels]
+// [4 channels], zero-padded (split_tiled_weights in ops/fused_conv_gn.py);
+// bias [cout] fp32 -> y [N, H, W, cout] fp32; partials, counters and stats as
+// in the bf16 kernel. Grid (slots, ceil(cout / 64), N); dynamic shared memory:
+// kStages stages, the warps' channel sums and the barriers. fast: cin is a
+// multiple of 4, x is 16-byte aligned and H W cin fits in 31 bits.
+template <int TH>
+__global__ void __launch_bounds__(TH * kTW)
+conv3x3_stats_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                           const float* __restrict__ bias, float* __restrict__ y,
                           float* __restrict__ partials, int* __restrict__ counters,
                           float* __restrict__ stats, int height, int width, int cin, int cout,
-                          int groups, int tiles_x, int n_tiles, bool vec_ok) {
-  __shared__ __align__(16) float in_s[kFpHalo * kFpHalo][kFpLd];
-  __shared__ __align__(16) float w_s[9][kBN][kFpLd];
-  __shared__ float red_s[2][kBN][2];
+                          int groups, int tiles_x, int n_tiles, bool vec_out, bool fast) {
+  using T = Tf32Tile<TH>;
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ bool last_s;
+
+  const int chunks = (cin + kFpKC - 1) / kFpKC;
+  float* ring = reinterpret_cast<float*>(smem);                  // [kStages][kStageElems]
+  float* red_s = ring + kStages * T::kStageElems;                 // [warps][64][2]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(red_s + T::kWarps * kBN * 2);  // [kStages]
 
   const int slot = blockIdx.x, slots = gridDim.x;
   const int n0 = blockIdx.y * kBN;
   const int n = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 2, wn = warp % 2;
   const int g = lane / 4, q = lane % 4;
   const int64_t pixels = (int64_t)height * width;
   const float* xn = x + n * pixels * cin;
   float* yn = y + n * pixels * cout;
+  const int my_tiles = (n_tiles - slot + slots - 1) / slots;
+  const int total = my_tiles * chunks;
 
-  float bias_r[4][2];
-  float csum[4][2], csq[4][2];
+  // the fast path's per-thread constants, as in the bf16 kernel
+  const int k4 = threadIdx.x % kFpV, row0 = threadIdx.x / kFpV;
+  int halo_yx[T::kHaloSlots], halo_off[T::kHaloSlots];
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni)
+  for (int i = 0; i < T::kHaloSlots; ++i) {
+    const int hp = row0 + i * T::kRowsPerPass;
+    const int hy = hp / T::kHW, hx = hp % T::kHW;
+    halo_yx[i] = hp < T::kHP ? (hy << 16) | hx : 0x7fff7fff;  // past the halo: never inside
+    halo_off[i] = (hy * width + hx) * cin;
+  }
+  auto my_slot = [&](int i) { return i + 1 < T::kHaloSlots || halo_yx[i] != 0x7fff7fff; };
+
+  // One stage: the halo chunk and the chunk's split weights (one bulk copy per
+  // tap). The fast path copies raw fp32 by cp.async and splits it once it has
+  // landed (split_landed); the other path splits as it copies.
+  const float* w_tile = w + (int64_t)blockIdx.y * 9 * chunks * T::kWTapElems;
+  auto issue = [&](int tile, int chunk, int stage) {
+    float* in_s = ring + stage * T::kStageElems;
+    if (threadIdx.x == 0) {
+      float* w_s = in_s + T::kHaloElems;
+      mbarrier_expect(&bars[stage], 9 * T::kWTapElems * 4);
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap)
+        bulk_copy(w_s + tap * T::kWTapElems,
+                  w_tile + ((int64_t)tap * chunks + chunk) * T::kWTapElems, T::kWTapElems * 4,
+                  &bars[stage]);
+    }
+    const int oy0 = (tile / tiles_x) * TH, ox0 = (tile % tiles_x) * kTW, c0 = chunk * kFpKC;
+    if (fast) {
+      // channels past cin in the last chunk are zero-fills (0 x stale NaN is NaN)
+      const bool in_cin = c0 + k4 * 4 < cin;
+      const int ty = oy0 - 1, tx = ox0 - 1;
+      const float* src = xn + ((int64_t)ty * width + tx) * cin + c0 + k4 * 4;
+      float* dst = in_s + (k4 * T::kHP + row0) * 4;
+#pragma unroll
+      for (int i = 0; i < T::kHaloSlots; ++i) {
+        const unsigned iy = ty + (halo_yx[i] >> 16), ix = tx + (halo_yx[i] & 0xffff);
+        const bool inside = in_cin && iy < (unsigned)height && ix < (unsigned)width;
+        if (my_slot(i))
+          cp_async16(dst + i * T::kRowsPerPass * 4, inside ? src + halo_off[i] : x, inside);
+      }
+      return;
+    }
+    for (int u = threadIdx.x; u < T::kHP * kFpV; u += T::kThreads) {
+      const int v4 = u % kFpV, hp = u / kFpV;
+      const int iy = oy0 - 1 + hp / T::kHW, ix = ox0 - 1 + hp % T::kHW;
+      const int c = c0 + v4 * 4;
+      const int valid = iy >= 0 && iy < height && ix >= 0 && ix < width ? cin - c : 0;
+      const float* src = xn + ((int64_t)iy * width + ix) * cin + c;
+      float4 v;
+      v.x = valid > 0 ? src[0] : 0.f;
+      v.y = valid > 1 ? src[1] : 0.f;
+      v.z = valid > 2 ? src[2] : 0.f;
+      v.w = valid > 3 ? src[3] : 0.f;
+      float* dst = in_s + (v4 * T::kHP + hp) * 4;
+      store_split(dst, dst + T::kLoOffset, v);
+    }
+  };
+  // the fast path's halo vectors of this thread, once they have landed: hi in
+  // place, lo beside it
+  auto split_landed = [&](int stage) {
+    float* hi = ring + stage * T::kStageElems + (k4 * T::kHP + row0) * 4;
+#pragma unroll
+    for (int i = 0; i < T::kHaloSlots; ++i)
+      if (my_slot(i)) {
+        float* p = hi + i * T::kRowsPerPass * 4;
+        store_split(p, p + T::kLoOffset, *reinterpret_cast<const float4*>(p));
+      }
+  };
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) mbarrier_init(&bars[i], 1);
+    mbarrier_init_fence();
+  }
+  __syncthreads();
+  int ld_step = 0, ld_tile = slot, ld_chunk = 0, ld_stage = 0;
+  auto issue_next = [&]() {
+    if (ld_step < total) {
+      issue(ld_tile, ld_chunk, ld_stage);
+      ++ld_step;
+      ld_stage = ld_stage + 1 == kStages ? 0 : ld_stage + 1;
+      if (++ld_chunk == chunks) {
+        ld_chunk = 0;
+        ld_tile += slots;
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) issue_next();
+
+  const int wg_row = 8 * (warp / 4);
+  const int my_row = wg_row + 2 * (warp % 4);
+  const uint32_t ring_addr = smem_addr(ring);
+
+  float bias_r[8][2], csum[8][2], csq[8][2];
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const int co = n0 + wn * 32 + ni * 8 + 2 * q + j;
+      const int co = n0 + ni * 8 + 2 * q + j;
       bias_r[ni][j] = co < cout ? bias[co] : 0.f;
       csum[ni][j] = 0.f;
       csq[ni][j] = 0.f;
     }
+  float acc[2][32];  // as in the bf16 kernel
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[mi][i] = 0.f;
 
-  for (int tile = slot; tile < n_tiles; tile += slots) {
-    const int oy0 = (tile / tiles_x) * kFpTile, ox0 = (tile % tiles_x) * kFpTile;
-    float acc[2][4][4];
+  // A finished tile's epilogue, straight from the accumulators: a quad's four
+  // float2 stores fill one 32-byte sector. It leaves acc zero.
+  auto epilogue = [&](int tile) {
+    const int oy0 = (tile / tiles_x) * TH, ox0 = (tile % tiles_x) * kTW;
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
+      for (int h = 0; h < 2; ++h) {
+        const int oy = oy0 + my_row + h, ox = ox0 + 8 * mi + g;
+        const bool inside = oy < height && ox < width;
+        float* dst = yn + ((int64_t)oy * width + ox) * cout;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0.f;
-
-    for (int c0 = 0; c0 < cin; c0 += kFpBK) {
-      __syncthreads();  // the previous chunk has been consumed
-      for (int u = threadIdx.x; u < kFpHalo * kFpHalo * 2; u += kFpThreads) {
-        const int p = u >> 1, c = c0 + (u & 1) * 4;
-        const int iy = oy0 - 1 + p / kFpHalo, ix = ox0 - 1 + p % kFpHalo;
-        const bool inside = iy >= 0 && iy < height && ix >= 0 && ix < width;
-        load16(&in_s[p][(u & 1) * 4], xn + ((int64_t)iy * width + ix) * cin + c,
-               inside ? cin - c : 0, vec_ok);
-      }
-      for (int u = threadIdx.x; u < 9 * kBN * 2; u += kFpThreads) {
-        const int nn = (u >> 1) % kBN, tap = (u >> 1) / kBN;
-        const int co = n0 + nn, c = c0 + (u & 1) * 4;
-        load16(&w_s[tap][nn][(u & 1) * 4], w + ((int64_t)tap * cout + co) * cin + c,
-               co < cout ? cin - c : 0, vec_ok);
-      }
-      __syncthreads();
-      chunk_products(in_s, w_s, acc, wm, wn, g, q);
-    }
-
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = wm * 32 + mi * 16 + g + 8 * (i >> 1);
-          const int co = n0 + wn * 32 + ni * 8 + 2 * q + (i & 1);
-          const int oy = oy0 + row / kFpTile, ox = ox0 + row % kFpTile;
-          if (oy < height && ox < width && co < cout) {
-            const float v = acc[mi][ni][i] + bias_r[ni][i & 1];
-            yn[((int64_t)oy * width + ox) * cout + co] = v;
-            csum[ni][i & 1] += v;
-            csq[ni][i & 1] += v * v;
+        for (int ni = 0; ni < 8; ++ni) {
+          const float v0 = acc[mi][4 * ni + 2 * h] + bias_r[ni][0];
+          const float v1 = acc[mi][4 * ni + 2 * h + 1] + bias_r[ni][1];
+          acc[mi][4 * ni + 2 * h] = 0.f;
+          acc[mi][4 * ni + 2 * h + 1] = 0.f;
+          const int co = n0 + ni * 8 + 2 * q;
+          if (inside && co < cout) {
+            csum[ni][0] += v0;
+            csq[ni][0] += v0 * v0;
+            if (co + 1 < cout) {
+              csum[ni][1] += v1;
+              csq[ni][1] += v1 * v1;
+            }
+            if (vec_out) {
+              *reinterpret_cast<float2*>(dst + co) = make_float2(v0, v1);
+            } else {
+              dst[co] = v0;
+              if (co + 1 < cout) dst[co + 1] = v1;
+            }
           }
         }
+      }
+  };
+
+  int tile = slot, chunk = 0, stage = 0, parity = 0;
+  for (int step = 0; step < total; ++step) {
+    mbarrier_wait(&bars[stage], parity);  // this step's weights have landed,
+    cp_async_wait<kStages - 2>();         // and this thread's halo copies,
+    if (fast) split_landed(stage);        // which it splits,
+    fence_proxy_async();                  // visible to wgmma's reads,
+    wgmma_wait<0>();  // and this warpgroup's products of the previous step are done
+    __syncthreads();  // ... all of that for every thread
+
+    // 9 taps x 2 column segments x 3 products of m64n64k8 (lo hi, hi lo, hi
+    // hi); a tile whose columns 8-15 lie past the map (an 8-wide map, the
+    // ragged right edge) skips that segment's products
+    const int segments = (tile % tiles_x) * kTW + 8 < width ? 2 : 1;
+    const uint32_t in_addr = ring_addr + stage * T::kStageElems * 4;
+    const uint64_t a_hi = wgmma_descriptor(in_addr + wg_row * T::kHW * 16, T::kHP * 16,
+                                           T::kHW * 16);
+    const uint64_t a_lo = a_hi + ((T::kLoOffset * 4) >> 4);
+    const uint64_t b_base = wgmma_descriptor(in_addr + T::kHaloElems * 4, kBN * 16, 128);
+    wgmma_fence();
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const uint64_t b_hi = b_base + ((tap * T::kWTapElems * 4) >> 4);
+      const uint64_t b_lo = b_hi + ((kFpKC * kBN * 4) >> 4);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        if (mi == segments) break;
+        const int shift = (tap / 3) * T::kHW + 8 * mi + tap % 3;
+        wgmma_m64n64k8_tf32(acc[mi], a_lo + shift, b_hi);
+        wgmma_m64n64k8_tf32(acc[mi], a_hi + shift, b_lo);
+        wgmma_m64n64k8_tf32(acc[mi], a_hi + shift, b_hi);
+      }
+    }
+    wgmma_commit();
+    issue_next();
+    if (++stage == kStages) {
+      stage = 0;
+      parity ^= 1;
+    }
+    if (++chunk < chunks) continue;
+
+    wgmma_wait<0>();  // the tile is complete
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) register_fence(acc[mi][i]);
+    epilogue(tile);
+    chunk = 0;
+    tile += slots;
   }
 
-  // Channel sums of this block: over the 8 lanes that share q, then over the
-  // two pixel warps, always in the same order.
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni)
+  for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < 2; ++j) {
 #pragma unroll
       for (int off = 4; off < 32; off <<= 1) {
         csum[ni][j] += __shfl_xor_sync(0xffffffffu, csum[ni][j], off);
         csq[ni][j] += __shfl_xor_sync(0xffffffffu, csq[ni][j], off);
       }
-  if (g == 0) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = wn * 32 + ni * 8 + 2 * q + j;
-        red_s[wm][col][0] = csum[ni][j];
-        red_s[wm][col][1] = csq[ni][j];
+      if (g == 0) {
+        float* dst = red_s + ((warp * kBN) + ni * 8 + 2 * q + j) * 2;
+        dst[0] = csum[ni][j];
+        dst[1] = csq[ni][j];
       }
-  }
-  finish_statistics(&red_s[0][0][0], 2, partials, counters, stats, n, n0, cout, groups, &last_s);
+    }
+  finish_statistics(red_s, T::kWarps, partials, counters, stats, n, n0, cout, groups, &last_s);
 }
 
 // ---------------------------------------------------------------------------
@@ -747,7 +888,7 @@ int launch_conv_tc(const ConvArgs& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch shapes the wrapper's plan can choose: 32-channel chunks on either
+// The bf16 launch shapes the wrapper's plan can choose: 32-channel chunks on either
 // tile, streamed or resident, and 16-channel chunks where 32 do not fit beside
 // the resident weights of a 16-row tile.
 int launch_conv_bf16(const ConvArgs& a, int tile_h, int tile_w, int kc, bool ws) {
@@ -760,17 +901,36 @@ int launch_conv_bf16(const ConvArgs& a, int tile_h, int tile_w, int kc, bool ws)
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int launch_conv_fp32(const ConvArgs& a) {
-  const int tiles_x = (a.width + kFpTile - 1) / kFpTile;
-  const int n_tiles = tiles_x * ((a.height + kFpTile - 1) / kFpTile);
+template <int TH>
+int launch_conv_tf32(const ConvArgs& a) {
+  using T = Tf32Tile<TH>;
+  const int smem = kStages * T::kStageElems * 4 + T::kWarps * kBN * 2 * 4 + kStages * 8;
+  if (smem != a.smem_bytes) return static_cast<int>(cudaErrorInvalidValue);  // the plan disagrees
+  auto kernel = conv3x3_stats_tf32_kernel<TH>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles_x = (a.width + kTW - 1) / kTW;
+  const int n_tiles = tiles_x * ((a.height + TH - 1) / TH);
   if (a.slots > n_tiles) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec_ok = a.cin % 4 == 0 && aligned16(a.x) && aligned16(a.w);
+  if (!aligned16(a.w)) return static_cast<int>(cudaErrorInvalidValue);  // bulk copies
+  const bool vec_out = a.cout % 2 == 0 && (reinterpret_cast<uintptr_t>(a.y) & 7) == 0;
+  const bool fast = a.cin % 4 == 0 && aligned16(a.x) &&
+                    (int64_t)a.height * a.width * a.cin < (int64_t)1 << 31;
   const dim3 grid(a.slots, (a.cout + kBN - 1) / kBN, a.batch);
-  conv3x3_stats_fp32_kernel<<<grid, kFpThreads, 0, a.stream>>>(
+  kernel<<<grid, T::kThreads, smem, a.stream>>>(
       static_cast<const float*>(a.x), static_cast<const float*>(a.w),
       static_cast<const float*>(a.bias), static_cast<float*>(a.y), a.partials, a.counters,
-      a.stats, a.height, a.width, a.cin, a.cout, a.groups, tiles_x, n_tiles, vec_ok);
+      a.stats, a.height, a.width, a.cin, a.cout, a.groups, tiles_x, n_tiles, vec_out, fast);
   return static_cast<int>(cudaGetLastError());
+}
+
+// fp32: 8-channel chunks, weights streamed, on either tile.
+int launch_conv_fp32(const ConvArgs& a, int tile_h, int tile_w, int kc, bool ws) {
+  if (tile_w != kTW || kc != kFpKC || ws) return static_cast<int>(cudaErrorInvalidValue);
+  if (tile_h == 16) return launch_conv_tf32<16>(a);
+  if (tile_h == 8) return launch_conv_tf32<8>(a);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -796,15 +956,16 @@ int launch_apply(const void* y, const float* stats, const float* gamma, const fl
 
 extern "C" {
 
-// x: [batch, height, width, cin] NHWC; w: [9, cout, cin] in fp32, and in bf16
-// the same tiled as conv3x3_stats_tc_kernel documents it; bias: [cout];
+// x: [batch, height, width, cin] NHWC; w: the weights tiled as
+// conv3x3_stats_tc_kernel (bf16) or conv3x3_stats_tf32_kernel (fp32, split
+// into TF32 hi and lo) documents it; bias: [cout];
 // y: [batch, height, width, cout]; partials: [batch, slots, cout, 2] fp32;
 // counters: [batch] int32, zero on entry (the kernel leaves them zero);
 // stats: [batch, groups, 2] fp32. dtype 0 = float32, 1 = bfloat16 (x, w, bias,
 // y). The launch shape is the wrapper's plan: tile_h x tile_w output pixels a
-// tile (bf16: 16x16 or 8x16; fp32: 8x8), kc input channels a chunk (bf16: 32,
-// or 16 with resident weights on 16x16 tiles; fp32: 8), ws != 0 for resident
-// weights (bf16 only), smem_bytes of
+// tile (16x16 or 8x16), kc input channels a chunk (bf16: 32, or 16 with
+// resident weights on 16x16 tiles; fp32: 8), ws != 0 for resident weights
+// (bf16 only), smem_bytes of
 // dynamic shared memory (checked against the kernel's own count), and
 // 1 <= slots <= number of tiles. cout % groups == 0. Returns
 // cudaGetLastError() (0 on success).
@@ -817,11 +978,7 @@ int sbgm_conv3x3_stats(const void* x, const void* w, const void* bias, void* y,
     return static_cast<int>(cudaErrorInvalidValue);
   const ConvArgs a{x, w, bias, y, partials, counters, stats, batch, height, width, cin, cout,
                    groups, slots, smem_bytes, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) {
-    if (tile_h != kFpTile || tile_w != kFpTile || kc != kFpBK || ws || smem_bytes != 0)
-      return static_cast<int>(cudaErrorInvalidValue);
-    return launch_conv_fp32(a);
-  }
+  if (dtype == 0) return launch_conv_fp32(a, tile_h, tile_w, kc, ws != 0);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   return launch_conv_bf16(a, tile_h, tile_w, kc, ws != 0);
 }

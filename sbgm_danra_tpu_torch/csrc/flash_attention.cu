@@ -52,17 +52,26 @@
 //     summed from the fp32 p; p is rounded to bf16 only as the A operand of
 //     P.V.
 //
-// fp32 (flash_attention_fwd_kernel): the two products as fp32 FMAs on the CUDA
-// cores (TF32 could not meet fp32's tolerance). Bound by instruction issue; it
-// serves the fp32 tests and the tiny fp32 model, not the bf16 main path:
-//   - the block's q tile is staged once in shared memory as fp32, pre-scaled;
-//   - each K/V tile of 32 keys is staged in shared memory as fp32 (K rows
-//     padded by one float so that lane j reading key j is bank-conflict free);
-//   - each warp owns kRows query rows. For the scores, lane j takes key j of
-//     the tile (q rows are broadcast reads); the tile max is a warp reduce;
-//     for P.V, lane j owns the output columns j, j+32, ... and reads the p's
-//     of the row back from shared memory as broadcasts;
-//   - the denominator is kept as a per-lane partial sum and reduced once.
+// fp32 (flash_attention_fwd_kernel_tf32): the bf16 variant's skeleton (64-row
+// blocks of 4 warps, a 3-slot cp.async K/V ring with one barrier per tile, the
+// lazy max and exp2) with both products in 3xTF32 on the tensor cores: each
+// operand split into a TF32 hi and lo, three mma.sync m16n8k8 per product
+// (lo hi, hi lo, hi hi) into fp32 accumulators, which keeps fp32's accuracy
+// where one TF32 pass cannot. Per score it does 3 x 4 D tensor-core FLOPs at
+// half the bf16 rate, which at D = 32 outweighs the exponentials:
+//   - Q's fragments are split once per block (D <= 64; at D = 128 they are
+//     reloaded and split per tile, to keep registers free); K's are split as
+//     ldmatrix loads them (an 8x8 b16 matrix is an 8x4 fp32 one in the TF32
+//     fragment's layout); V's B fragments come by 32-bit loads, split as
+//     loaded; p is split after its exponential;
+//   - P stays in its lanes: the tf32 A fragment wants (row, k q) and (row,
+//     k q + 4) where the C fragment holds (row, key 2q) and (row, key 2q + 1),
+//     so P.V reads its keys permuted, k index q as key 2q and q + 4 as 2q + 1,
+//     and V's fragments are read in the same order;
+//   - rows are padded by 4 floats (pitch 4 banks past a multiple of 32): K's
+//     ldmatrix phases and V's permuted 32-bit loads meet no bank conflict at
+//     D = 32, 64 and 128; K/V tiles hold 32 keys at D = 128 so that three
+//     slots fit in shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,152 +90,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 struct Strides {
   int64_t qb, qr, kb, kr, vb, vr;
 };
-
-// ---------------------------------------------------------------------------
-// fp32: CUDA cores
-
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlockK = 32;  // keys per K/V tile: one per lane
-
-// Rows per warp: fewer at D=128 so that the static shared memory stays under
-// 48 KB and the per-thread accumulator under 20 registers.
-template <int D>
-struct Tile {
-  static constexpr int kRows = D >= 128 ? 4 : 8;
-  static constexpr int kBlockQ = kWarps * kRows;
-};
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ o, Strides st,
-                           int seq, int heads, float scale) {
-  constexpr int kRows = Tile<D>::kRows;
-  constexpr int kBlockQ = Tile<D>::kBlockQ;
-  constexpr int kChunks = D / 32;  // output columns per lane
-
-  __shared__ __align__(16) float q_s[kBlockQ][D];
-  __shared__ float k_s[kBlockK][D + 1];
-  __shared__ float v_s[kBlockK][D];
-  __shared__ __align__(16) float p_s[kWarps][kRows][kBlockK];
-
-  const int b = blockIdx.y / heads;
-  const int h = blockIdx.y % heads;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const float* qg = q + b * st.qb + h * D;
-  const float* kg = k + b * st.kb + h * D;
-  const float* vg = v + b * st.vb + h * D;
-  // the output: row s of head h of sample b in a contiguous [B, S, H, D]
-  const int64_t o_row = (int64_t)heads * D;
-  float* og = o + (int64_t)b * seq * o_row + h * D;
-
-  for (int i = threadIdx.x; i < kBlockQ * D; i += kThreads) {
-    const int r = i / D, d = i % D, s = q0 + r;
-    q_s[r][d] = s < seq ? qg[s * st.qr + d] * scale : 0.f;
-  }
-
-  float m[kRows], l[kRows], acc[kRows][kChunks];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) acc[r][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < seq; k0 += kBlockK) {
-    __syncthreads();  // the previous tile is consumed (and q_s is written)
-    for (int i = threadIdx.x; i < kBlockK * D; i += kThreads) {
-      const int j = i / D, d = i % D, s = k0 + j;
-      const bool ok = s < seq;
-      k_s[j][d] = ok ? kg[s * st.kr + d] : 0.f;
-      v_s[j][d] = ok ? vg[s * st.vr + d] : 0.f;
-    }
-    __syncthreads();
-
-    // scores: lane j holds s[r] = q_r . k_j for each of the warp's rows
-    float sc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) sc[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      float kr[32];
-#pragma unroll
-      for (int d = 0; d < 32; ++d) kr[d] = k_s[lane][c * 32 + d];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float* qr = &q_s[warp * kRows + r][c * 32];
-#pragma unroll
-        for (int d = 0; d < 32; ++d) sc[r] = fmaf(qr[d], kr[d], sc[r]);
-      }
-    }
-
-    // online softmax update; keys at or past seq are masked
-    const bool key_ok = k0 + lane < seq;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float s = key_ok ? sc[r] : kNegInf;
-      const float m_new = fmaxf(m[r], warp_max(s));
-      const float alpha = expf(m[r] - m_new);
-      const float p = expf(s - m_new);
-      m[r] = m_new;
-      l[r] = l[r] * alpha + p;  // per-lane partial denominator
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) acc[r][c] *= alpha;
-      p_s[warp][r][lane] = p;
-    }
-    __syncwarp();
-
-    // acc[r][c] += sum_j p[r][j] * v[j][c*32 + lane]
-#pragma unroll 2
-    for (int j = 0; j < kBlockK; j += 4) {
-      float vj[4][kChunks];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int c = 0; c < kChunks; ++c) vj[jj][c] = v_s[j + jj][c * 32 + lane];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 p4 = *reinterpret_cast<const float4*>(&p_s[warp][r][j]);
-#pragma unroll
-        for (int c = 0; c < kChunks; ++c) {
-          float a = acc[r][c];
-          a = fmaf(p4.x, vj[0][c], a);
-          a = fmaf(p4.y, vj[1][c], a);
-          a = fmaf(p4.z, vj[2][c], a);
-          a = fmaf(p4.w, vj[3][c], a);
-          acc[r][c] = a;
-        }
-      }
-    }
-    __syncwarp();  // p_s is rewritten by the next tile
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const float denom = fmaxf(warp_sum(l[r]), 1e-30f);
-    const int s = q0 + warp * kRows + r;
-    if (s < seq) {
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) og[s * o_row + c * 32 + lane] = acc[r][c] / denom;
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
@@ -255,22 +118,23 @@ struct TcTile {
 
 // Stage kRowsN rows of 16-B chunks starting at row r0 of `src` (row pitch
 // `stride` elements) into dst[kRowsN][kLd]; rows at or past seq are zero-filled.
-template <class T, int kRowsN>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           int64_t stride, int r0, int seq) {
+template <class T, int kRowsN, typename E>
+__device__ __forceinline__ void stage_rows(E* dst, const E* src, int64_t stride, int r0,
+                                           int seq) {
   static_assert(kRowsN * T::kChunks % T::kThreads == 0, "whole copies per thread");
-  const __nv_bfloat16* base = src + r0 * stride;
+  constexpr int kVec = 16 / sizeof(E);
+  const E* base = src + r0 * stride;
   const bool whole = r0 + kRowsN <= seq;  // uniform: only the last tile is ragged
 #pragma unroll
   for (int it = 0; it < kRowsN * T::kChunks / T::kThreads; ++it) {
     const int i = threadIdx.x + it * T::kThreads;
     const int r = i / T::kChunks, c = i % T::kChunks;
-    const int64_t off = r * stride + c * 8;  // the same for every tile: hoisted
+    const int64_t off = r * stride + c * kVec;  // the same for every tile: hoisted
     if (whole) {
-      cp_async16(dst + r * T::kLd + c * 8, base + off, true);
+      cp_async16(dst + r * T::kLd + c * kVec, base + off, true);
     } else {
       const bool ok = r0 + r < seq;
-      cp_async16(dst + r * T::kLd + c * 8, ok ? base + off : src, ok);
+      cp_async16(dst + r * T::kLd + c * kVec, ok ? base + off : src, ok);
     }
   }
 }
@@ -457,13 +321,250 @@ flash_attention_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// fp32: tensor cores in 3xTF32
+
+// Block shape of the fp32 variant: the bf16 variant's, in fp32. K/V tiles of
+// 64 keys (32 at D = 128, where three stages of 64 would not fit); rows padded
+// by 4 floats, so that a row pitch is 4 banks past a multiple of 32.
+template <int D>
+struct Tf32Tile {
+  static constexpr int kThreads = 128;
+  static constexpr int kBlockM = 64;
+  static constexpr int kBlockN = D >= 128 ? 32 : 64;
+  static constexpr int kLd = D + 4;
+  static constexpr int kChunks = D / 4;  // 16-B chunks per row
+  static constexpr int kStages = 3;
+  static constexpr int kSmemBytes = (kBlockM + 2 * kStages * kBlockN) * kLd * 4;  // Q, K, V
+  static constexpr bool kQInRegisters = D <= 64;  // Q's split fragments, else reloaded per tile
+};
+
+// At D = 32 three blocks an SM (at most 170 registers a thread; ptxas then
+// spills 52 bytes, and it still measured fastest).
+template <int D>
+__global__ void __launch_bounds__(Tf32Tile<D>::kThreads, D == 32 ? 3 : 1)
+flash_attention_fwd_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, float* __restrict__ o, Strides st,
+                                int seq, int heads, float scale) {
+  using T = Tf32Tile<D>;
+  constexpr int kLd = T::kLd;
+  constexpr int kBlockN = T::kBlockN;
+  constexpr int kTile = kBlockN * kLd;   // elements of one staged K or V tile
+  constexpr int kKSteps = D / 8;         // k8 steps of Q K^T
+  constexpr int kSTiles = kBlockN / 8;   // n8 score tiles per K tile
+  constexpr int kPSteps = kBlockN / 8;   // k8 steps of P V
+  constexpr int kOTiles = D / 8;         // n8 output tiles
+  constexpr int kQKept = T::kQInRegisters ? kKSteps : 1;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);  // [kBlockM][kLd]
+  float* k_s = q_s + T::kBlockM * kLd;         // [kStages][kBlockN][kLd]
+  float* v_s = k_s + T::kStages * kTile;       // [kStages][kBlockN][kLd]
+
+  const int b = blockIdx.y / heads;
+  const int h = blockIdx.y % heads;
+  const int q0 = blockIdx.x * T::kBlockM;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int mat = lane / 8, mrow = lane % 8;
+  const float* kg = k + b * st.kb + h * D;
+  const float* vg = v + b * st.vb + h * D;
+  const int n_tiles = (seq + kBlockN - 1) / kBlockN;
+
+  auto stage_kv = [&](int t) {
+    const int slot = t % T::kStages;
+    stage_rows<T, kBlockN>(k_s + slot * kTile, kg, st.kr, t * kBlockN, seq);
+    stage_rows<T, kBlockN>(v_s + slot * kTile, vg, st.vr, t * kBlockN, seq);
+  };
+  stage_rows<T, T::kBlockM>(q_s, q + b * st.qb + h * D, st.qr, q0, seq);
+  stage_kv(0);
+  cp_async_commit();
+  if (n_tiles > 1) stage_kv(1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // Q's A fragments of k-step kk, split: ldmatrix's 8x8 b16 matrices are 8x4
+  // fp32 ones, lane l receiving (row l/4, column l%4): matrices 0, 1 are rows
+  // 0-7 / 8-15 at columns 0-3 of the step, 2, 3 the same at columns 4-7.
+  auto q_fragment = [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+    uint32_t raw[4];
+    ldmatrix_x4(raw, q_s + (warp * 16 + (mat % 2) * 8 + mrow) * kLd + kk * 8 + (mat / 2) * 4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(raw[i]), hi[i], lo[i]);
+  };
+  uint32_t qh[kQKept][4], ql[kQKept][4];
+  if constexpr (T::kQInRegisters) {
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) q_fragment(kk, qh[kk], ql[kk]);
+  }
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  // O's hi x hi products, and at D = 32 the small ones in accumulators of
+  // their own: twice the independent mma chains, and more accurate. At D = 64
+  // and 128 the registers are not there.
+  constexpr int kAccSets = D <= 32 ? 2 : 1;
+  float acc[kAccSets][kOTiles][4];
+#pragma unroll
+  for (int a = 0; a < kAccSets; ++a)
+#pragma unroll
+    for (int n = 0; n < kOTiles; ++n) acc[a][n][0] = acc[a][n][1] = acc[a][n][2] = acc[a][n][3] = 0.f;
+  const float c = scale * kLog2e;
+
+  auto step = [&](const int t, auto ragged) {
+    cp_async_wait<1>();
+    __syncthreads();
+    if (t + 2 < n_tiles) stage_kv(t + 2);
+    cp_async_commit();
+    const float* ks = k_s + (t % T::kStages) * kTile;
+    const float* vs = v_s + (t % T::kStages) * kTile;
+
+    // S = Q K^T: the x4 load gives K rows (keys) 8j.. at d columns kk*8 + {0,
+    // 4} (b[0..1] of tile j) and 8(j+1).. (b[2..3] of tile j+1), split as loaded
+    float s[kSTiles][4];
+#pragma unroll
+    for (int j = 0; j < kSTiles; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      uint32_t qhk[4], qlk[4];
+      if constexpr (T::kQInRegisters) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          qhk[i] = qh[kk][i];
+          qlk[i] = ql[kk][i];
+        }
+      } else {
+        q_fragment(kk, qhk, qlk);
+      }
+#pragma unroll
+      for (int j = 0; j < kSTiles; j += 2) {
+        uint32_t raw[4], kh[4], kl[4];
+        ldmatrix_x4(raw, ks + ((j + mat / 2) * 8 + mrow) * kLd + kk * 8 + (mat % 2) * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(raw[i]), kh[i], kl[i]);
+        mma_tf32x3(s[j], qhk, qlk, kh, kl);
+        mma_tf32x3(s[j + 1], qhk, qlk, kh + 2, kl + 2);
+      }
+    }
+
+    if constexpr (decltype(ragged)::value) {
+      const int k0 = t * kBlockN;
+#pragma unroll
+      for (int j = 0; j < kSTiles; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + j * 8 + 2 * tq + (e & 1) >= seq) s[j][e] = kNegInf;
+    }
+
+    // The bf16 variant's softmax with a lazy max. P's A fragment of k-step i
+    // takes score tile i with its keys permuted: the fragment's k index q
+    // holds key 2q and index q + 4 key 2q + 1, which is how the C fragment
+    // already lies in the lane, so P never moves between lanes; V's B
+    // fragment reads its keys in the same order.
+    float pa[kPSteps][4];
+    float lt[2];
+    auto exponentials = [&]() {
+      const float mc0 = m[0] * c, mc1 = m[1] * c;
+      lt[0] = lt[1] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kSTiles; ++j) {
+        const float p0 = exp2_approx(fmaf(s[j][0], c, -mc0));
+        const float p1 = exp2_approx(fmaf(s[j][1], c, -mc0));
+        const float p2 = exp2_approx(fmaf(s[j][2], c, -mc1));
+        const float p3 = exp2_approx(fmaf(s[j][3], c, -mc1));
+        lt[0] += p0 + p1;
+        lt[1] += p2 + p3;
+        pa[j][0] = p0;  // (row g, key 2q)
+        pa[j][1] = p2;  // (row g + 8, key 2q)
+        pa[j][2] = p1;  // (row g, key 2q + 1)
+        pa[j][3] = p3;  // (row g + 8, key 2q + 1)
+      }
+    };
+    exponentials();
+    const bool out_of_range = !(lt[0] <= 0x1p32f) || !(lt[1] <= 0x1p32f);
+    if (__any_sync(0xffffffffu, out_of_range)) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int j = 0; j < kSTiles; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float alpha = exp2_approx((m[r] - mx) * c);
+        m[r] = mx;
+        l[r] *= alpha;
+#pragma unroll
+        for (int a = 0; a < kAccSets; ++a)
+#pragma unroll
+          for (int n = 0; n < kOTiles; ++n) {
+            acc[a][n][2 * r] *= alpha;
+            acc[a][n][2 * r + 1] *= alpha;
+          }
+      }
+      exponentials();
+    }
+    l[0] += lt[0];
+    l[1] += lt[1];
+
+    // O += P V: b0 = V[key 8i + 2q][d 8n + g], b1 = V[key 8i + 2q + 1][same d];
+    // with the pitch 4 banks past 32, the 32 lanes read 32 distinct banks
+#pragma unroll
+    for (int i = 0; i < kPSteps; ++i) {
+      uint32_t ph[4], pl[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(pa[i][e], ph[e], pl[e]);
+      const float* vrow = vs + (i * 8 + 2 * tq) * kLd + g;
+#pragma unroll
+      for (int n = 0; n < kOTiles; ++n) {
+        uint32_t vh[2], vl[2];
+        split_tf32(vrow[n * 8], vh[0], vl[0]);
+        split_tf32(vrow[kLd + n * 8], vh[1], vl[1]);
+        mma_tf32(acc[kAccSets - 1][n], pl, vh);
+        mma_tf32(acc[kAccSets - 1][n], ph, vl);
+        mma_tf32(acc[0][n], ph, vh);
+      }
+    }
+  };
+  for (int t = 0; t + 1 < n_tiles; ++t) step(t, std::false_type{});
+  step(n_tiles - 1, std::true_type{});
+
+  const int64_t o_row = (int64_t)heads * D;
+  float* og = o + (int64_t)b * seq * o_row + h * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float den = l[r];
+    den += __shfl_xor_sync(0xffffffffu, den, 1);
+    den += __shfl_xor_sync(0xffffffffu, den, 2);
+    den = fmaxf(den, 1e-30f);
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (row < seq) {
+#pragma unroll
+      for (int n = 0; n < kOTiles; ++n) {
+        float o0 = acc[0][n][2 * r], o1 = acc[0][n][2 * r + 1];
+        if (kAccSets == 2) {
+          o0 += acc[kAccSets - 1][n][2 * r];
+          o1 += acc[kAccSets - 1][n][2 * r + 1];
+        }
+        *reinterpret_cast<float2*>(og + row * o_row + n * 8 + 2 * tq) =
+            make_float2(o0 / den, o1 / den);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 
 template <int D>
 int launch_fp32(const void* q, const void* k, const void* v, void* o, Strides st, int batch,
                 int seq, int heads, float scale, cudaStream_t stream) {
-  const dim3 grid((seq + Tile<D>::kBlockQ - 1) / Tile<D>::kBlockQ, batch * heads);
-  flash_attention_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
+  using T = Tf32Tile<D>;
+  const cudaError_t attr = cudaFuncSetAttribute(flash_attention_fwd_kernel_tf32<D>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                T::kSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((seq + T::kBlockM - 1) / T::kBlockM, batch * heads);
+  flash_attention_fwd_kernel_tf32<D><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), st, seq, heads, scale);
   return static_cast<int>(cudaGetLastError());
@@ -501,9 +602,9 @@ extern "C" {
 
 // q, k, v: device pointers to [batch, seq, heads, head_dim] arrays with unit
 // stride on head_dim and head stride head_dim; *_batch / *_row are their
-// element strides (bf16: multiples of 8, 16-B aligned pointers). o: a
-// contiguous [batch, seq, heads, head_dim] array. dtype 0 = float32 (CUDA
-// cores), 1 = bfloat16 (tensor cores); head_dim in {32, 64, 128}. Launches on
+// element strides (multiples of 16 bytes, 16-B aligned pointers). o: a
+// contiguous [batch, seq, heads, head_dim] array. dtype 0 = float32 (3xTF32
+// tensor cores), 1 = bfloat16 (tensor cores); head_dim in {32, 64, 128}. Launches on
 // `stream` and returns cudaGetLastError() (0 on success).
 int sbgm_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                              long long q_batch, long long q_row, long long k_batch,

@@ -1,6 +1,7 @@
 // Tensor-core and asynchronous-copy primitives shared by the kernels of this
-// directory (sm_90a). ops/_nvcc.py hashes this header with each source that
-// includes it, so an edit rebuilds both libraries.
+// directory (sm_90a): bf16 products, and the TF32 products that the fp32
+// kernels run three at a time (3xTF32). ops/_nvcc.py hashes this header with
+// each source that includes it, so an edit rebuilds both libraries.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -113,6 +114,61 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(1));
+}
+
+// d += a b, m64n64k8, TF32 in (both operands K-major), fp32 out; d as in
+// wgmma_m64n64k16. The descriptors' geometry is the bf16 one in bytes: a core
+// matrix is 8 rows x 16 bytes (4 values), and a k8 step is two of them.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// 3xTF32: x = hi + lo with hi = x rounded to TF32 (10 mantissa bits, to
+// nearest, ties away from zero) and lo = x - hi, which is exact in fp32.
+// a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi in fp32 keeps fp32's accuracy on the
+// tensor cores. hi is rounded on the bits (two integer operations; cvt.rna
+// measured slower in the attention kernel); lo goes in as it is, the
+// tensor cores reading the 19 high bits of a .tf32 operand, which drops under
+// 2^-21 |x| beside the dropped a_lo b_lo. A NaN's hi may round to -0 on the
+// bits, but its lo stays NaN and carries it into the product.
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a b, mma.sync m16n8k8, TF32 in, fp32 out. Lane l holds a's (row l/4,
+// k l%4), (row l/4 + 8, k l%4), (l/4, l%4 + 4), (l/4 + 8, l%4 + 4) and b's
+// (k l%4, column l/4), (k l%4 + 4, column l/4); c as in mma_bf16.
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in 3xTF32 from split operands: the small products first.
+__device__ __forceinline__ void mma_tf32x3(float* c, const uint32_t* a_hi, const uint32_t* a_lo,
+                                           const uint32_t* b_hi, const uint32_t* b_lo) {
+  mma_tf32(c, a_lo, b_hi);
+  mma_tf32(c, a_hi, b_lo);
+  mma_tf32(c, a_hi, b_hi);
 }
 
 // Keeps the compiler from moving reads or writes of `x` across this point

@@ -9,8 +9,8 @@ first use, and loads it with ``ctypes``.
 
 - ``flash_attention_cuda``: the kernel's entry point. CUDA tensors only; it
   raises on anything else, and raises if the build or the launch fails. A
-  bfloat16 call runs the tensor-core variant (``tc_bf16``), a float32 call the
-  CUDA-core variant (``fp32``).
+  bfloat16 call runs the bf16 tensor-core variant (``tc_bf16``), a float32
+  call the 3xTF32 tensor-core variant (``fp32``), which keeps fp32's accuracy.
 - ``kernel_layout``: the wrapper's checks as a pure function of shapes,
   strides, dtypes and addresses: the variant, the head dim the kernel is built
   for and the strides it is handed, or an error.
@@ -21,8 +21,8 @@ first use, and loads it with ``ctypes``.
 
 q, k and v may be strided views, as the chunks of a packed QKV projection
 are: the kernel takes each one's batch and row strides. It needs a unit
-stride on D and the heads of a row packed (head stride D); bf16 rows must be
-16-byte aligned, since the kernel copies them 16 bytes at a time. A head dim
+stride on D and the heads of a row packed (head stride D); rows must be
+16-byte aligned, since both variants copy them 16 bytes at a time. A head dim
 that is padded up to a supported one is copied anyway, so any layout is taken
 there. The output is a fresh contiguous [B, S, H, D].
 
@@ -106,11 +106,9 @@ def kernel_layout(shapes, strides, dtypes, addresses) -> KernelLayout:
             raise ValueError(f"{name}: the kernel needs a unit stride on D; got strides {st}")
         if h > 1 and st[2] != d:
             raise ValueError(f"{name}: the kernel needs head stride == D = {d}; got strides {st}")
-        if dtype == torch.bfloat16 and (
-            addr % 16 or (b > 1 and st[0] * item % 16) or (s > 1 and st[1] * item % 16)
-        ):
+        if addr % 16 or (b > 1 and st[0] * item % 16) or (s > 1 and st[1] * item % 16):
             raise ValueError(
-                f"{name}: bf16 rows must be 16-byte aligned (address {addr}, strides {st})"
+                f"{name}: rows must be 16-byte aligned (address {addr}, strides {st})"
             )
     return KernelLayout(VARIANTS[dtype], d, False, tuple((st[0], st[1]) for st in strides))
 

@@ -25,10 +25,11 @@ rounded to x's dtype, an optional ReLU, and the result in x's dtype.
 - ``plan``: the pure function that picks ``conv3x3_stats``'s launch shape
   (variant, pixel tile, Cin chunk, shared memory, grid) from the call's shape;
   the wrapper launches what it returns and the CPU tests call it.
-- ``packed_weights`` / ``tiled_weights``: the kernels' copies of the HWIO
-  weights in x's dtype, ``[9, Cout, Cin]`` for the fp32 kernel and the same
-  cut into the tiles that the bf16 kernel copies into shared memory
-  (``[Cout tiles, 9, Cin / 8, 64, 8]``, zero-padded). The wrapper keeps one
+- ``tiled_weights`` / ``split_tiled_weights``: the kernels' copies of the
+  HWIO weights, cut into the tiles that the kernel copies into shared memory:
+  bf16 ``[Cout tiles, 9, Cin / 8, 64, 8]``, and fp32 split into TF32 hi and
+  lo parts for the 3xTF32 products, ``[Cout tiles, 9, Cin / 8, 2, 2, 64, 4]``
+  (both zero-padded, both made on the weights' device). The wrapper keeps one
   per parameter and remakes it when the
   parameter's version counter, storage or layout changes (``load_state_dict``,
   an in-place update, a move to another device). A write through ``.data``
@@ -67,7 +68,9 @@ _STAGES = 3  # cp.async ring of the bf16 conv kernel
 LAUNCH_SHAPES = ((16, 16, 32, False), (8, 16, 32, False), (16, 16, 32, True), (8, 16, 32, True),
                  (16, 16, 16, True))
 _WS_MAX_CIN = 128  # resident weights up to here: 9 x 128 x 64 bf16 = 147 KB
-_FP32_TILE, _FP32_CHUNK = (8, 8), 8
+# The fp32 (3xTF32) conv kernel's launch shapes: 8-channel chunks (one k8 step
+# of wgmma .tf32), weights streamed, 16x16 or 8x16 tiles.
+FP32_LAUNCH_SHAPES = ((16, 16, 8, False), (8, 16, 8, False))
 _APPLY_THREADS, _APPLY_UNROLL = 256, 4
 _APPLY_BLOCKS_PER_SM = 16  # gn_apply blocks in flight per SM over the whole batch
 _MAX_CHANNELS = MAX_SHARED_BYTES // 8  # gn_apply keeps 8 bytes per channel in shared memory
@@ -166,8 +169,8 @@ def _require_cuda(what: str, **tensors) -> torch.device:
 class ConvPlan(NamedTuple):
     """``conv3x3_stats``'s launch shape for one call shape."""
 
-    variant: str  # "ws": resident weights; "stream": weights staged per Cin chunk; "fp32"
-    mma: str  # "wgmma" (bf16, tensor cores) | "fma" (fp32, CUDA cores)
+    variant: str  # "ws": resident weights; "stream": weights staged per Cin chunk
+    mma: str  # "wgmma" (bf16) | "tf32x3" (fp32: three TF32 wgmma products per product)
     tile: tuple  # (rows, columns) of output pixels per tile
     chunk: int  # input channels per pipeline stage
     stages: int  # stages of the cp.async ring (1: no pipeline)
@@ -175,6 +178,16 @@ class ConvPlan(NamedTuple):
     threads: int
     grid: tuple  # (slots, Cout tiles, batch); a block walks tiles slot, slot + slots, ...
     blocks_per_sm: int
+
+
+def _conv_shared_bytes_fp32(tile) -> int:
+    """The fp32 kernel's dynamic shared memory: three stages of the split halo
+    and split weights of an 8-channel chunk, the warps' channel sums, the
+    copy barriers."""
+    th, tw = tile
+    warps = th * tw // 32
+    stage = 2 * 8 * (th + 2) * (tw + 2) + 9 * 2 * 8 * _BN
+    return 4 * (_STAGES * stage + warps * _BN * 2) + _STAGES * 8
 
 
 def _conv_shared_bytes(tile, chunk: int, resident: bool, cin: int) -> int:
@@ -193,12 +206,14 @@ def plan(n: int, h: int, w: int, cin: int, cout: int, dtype: torch.dtype,
          force: Optional[tuple] = None) -> ConvPlan:
     """Pick the conv kernel's variant, tile, chunk and grid for x [n, h, w, cin] -> cout.
 
-    fp32 has one launch shape. bf16, by the rules that the sweep of
-    ``profile_port.py --paths k1 --k1-sweep`` gave on an H100:
+    By the rules that the sweep of ``profile_port.py --paths k1 --k1-sweep``
+    gave on an H100:
 
     - tile: 16x16 pixels, or 8x16 where the map has at most 8 rows or where
       16x16 tiles would give at most half an SM's worth of blocks
-      (n x tiles x Cout tiles <= 132 / 2);
+      (n x tiles x Cout tiles <= 132 / 2); both dtypes;
+    - fp32: 8-channel chunks, weights streamed (split into hi and lo they do
+      not fit beside the halo at the decoder's Cin);
     - weights resident in shared memory ("ws") where Cin <= 128 and each block
       walks at least 3 tiles, so that copying its [9, Cin, 64] slice once pays;
       else staged with every Cin chunk ("stream");
@@ -207,9 +222,9 @@ def plan(n: int, h: int, w: int, cin: int, cout: int, dtype: torch.dtype,
     - grid: one block per resident slot of the card, (slots, Cout tiles, n);
       block ``slot`` of a sample walks tiles slot, slot + slots, ...
 
-    ``force``, one of ``LAUNCH_SHAPES``, overrides the choice (measurements and
-    the card tests of each launch shape). Raises where the shape does not fit
-    in ``MAX_SHARED_BYTES``.
+    ``force``, one of ``LAUNCH_SHAPES`` (bf16) or ``FP32_LAUNCH_SHAPES``,
+    overrides the choice (measurements and the card tests of each launch
+    shape). Raises where the shape does not fit in ``MAX_SHARED_BYTES``.
     """
     if min(n, h, w, cin, cout) < 1 or n > 65535:
         raise ValueError(f"conv3x3_stats: unsupported shape {(n, h, w, cin)} -> {cout}")
@@ -225,21 +240,24 @@ def plan(n: int, h: int, w: int, cin: int, cout: int, dtype: torch.dtype,
         return ConvPlan(variant, mma, tile, chunk, stages, shared, threads,
                         (slots, cout_tiles, n), per_sm)
 
-    if dtype == torch.float32:
-        return shaped("fp32", "fma", _FP32_TILE, _FP32_CHUNK, 1, 0, 128)
-    if dtype != torch.bfloat16:
+    if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"conv3x3_stats: dtype {dtype} not supported (float32 or bfloat16)")
+    shapes = FP32_LAUNCH_SHAPES if dtype == torch.float32 else LAUNCH_SHAPES
+    if force is not None and tuple(force) not in shapes:
+        raise ValueError(f"conv3x3_stats: no kernel for the forced launch shape {force} in {dtype}")
+    big_tiles = math.ceil(h / 16) * math.ceil(w / 16)
+    tile = (8, 16) if h <= 8 or n * big_tiles * cout_tiles <= _SMS // 2 else (16, 16)
+    if dtype == torch.float32:
+        tile = tuple(force[:2]) if force is not None else tile
+        return shaped("stream", "tf32x3", tile, 8, _STAGES, _conv_shared_bytes_fp32(tile),
+                      tile[0] * tile[1])
 
     def bf16(tile, chunk, resident):
         return shaped("ws" if resident else "stream", "wgmma", tile, chunk, _STAGES,
                       _conv_shared_bytes(tile, chunk, resident, cin), tile[0] * tile[1])
 
     if force is not None:
-        if tuple(force) not in LAUNCH_SHAPES:
-            raise ValueError(f"conv3x3_stats: no kernel for the forced launch shape {force}")
         return bf16(tuple(force[:2]), force[2], bool(force[3]))
-    big_tiles = math.ceil(h / 16) * math.ceil(w / 16)
-    tile = (8, 16) if h <= 8 or n * big_tiles * cout_tiles <= _SMS // 2 else (16, 16)
     streamed = bf16(tile, 32, False)
     if cin <= _WS_MAX_CIN:
         for chunk in (32, 16):
@@ -271,31 +289,55 @@ def _cached(t: torch.Tensor, tag, make):
     return made
 
 
-def packed_weights(kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The HWIO ``kernel`` [3, 3, Cin, Cout] as the conv kernel reads it:
-    [9, Cout, Cin] in ``dtype``, kept per parameter (see the module's notes)."""
-    def make():
-        _, _, cin, cout = kernel.shape
-        out = torch.empty((9, cout, cin), dtype=dtype, device=kernel.device)
-        return out.copy_(kernel.detach().permute(0, 1, 3, 2).reshape(9, cout, cin))
-    return _cached(kernel, ("weights", dtype), make)
+def _taps(kernel: torch.Tensor, dtype: torch.dtype, cin_pad: int) -> torch.Tensor:
+    """The HWIO ``kernel`` [3, 3, Cin, Cout] as [9, Cout tiles x 64, cin_pad]
+    in ``dtype`` (tap, output channel, input channel), zero-padded."""
+    _, _, cin, cout = kernel.shape
+    padded = torch.zeros((9, math.ceil(cout / _BN) * _BN, cin_pad), dtype=dtype,
+                         device=kernel.device)
+    padded[:, :cout, :cin] = kernel.detach().permute(0, 1, 3, 2).reshape(9, cout, cin)
+    return padded
 
 
 def tiled_weights(kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The HWIO ``kernel`` as the tensor-core conv kernel copies it into shared
+    """The HWIO ``kernel`` as the bf16 conv kernel copies it into shared
     memory, [Cout tiles, 9, Cin / 8, 64, 8] in ``dtype``: element
-    [t, tap, k, o, j] is ``packed_weights``' [tap, 64 t + o, 8 k + j], zero
+    [t, tap, k, o, j] is kernel[tap // 3, tap % 3, 8 k + j, 64 t + o], zero
     where that is past Cout or Cin; Cin is padded to a multiple of 32. One
     (tap, run of k) slice of a Cout tile is then one contiguous bulk copy. Kept
-    per parameter like ``packed_weights``."""
+    per parameter (see the module's notes)."""
     def make():
-        _, _, cin, cout = kernel.shape
-        tiles, cin_pad = math.ceil(cout / _BN), math.ceil(cin / 32) * 32
-        padded = torch.zeros((9, tiles * _BN, cin_pad), dtype=dtype, device=kernel.device)
-        padded[:, :cout, :cin] = kernel.detach().permute(0, 1, 3, 2).reshape(9, cout, cin)
-        return (padded.view(9, tiles, _BN, cin_pad // 8, 8).permute(1, 0, 3, 2, 4)
+        cin_pad = math.ceil(kernel.shape[2] / 32) * 32
+        padded = _taps(kernel, dtype, cin_pad)
+        return (padded.view(9, -1, _BN, cin_pad // 8, 8).permute(1, 0, 3, 2, 4)
                 .contiguous())
     return _cached(kernel, ("tiled", dtype), make)
+
+
+def round_tf32(t: torch.Tensor) -> torch.Tensor:
+    """fp32 ``t`` rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as the kernels' ``cvt.rna.tf32.f32``: add half of the 13 dropped
+    bits to the magnitude, then clear them."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tiled_weights(kernel: torch.Tensor) -> torch.Tensor:
+    """The HWIO ``kernel`` in fp32 split for the 3xTF32 conv kernel, [Cout
+    tiles, 9, Cin / 8, 2, 2, 64, 4]: element [t, tap, k, p, u, o, j] is part
+    p (0: hi = ``round_tf32(w)``, 1: lo = ``round_tf32(w - hi)``) of w =
+    kernel[tap // 3, tap % 3, 8 k + 4 u + j, 64 t + o], zero where that is
+    past Cout or Cin; Cin is padded to a multiple of 8. One (tap, k) of a Cout
+    tile is then one contiguous 4 KB bulk copy, hi then lo. Made on the
+    weights' device and kept per parameter (see the module's notes)."""
+    def make():
+        cin_pad = math.ceil(kernel.shape[2] / 8) * 8
+        padded = _taps(kernel, torch.float32, cin_pad)
+        hi = round_tf32(padded)
+        parts = torch.stack([hi, round_tf32(padded - hi)])  # [2, 9, Cout, Cin]
+        return (parts.view(2, 9, -1, _BN, cin_pad // 8, 2, 4).permute(2, 1, 4, 0, 5, 3, 6)
+                .contiguous())
+    return _cached(kernel, ("tf32x3",), make)
 
 
 def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -338,8 +380,8 @@ def conv3x3_stats(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     x = x.contiguous()
     n, h, w, _ = x.shape
     p = plan(n, h, w, cin, cout, x.dtype, force=force)
-    pack = tiled_weights if p.mma == "wgmma" else packed_weights
-    wk, bias_t = pack(kernel, x.dtype), _as(bias, x.dtype)
+    wk = tiled_weights(kernel, x.dtype) if p.mma == "wgmma" else split_tiled_weights(kernel)
+    bias_t = _as(bias, x.dtype)
     slots = p.grid[0]
     conv = torch.empty((n, h, w, cout), dtype=x.dtype, device=dev)
     # partials [n, slots, cout, 2] and stats [n, groups, 2] in one allocation

@@ -213,6 +213,15 @@ class TestKernelLayout:
         with pytest.raises(ValueError, match="16-byte aligned"):
             _layout(x, x, x)
 
+    @pytest.mark.parametrize("row, offset", [(66, 0), (64, 2)], ids=["row_stride", "address"])
+    def test_fp32_rows_must_be_16_byte_aligned(self, row, offset):
+        """The fp32 variant copies rows 16 bytes at a time too: a row stride of
+        66 floats (264 bytes) or an address 8 bytes off is refused."""
+        base = torch.empty(offset + 64 * row, device="meta")
+        x = base[offset:].view(1, 64, row)[..., :64].reshape(1, 64, 2, 32)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            _layout(x, x, x)
+
     def test_refuses_grid_above_limit(self):
         x = torch.empty(65536, 1, 1, 32, dtype=torch.bfloat16, device="meta")
         with pytest.raises(ValueError, match="grid limit"):

@@ -32,10 +32,11 @@ def _qkv(shape, dtype, cuda, seed=0):
 
 
 @pytest.mark.parametrize("shape", [(2, 1000, 2, 24), (1, 4096, 4, 64), (2, 300, 4, 128),
-                                   (1, 33, 1, 32)])
+                                   (1, 33, 1, 32), (2, 7600, 4, 32), (1, 7600, 2, 128),
+                                   (2, 4100, 2, 64)])
 def test_fp32_matches_plain_version(cuda, shape):
-    """2e-5 abs + 2e-5 rel, the JAX kernel's own tolerance: only the fp32
-    summation order differs."""
+    """2e-5 abs + 2e-5 rel, the JAX kernel's own tolerance: 3xTF32 keeps
+    fp32's accuracy, and the summation order differs."""
     q, k, v = _qkv(shape, torch.float32, cuda)
     torch.testing.assert_close(flash_attention_cuda(q, k, v), flash_attention_reference(q, k, v),
                                rtol=2e-5, atol=2e-5)
@@ -72,6 +73,36 @@ def test_bf16_late_keys_far_above_the_early_max(cuda, first_large_key):
     want = flash_attention_reference(q.float(), k.float(), v.float())
     assert torch.isfinite(got).all()
     assert ((got - want).abs() <= _bf16_tolerance(want)).all()
+
+
+@pytest.mark.parametrize("first_large_key", [4000, 7590])
+def test_fp32_late_keys_far_above_the_early_max(cuda, first_large_key):
+    """The rescale path in fp32, against the plain version (fp32, TF32 off):
+    2e-5 abs + 2e-5 rel. Keys x 8 put the late scores some 40 (log2 units)
+    above the early max, past the 32 at which the kernel moves its max. The
+    bf16 test's x 40 (scores in the hundreds) is beyond fp32 itself: there one
+    fp32 rounding of a score moves p by about 1e-5, half the tolerance
+    (tests/test_torch_tf32x3.py), and against dense attention in fp64 the
+    plain version misses it as the kernel does (profile_port.py --paths k2
+    --dtype float32)."""
+    q, k, v = _qkv((2, 7600, 4, 32), torch.float32, cuda)
+    k[:, first_large_key:] *= 8
+    got = flash_attention_cuda(q, k, v).double()
+    want = flash_attention_reference(q, k, v).double()
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= 2e-5 + 2e-5 * want.abs()).all()
+
+
+def test_fp32_nan_in_a_key_reaches_its_head(cuda):
+    """3xTF32 splits every operand into a TF32 hi and lo; the card's own NaN
+    (0x7fffffff, which an integer rounding of hi alone would turn into -0)
+    in one key still poisons every output row of its (batch, head), and no
+    other."""
+    q, k, v = _qkv((2, 4100, 2, 32), torch.float32, cuda)
+    k[0, 3000, 1, 5] = torch.zeros((), device=cuda) / 0
+    out = flash_attention_cuda(q, k, v)
+    assert torch.isnan(out[0, :, 1]).all()
+    assert torch.isfinite(out[0, :, 0]).all() and torch.isfinite(out[1]).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -243,6 +274,65 @@ def test_k1_bf16_reads_nothing_past_cin_or_the_end_of_x(cuda, force, shape):
     (conv, stats), (conv_nan, stats_nan) = results
     assert torch.isfinite(conv_nan.float()).all() and torch.isfinite(stats_nan).all()
     assert torch.equal(conv_nan, conv) and torch.equal(stats_nan, stats)
+
+
+# (N, H, W, Cin, Cout, groups) for the fp32 kernel: aligned; Cin 24 and 40 (whole
+# 8-channel chunks), 12 and 20 (the last chunk's second vector past Cin: a
+# zero-fill), 6 (no vector copies); ragged tiles and Cout off 64; batch 16
+K1_FP32_SHAPES = [(2, 32, 48, 64, 64, 8), (2, 37, 51, 24, 72, 8), (1, 9, 7, 40, 136, 4),
+                  (2, 20, 33, 12, 24, 8), (3, 19, 13, 20, 8, 8), (1, 16, 16, 6, 16, 4),
+                  (16, 8, 8, 512, 256, 8)]
+
+
+@pytest.mark.parametrize("shape", K1_FP32_SHAPES, ids=str)
+@pytest.mark.parametrize("force", k1.FP32_LAUNCH_SHAPES, ids=_force_id)
+def test_k1_fp32_every_launch_shape_matches_plain_version(cuda, force, shape):
+    """Each tile of the 3xTF32 conv kernel, forced, against the plain version
+    with TF32 off: conv and statistics within 1e-4 max|ref|, the chain within
+    1e-4 max|ref|; repeated calls are bit-identical."""
+    torch.backends.cudnn.allow_tf32 = False
+    n, h, w, cin, cout, groups = shape
+    x, kernel, bias, gamma, beta = _k1_args(n, h, w, cin, cout, torch.float32, cuda)
+    conv, stats = k1.conv3x3_stats(x, kernel, bias, groups, force=force)
+    again = k1.conv3x3_stats(x, kernel, bias, groups, force=force)
+    assert torch.equal(again[0], conv) and torch.equal(again[1], stats)
+    plain_conv, plain_stats = k1.plain_conv3x3_stats(x, kernel, bias, groups)
+    assert (conv - plain_conv).abs().max() <= 1e-4 * plain_conv.abs().max()
+    assert (stats - plain_stats).abs().max() <= 1e-4 * plain_stats.abs().max()
+    out = k1.gn_apply(conv, stats, gamma, beta, groups, activation=True)
+    want = k1.reference_chain(x, kernel, bias, gamma, beta, groups, activation=True)
+    assert (out - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.parametrize("shape", [(1, 9, 7, 40, 136, 4), (2, 37, 51, 12, 72, 8),
+                                   (2, 20, 33, 24, 24, 8), (1, 16, 16, 20, 64, 8)], ids=str)
+@pytest.mark.parametrize("force", k1.FP32_LAUNCH_SHAPES, ids=_force_id)
+def test_k1_fp32_reads_nothing_past_cin_or_the_end_of_x(cuda, force, shape):
+    """As the bf16 test: with NaN right behind x, the fp32 result is finite and
+    bit-identical to the call with zeros there."""
+    n, h, w, cin, cout, groups = shape
+    x, kernel, bias, _, _ = _k1_args(n, h, w, cin, cout, torch.float32, cuda)
+    results = []
+    for after in (0.0, float("nan")):
+        buf = torch.full((x.numel() + 64,), after, device=cuda)
+        x_tail = buf[:x.numel()].view(x.shape).copy_(x)
+        results.append(k1.conv3x3_stats(x_tail, kernel, bias, groups, force=force))
+    (conv, stats), (conv_nan, stats_nan) = results
+    assert torch.isfinite(conv_nan).all() and torch.isfinite(stats_nan).all()
+    assert torch.equal(conv_nan, conv) and torch.equal(stats_nan, stats)
+
+
+def test_k1_fp32_nan_in_x_reaches_its_window(cuda):
+    """The card's own NaN in one pixel of x reaches the conv at the 3x3
+    window around it and the statistics of its sample, and nothing else."""
+    x, kernel, bias, _, _ = _k1_args(2, 40, 50, 64, 64, torch.float32, cuda)
+    x[1, 20, 30, 5] = torch.zeros((), device=cuda) / 0
+    conv, stats = k1.conv3x3_stats(x, kernel, bias, 8)
+    window = torch.zeros(40, 50, dtype=torch.bool, device=cuda)
+    window[19:22, 29:32] = True
+    assert torch.isnan(conv[1][window]).all() and torch.isfinite(conv[1][~window]).all()
+    assert torch.isfinite(conv[0]).all() and torch.isfinite(stats[0]).all()
+    assert torch.isnan(stats[1]).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

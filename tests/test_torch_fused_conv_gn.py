@@ -146,7 +146,15 @@ class TestPlan:
         assert (cout_tiles - 1) * 64 < cout <= cout_tiles * 64
         assert p.threads <= 1024 and p.blocks_per_sm >= 1
         if dtype == torch.float32:
-            assert (p.variant, p.mma, p.tile, p.chunk, p.stages) == ("fp32", "fma", (8, 8), 8, 1)
+            # 3xTF32 on the tensor cores: 8-channel chunks, split weights
+            # streamed, the bf16 plan's tile; three stages of the split halo and
+            # weights, the warps' channel sums and three copy barriers
+            assert (p.variant, p.mma, p.chunk, p.stages) == ("stream", "tf32x3", 8, 3)
+            assert p.tile == k1.plan(n, h, w, cin, cout, torch.bfloat16).tile
+            assert p.threads == p.tile[0] * p.tile[1]
+            halo = (p.tile[0] + 2) * (p.tile[1] + 2)
+            assert p.shared_bytes == 4 * (3 * (2 * 8 * halo + 9 * 2 * 8 * 64)
+                                          + p.threads // 32 * 64 * 2) + 3 * 8
             return
         assert p.mma == "wgmma" and p.stages == 3 and p.chunk in (16, 32)
         assert p.tile in ((16, 16), (8, 16)) and p.threads == p.tile[0] * p.tile[1]
@@ -180,6 +188,13 @@ class TestPlan:
             k1.plan(2, 152, 200, 128, 128, torch.bfloat16, force=(16, 16, 32, 1))
         with pytest.raises(ValueError, match="no kernel"):
             k1.plan(2, 38, 50, 64, 64, torch.bfloat16, force=(8, 8, 32, 0))
+        with pytest.raises(ValueError, match="no kernel"):  # a bf16 shape in fp32
+            k1.plan(2, 38, 50, 64, 64, torch.float32, force=(16, 16, 32, 0))
+        for force in k1.FP32_LAUNCH_SHAPES:
+            p = k1.plan(2, 38, 50, 512, 512, torch.float32, force=force)
+            assert (p.tile, p.chunk, p.mma) == (tuple(force[:2]), 8, "tf32x3")
+        with pytest.raises(ValueError, match="no kernel"):  # the fp32 kernel streams its weights
+            k1.plan(2, 38, 50, 16, 16, torch.float32, force=(16, 16, 8, 1))
         with pytest.raises(TypeError, match="not supported"):
             k1.plan(2, 38, 50, 64, 64, torch.float16)
         with pytest.raises(ValueError, match="unsupported shape"):
@@ -193,28 +208,52 @@ class TestPlan:
         assert 1 <= blocks <= 65535 and blocks * n <= max(n, 16 * 132)
 
 
+def _split_want(kernel):
+    """split_tiled_weights' layout, built element by element from its docstring."""
+    _, _, cin, cout = kernel.shape
+    w = kernel.double().numpy()
+    tiles, chunks = -(-cout // 64), -(-cin // 8)
+    want = np.zeros((tiles, 9, chunks, 2, 2, 64, 4), np.float32)
+    for t in range(tiles):
+        for tap in range(9):
+            for o in range(min(64, cout - 64 * t)):
+                for c in range(cin):
+                    v = np.float32(w[tap // 3, tap % 3, c, 64 * t + o])
+                    hi = _round_tf32_np(v)
+                    lo = _round_tf32_np(np.float32(v - hi))
+                    want[t, tap, c // 8, :, (c % 8) // 4, o, c % 4] = hi, lo
+    return torch.from_numpy(want)
+
+
+def _round_tf32_np(v):
+    """Round fp32 to TF32, to nearest, ties away from zero, on the bits."""
+    bits = np.asarray(v, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
 class TestPackedWeights:
     def _conv(self, seed, cin=12, cout=24):
         torch.manual_seed(seed)
         return torch.nn.Conv2d(cin, cout, 3, padding=1)
 
     def test_layout_is_tap_major_then_output_channel(self):
+        """The fp32 kernel's split weights: per (Cout tile, tap, 8-channel
+        chunk) hi then lo, each [2 groups of 4 channels][64 outputs][4]."""
         kernel = torch.from_numpy(_inputs((1, 4, 4, 12), 24, seed=1)[1])
-        packed = k1.packed_weights(kernel, torch.bfloat16)
-        want = kernel.permute(0, 1, 3, 2).reshape(9, 24, 12).bfloat16()
-        assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
-        torch.testing.assert_close(packed, want, rtol=0, atol=0)
-        assert k1.packed_weights(kernel, torch.bfloat16) is packed  # kept
-        fp32 = k1.packed_weights(kernel, torch.float32)  # per dtype
-        torch.testing.assert_close(fp32, kernel.permute(0, 1, 3, 2).reshape(9, 24, 12),
-                                   rtol=0, atol=0)
-        assert k1.packed_weights(kernel, torch.bfloat16) is packed
+        split = k1.split_tiled_weights(kernel)
+        assert split.dtype == torch.float32 and split.is_contiguous()
+        assert split.shape == (1, 9, 2, 2, 2, 64, 4)
+        torch.testing.assert_close(split, _split_want(kernel), rtol=0, atol=0)
+        assert k1.split_tiled_weights(kernel) is split  # kept
+        bf16 = k1.tiled_weights(kernel, torch.bfloat16)  # a copy of its own per kind
+        assert k1.split_tiled_weights(kernel) is split and k1.tiled_weights(
+            kernel, torch.bfloat16) is bf16
 
     @pytest.mark.parametrize("cin, cout", [(12, 24), (64, 64), (200, 72), (40, 136)])
     def test_tiled_layout_is_the_packed_one_cut_into_cout_tiles(self, cin, cout):
         kernel = torch.from_numpy(_inputs((1, 4, 4, cin), cout, seed=2)[1])
         tiled = k1.tiled_weights(kernel, torch.bfloat16)
-        packed = k1.packed_weights(kernel, torch.bfloat16)
+        packed = kernel.permute(0, 1, 3, 2).reshape(9, cout, cin).bfloat16()
         tiles, cin8 = -(-cout // 64), -(-cin // 32) * 4
         assert tiled.shape == (tiles, 9, cin8, 64, 8) and tiled.is_contiguous()
         want = torch.zeros(9, tiles * 64, cin8 * 8, dtype=torch.bfloat16)
@@ -231,32 +270,58 @@ class TestPackedWeights:
     def test_remade_after_load_state_dict_and_in_place_update(self):
         conv = self._conv(0)
         hwio = lambda: conv.weight.permute(2, 3, 1, 0)  # noqa: E731  a fresh view per call
-        want = lambda: hwio().detach().permute(0, 1, 3, 2).reshape(9, 24, 12)  # noqa: E731
-        first = k1.packed_weights(hwio(), torch.float32)
-        assert k1.packed_weights(hwio(), torch.float32) is first
+        want = lambda: _split_want(hwio().detach())  # noqa: E731
+        first = k1.split_tiled_weights(hwio())
+        assert k1.split_tiled_weights(hwio()) is first
         conv.load_state_dict(self._conv(1).state_dict())
-        second = k1.packed_weights(hwio(), torch.float32)
+        second = k1.split_tiled_weights(hwio())
         assert second is not first
         torch.testing.assert_close(second, want(), rtol=0, atol=0)
         with torch.no_grad():
             conv.weight.mul_(2.0)
-        third = k1.packed_weights(hwio(), torch.float32)
+        third = k1.split_tiled_weights(hwio())
         torch.testing.assert_close(third, want(), rtol=0, atol=0)
-        torch.testing.assert_close(third, 2.0 * second, rtol=0, atol=0)
+        torch.testing.assert_close(third, 2.0 * second, rtol=0, atol=0)  # exact: a power of 2
         with torch.inference_mode():  # the serving path reads through the same cache
-            assert k1.packed_weights(hwio(), torch.float32) is third
+            assert k1.split_tiled_weights(hwio()) is third
 
     def test_each_parameter_has_its_own_copy_and_it_dies_with_it(self):
         a, b = self._conv(2), self._conv(3)
-        pa = k1.packed_weights(a.weight.permute(2, 3, 1, 0), torch.float32)
-        pb = k1.packed_weights(b.weight.permute(2, 3, 1, 0), torch.float32)
+        pa = k1.split_tiled_weights(a.weight.permute(2, 3, 1, 0))
+        pb = k1.split_tiled_weights(b.weight.permute(2, 3, 1, 0))
         assert not torch.equal(pa, pb)
-        assert k1.packed_weights(a.weight.permute(2, 3, 1, 0), torch.float32) is pa
+        assert k1.split_tiled_weights(a.weight.permute(2, 3, 1, 0)) is pa
         kept = len(k1._packed)
         del a, pa
         import gc
         gc.collect()
         assert len(k1._packed) == kept - 1
+
+    @pytest.mark.parametrize("cin, cout", [(12, 24), (64, 64), (40, 136)])
+    def test_split_is_exact_to_2_pow_minus_22(self, cin, cout):
+        """hi has at most 10 mantissa bits (its 13 low bits are zero), lo too,
+        and hi + lo equals w to 2^-22 |w|; padding past Cin and Cout is zero."""
+        kernel = torch.from_numpy(_inputs((1, 4, 4, cin), cout, seed=cin)[1])
+        split = k1.split_tiled_weights(kernel)
+        bits = split.view(torch.int32)
+        assert ((bits & 0x1FFF) == 0).all()
+        hi, lo = split[:, :, :, 0], split[:, :, :, 1]
+        w = ((hi.double() + lo.double()).permute(1, 0, 4, 2, 3, 5)  # [9, tiles, 64, k, 2, 4]
+             .reshape(9, -1, split.shape[2] * 8))
+        want = kernel.double().permute(0, 1, 3, 2).reshape(9, cout, cin)
+        assert (w[:, cout:].abs().sum() == 0) and (w[:, :, cin:].abs().sum() == 0)
+        assert ((w[:, :cout, :cin] - want).abs() <= 2.0**-22 * want.abs()).all()
+        assert (lo.abs() <= 2.0**-11 * hi.abs()).all()
+
+    def test_round_tf32_matches_the_bit_rule_and_rounds_ties_away(self):
+        rng = np.random.default_rng(0)
+        v = np.concatenate([rng.normal(size=4096).astype(np.float32),
+                            np.array([1 + 2**-11, -(1 + 2**-11), 1 + 3 * 2**-11, 0.0, -0.0,
+                                      np.float32(3.4e38), np.inf, -np.inf], np.float32)])
+        got = k1.round_tf32(torch.from_numpy(v)).numpy()
+        np.testing.assert_array_equal(got.view(np.uint32), _round_tf32_np(v).view(np.uint32))
+        assert got[4096] == 1 + 2**-10 and got[4097] == -(1 + 2**-10)  # ties away from zero
+        assert got[4098] == 1 + 2 * 2**-10
 
     def test_casts_are_kept_per_parameter_and_fp32_passes_through(self):
         bias = torch.nn.Parameter(torch.randn(24))
@@ -271,10 +336,10 @@ class TestPackedWeights:
     def test_inference_tensors_are_packed_anew(self):
         with torch.inference_mode():
             kernel = torch.randn(3, 3, 4, 8)
-            first = k1.packed_weights(kernel, torch.float32)
-            kernel.mul_(3.0)  # no version counter: never served from the cache
-            torch.testing.assert_close(k1.packed_weights(kernel, torch.float32),
-                                       3.0 * first, rtol=0, atol=0)
+            first = k1.split_tiled_weights(kernel)
+            kernel.mul_(4.0)  # no version counter: never served from the cache
+            torch.testing.assert_close(k1.split_tiled_weights(kernel), 4.0 * first,
+                                       rtol=0, atol=0)
 
 
 def _block_pair(in_ch, out_ch, norm, seed, hw):
