@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the torch port's generation paths once on one CUDA card and check them.
+"""Drive the torch port's generation and training paths once on one CUDA card and check them.
 
     python3 chip_smoke.py          # from the repo root; one CUDA GPU and nvcc
 
@@ -38,6 +38,12 @@ Phases, one JSON line each on stdout:
      ``library_kernel_ms`` (the device time of the kernels that call launches,
      measured the same way); tolerances in each row. Bounds: ``profile_port.bound``
      (fp32 operations by the faster of FMAs at 67 and 3xTF32 at 495 TFLOP/s);
+3b. kernel (K2 backward): delta, dk/dv and dq (one ``_launch_bwd``) on
+   strided q, k, v against the dense plain backward in fp32, bf16 and fp32, at
+   the full-domain shape and off it: each gradient within 1e-2 (bf16) or 1e-4
+   (fp32) of its max |ref|, a repeat bit-identical, the forward's lse output
+   within 1e-4 of the plain lse; its time warm and cold, the plain version's,
+   SDPA's backward and the bound (``profile_port.k2bwd_rows``);
 4. model: a tiny fp32 UNet on the card against the same weights on the CPU
    (TF32 off, attention kernel forced: max |err| <= 1e-4 max |ref|, with 8 K1
    launches), and flagship bf16 forwards at 128 px (batch 16) and 608x800
@@ -53,9 +59,23 @@ Phases, one JSON line each on stdout:
    (TF32 off: max |err| <= 1e-4 max |ref|, 1 ``fp32`` K2 and 8 + 8 K1
    launches), the same forward under PyTorch's default flags
    (``cudnn.allow_tf32`` True) and TF32 off against the CPU (reported, ROADMAP
-   F7), and one EDM-18 sample under the default flags: 34 ``fp32`` and no
-   ``tc_bf16`` K2 launches, 272 + 272 K1, finite (1, 589, 789), its wall time
-   beside the bf16 samples';
+   F7), and one EDM-18 sample through ``sample_full_domain(compute_dtype=
+   "float32")``, which turns TF32 off inside its call (checked at every UNet
+   evaluation) and restores the flags after it: 34 ``fp32`` and no ``tc_bf16`` K2
+   launches, 272 + 272 K1, finite (1, 589, 789), its wall time beside the bf16
+   samples'; then F7's cost: the same sample with TF32 on and off (wall time,
+   two each, and cuDNN's conv device time under the profiler, one each);
+5c. train_128: ``TrainingPipeline.train_batches`` on the flagship bf16 UNet at
+   128x128, batch 128, Adam lr 5e-4 with EMA, 5 steps: no K1 or K2 launch in
+   the steps, loss finite, EMA and BatchNorm statistics moved, step time,
+   samples/s, peak memory; then one EMA eval step (8 K1 launches);
+5d. train_full_domain: the same at 589x789 -> 608x800, batch 2, attention
+   'pallas', remat: bf16, 3 steps with 2 K2 forward and 1 K2 backward launch
+   a step (decoder block 1 at [2, 7600, 4, 32]), then one step from a saved
+   state with K2 swapped for the plain attention: loss within 1e-2 and each
+   parameter's gradient (a fused qkv projection's q, k and v parts apart)
+   within ``GRAD_REL_TOL`` of its max |ref|; fp32, one
+   step (the fp32 variants);
 6. serving: the engine with the flagship_synth settings behind the HTTP
    handler on a localhost port: /healthz, three concurrent /generate requests
    (1, 2 and 4 members), then each again alone, which must come back
@@ -87,7 +107,7 @@ import numpy as np
 import torch
 
 from profile_port import (CHAINS_128, CHAINS_FULL, COLD_COPIES, K1_RAGGED, bound, device_ms,
-                          sfu_rate)
+                          k2bwd_rows, profile, sfu_rate, train_batches, train_config)
 
 FULL_DOMAIN = (589, 789)
 EDM_NODES = 18
@@ -234,6 +254,44 @@ def phase_attention_kernel(dev, exp_rate: float):
         results.append(row)
     check(not failed, "K2 disagrees with its plain version at " + "; ".join(failed))
     return results
+
+
+K2_BWD_SHAPES = {  # dtype: shapes; the full-domain decoder shape first, then off-path checks
+    torch.bfloat16: ((2, 7600, 4, 32), (1, 4096, 2, 64), (2, 333, 2, 24)),
+    torch.float32: ((2, 7600, 4, 32), (2, 1000, 2, 128)),
+}
+K2_BWD_TOLERANCE = {torch.bfloat16: 1e-2, torch.float32: 1e-4}  # of each gradient's max |ref|
+
+
+def phase_attention_backward(dev):
+    """K2's backward kernels (delta, dk/dv, dq: one ``_launch_bwd``) against the
+    dense plain backward, with their times, SDPA's backward and the bound
+    (``profile_port.k2bwd_rows``); each gradient within the dtype's tolerance
+    of its max |ref|, a repeat bit-identical, the forward's lse output within
+    1e-4 of the plain lse, and only the dtype's variant launched."""
+    from sbgm_danra_tpu_torch.ops import cuda_attention as ca
+
+    rows = []
+    for dtype, shapes in K2_BWD_SHAPES.items():
+        before = dict(ca.bwd_launches_by_variant)
+        got = k2bwd_rows(torch, dev, dtype_name(dtype), shapes)
+        ran = {n: c - before[n] for n, c in ca.bwd_launches_by_variant.items()}
+        variant, tol = K2_VARIANT[dtype], K2_BWD_TOLERANCE[dtype]
+        for row in got:
+            worst = max(row["rel_err"].values())
+            row = dict(phase="kernel", kernel="flash_attention_bwd", variant=variant,
+                       packed_qkv_views=True, max_abs_err=worst,
+                       worst_err_over_tolerance=worst / tol,
+                       tolerance=f"each gradient within {tol} of its max |ref| against the "
+                                 "dense plain backward in fp32", library="SDPA backward",
+                       ok=(worst <= tol and row["repeat_bit_identical"]
+                           and row["lse_max_abs_err"] <= 1e-4), **row)
+            emit(**row)
+            check(row["ok"], f"K2 backward disagrees with its plain version: {row}")
+            rows.append(row)
+        check(set(n for n, c in ran.items() if c) == {variant},
+              f"K2 backward {dtype}: launches by variant {ran}")
+    return rows
 
 
 def phase_conv_gn_kernel(dev):
@@ -402,9 +460,10 @@ def reset_counts():
     from sbgm_danra_tpu_torch.ops import cuda_attention
     from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
 
-    cuda_attention.launches = 0
+    cuda_attention.launches = cuda_attention.bwd_launches = 0
     for name in cuda_attention.launches_by_variant:
         cuda_attention.launches_by_variant[name] = 0
+        cuda_attention.bwd_launches_by_variant[name] = 0
     k1.conv3x3_stats_launches = k1.gn_apply_launches = 0
 
 
@@ -412,6 +471,12 @@ def k2_counts() -> dict:
     from sbgm_danra_tpu_torch.ops import cuda_attention
 
     return dict(cuda_attention.launches_by_variant)
+
+
+def k2_bwd_counts() -> dict:
+    from sbgm_danra_tpu_torch.ops import cuda_attention
+
+    return dict(cuda_attention.bwd_launches_by_variant)
 
 
 def check_k1(counts, evaluations: int, where: str) -> None:
@@ -591,6 +656,7 @@ def phase_fp32_full_width(dev, bf16_wall_s):
     from sbgm_danra_tpu_torch.sampling.samplers import SamplerConfig
 
     default_tf32 = torch.backends.cudnn.allow_tf32
+    saved_flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     hw = padded_dims(*FULL_DOMAIN)
     spec = inference_spec(flagship_spec(compute_dtype="float32", attention_backend="pallas"), hw)
     model = build_score_model(spec, generator=torch.Generator().manual_seed(0)).to(dev)
@@ -636,27 +702,266 @@ def phase_fp32_full_width(dev, bf16_wall_s):
 
     config = SamplerConfig(num_steps=EDM_NODES, guidance_scale=3.0, s_churn=0.0)
     sample_cond = make_cond(1, FULL_DOMAIN, dev, 8)
+
+    tf32_seen = []  # TF32 on for cuDNN or cuBLAS at each UNet evaluation
+
+    def score(x, t, **c):
+        tf32_seen.append(torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32)
+        return model(x, t, **c)
+
+    def sample(tf32: bool):
+        """One EDM-18 sample with TF32 on for cuDNN and cuBLAS around the call
+        (PyTorch's default for cuDNN): through the entry point's rule for an
+        fp32 model (``compute_dtype="float32"``: TF32 off inside the call), or
+        without it, for ROADMAP F7's cost."""
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        return sample_full_domain(
+            score, torch.Generator(dev).manual_seed(0), sample_cond,
+            domain_hw=FULL_DOMAIN, batch=1, config=config, sampler="edm_sampler",
+            compute_dtype=None if tf32 else "float32",
+        )
+
+    sample(False)  # warm-up: cuDNN picks its exact-fp32 algorithms
     torch.cuda.synchronize()
+    tf32_seen.clear()
     reset_counts()  # the fp32 full-domain sample's run starts here
     t0 = time.perf_counter()
-    out = sample_full_domain(
-        lambda x, t, **c: model(x, t, **c), torch.Generator(dev).manual_seed(0), sample_cond,
-        domain_hw=FULL_DOMAIN, batch=1, config=config, sampler="edm_sampler",
-    )
+    out = sample(False)
     wall = time.perf_counter() - t0
     k2, k1c = k2_counts(), k1_counts()
+    tf32_inside = any(tf32_seen)
+    tf32_restored = torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
     evaluations = 2 * (EDM_NODES - 1)
     finite = bool(np.isfinite(out).all())
+    # F7: the same sample with TF32 on and off, wall time (2 each, alternating)
+    # and the device time of cuDNN's convs under the profiler (one each)
+    walls = {"tf32_on": [], "tf32_off": []}
+    for tf32 in (True, False, False, True):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sample(tf32)
+        torch.cuda.synchronize()
+        walls["tf32_on" if tf32 else "tf32_off"].append(time.perf_counter() - t1)
+    conv_ms, busy_ms = {}, {}
+    for tf32 in (True, False):
+        prof = profile(torch, lambda: sample(tf32))
+        key = "tf32_on" if tf32 else "tf32_off"
+        conv_ms[key] = prof["kernel_ms_by_class"].get("conv (cuDNN)", 0.0)
+        busy_ms[key] = prof["device_busy_ms"]
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved_flags
     emit(phase="fp32_full_width", domain="589x789->608x800", sampler=f"edm-{EDM_NODES}", cfg=3.0,
-         dtype="float32", cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+         dtype="float32", tf32_inside_sample=tf32_inside, tf32_restored_after=tf32_restored,
          shape=list(out.shape), finite=finite, k2_launches_by_variant=k2, k1_launches=list(k1c),
          k1_expected=K1_PER_EVAL * evaluations, wall_s=wall, bf16_wall_s=bf16_wall_s,
-         field_std=float(out.std()))
+         field_std=float(out.std()), f7_wall_s=walls, f7_cudnn_conv_device_ms=conv_ms,
+         f7_device_busy_ms=busy_ms)
     check(out.shape == (1, *FULL_DOMAIN) and finite, f"bad fp32 full-domain output {out.shape}")
+    check(not tf32_inside, "sample_full_domain ran an fp32 model with TF32 on (ROADMAP F7)")
+    check(tf32_restored, "sample_full_domain did not restore the TF32 flags after its call")
     expected = {"tc_bf16": 0, "fp32": evaluations}
     check(k2 == expected, f"fp32 sample: K2 launches by variant {k2}, expected {expected}")
     check_k1(k1c, evaluations, "fp32 full-domain sample")
     return {"k2": k2, "conv3x3_stats": k1c[0], "gn_apply": k1c[1]}
+
+
+TRAIN_128 = dict(hw=(128, 128), batch=128, steps=5)  # configs/flagship_synth.yaml:67
+TRAIN_FULL = dict(hw=FULL_DOMAIN, batch=2, steps=3)  # scripts/full_domain_train_bench.py
+# each parameter's gradient (``_grad_parts``), K2 step against plain-attention
+# step: max |diff| / max |ref|; on an H100 bf16 rounding alone reads 6.6e-3 to
+# 7.6e-3, a 10% fault in dq, dk or dv 0.09 or more (PERF.md)
+GRAD_REL_TOL = 2.5e-2
+
+
+class TimedBatches:
+    """An iterable of batches that synchronises the card before handing out
+    each one, and stamps the host clock: the gaps are whole train steps."""
+
+    def __init__(self, batches):
+        self.batches, self.stamps = batches, []
+
+    def __iter__(self):
+        for b in self.batches:
+            torch.cuda.synchronize()
+            self.stamps.append(time.perf_counter())
+            yield b
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+
+    def step_s(self):
+        return [b - a for a, b in zip(self.stamps, self.stamps[1:])]
+
+
+def _snapshot(state):
+    return ({k: v.detach().clone() for k, v in state.model.state_dict().items()},
+            {k: v.detach().clone() for k, v in state.ema_params.items()})
+
+
+def phase_train_128(dev):
+    """The flagship trained at 128 px, batch 128, bf16, through
+    ``TrainingPipeline.train_batches``: 5 steps with no K1 or K2 launch
+    (training takes the plain chain, and 256-token maps take SDPA), the loss
+    finite, the EMA and the BatchNorm statistics moved; then one EMA eval step,
+    which runs K1 (8 chains)."""
+    import tempfile
+
+    from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
+    from sbgm_danra_tpu_torch.training.train_step import make_eval_step
+
+    spec = TRAIN_128
+    with tempfile.TemporaryDirectory() as tmp:
+        pipe = TrainingPipeline(train_config(tmp, "bfloat16", "xla", False), [], device=dev)
+        n_params = sum(p.numel() for p in pipe.model.parameters())
+        batches = train_batches(torch, spec["steps"], spec["batch"], spec["hw"], dev, seed=30)
+        before_params, _ = _snapshot(pipe.state)
+        loader = TimedBatches(batches)
+        pipe.train_loader = loader
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()  # the 128-px training path's run starts here
+        loss = pipe.train_batches(spec["steps"])
+        k1c, k2f, k2b = k1_counts(), k2_counts(), k2_bwd_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        steps = loader.step_s()
+        after, ema = _snapshot(pipe.state)
+        ema_moved = max((ema[k] - before_params[k]).abs().max().item() for k in ema)
+        bn_keys = [k for k in after if k.endswith(("running_mean", "running_var"))]
+        bn_moved = max((after[k] - before_params[k]).abs().max().item() for k in bn_keys)
+        reset_counts()
+        eval_loss = make_eval_step(pipe.model, pipe.sde, use_ema=True)(
+            pipe.state, batches[0], torch.Generator(dev).manual_seed(1))["loss"].item()
+        eval_k1 = k1_counts()
+    median = float(np.median(steps))
+    emit(phase="train_128", settings="flagship UNet (19.08M), bf16, 128x128, batch 128, Adam "
+         "lr 5e-4, EMA 0.999, attention 'xla'", n_params=n_params, steps=spec["steps"],
+         mean_loss=loss, finite=bool(np.isfinite(loss)), step_s=steps, step_s_median=median,
+         samples_per_s=spec["batch"] / median, peak_memory_gb=peak,
+         k1_launches=list(k1c), k2_launches_by_variant=k2f, k2_bwd_launches_by_variant=k2b,
+         ema_max_change=ema_moved, bn_running_stats_max_change=bn_moved,
+         ema_eval_loss=eval_loss, ema_eval_k1_launches=list(eval_k1))
+    check(np.isfinite(loss) and np.isfinite(eval_loss), f"train-128 loss {loss} / {eval_loss}")
+    check(k1c == (0, 0) and sum(k2f.values()) == 0 and sum(k2b.values()) == 0,
+          f"train-128 steps launched K1 {k1c} / K2 {k2f} {k2b}; training takes plain ops")
+    check(ema_moved > 0 and bn_moved > 0, f"EMA moved {ema_moved}, BN statistics {bn_moved}")
+    check_k1(eval_k1, 1, "EMA eval step at 128 px")
+    return {"step_s_median": median}
+
+
+def _plain_k2():
+    """Swap the plain attention (autograd through the dense fp32 version) in
+    for K2 (restore by calling the result)."""
+    from sbgm_danra_tpu_torch.ops import cuda_attention, flash_attention as fa
+
+    fa.flash_attention_cuda = cuda_attention.flash_attention_reference
+    return lambda: setattr(fa, "flash_attention_cuda", cuda_attention.flash_attention_cuda)
+
+
+def _step_grads(pipe, batch, t, z):
+    """One train step from the pipeline's current state; returns the loss, the
+    gradients it applied, and the state as it was before (restore with
+    ``_restore``)."""
+    import copy
+
+    saved = (_snapshot(pipe.state), copy.deepcopy(pipe.state.optimizer.state_dict()),
+             pipe.state.step)
+    loss = pipe._train_step(pipe.state, batch, t=t, z=z)["loss"].item()
+    grads = {n: p.grad.detach().float().clone() for n, p in pipe.model.named_parameters()}
+    return loss, grads, saved
+
+
+def _grad_parts(grads):
+    """Each parameter's gradient, a fused qkv projection's as its q, k and v
+    parts (a fault in dq or dk is small beside dv's share of the whole), less
+    the key bias, whose gradient is 0 in exact arithmetic: softmax takes no
+    shift of a row's scores."""
+    out = {}
+    for n, g in grads.items():
+        if not n.endswith(("qkv.weight", "qkv.bias")):
+            out[n] = g
+            continue
+        for part, chunk in zip("qkv", g.chunk(3)):
+            if not (part == "k" and n.endswith("bias")):
+                out[f"{n}[{part}]"] = chunk
+    return out
+
+
+def _restore(pipe, saved):
+    (model_sd, ema), opt, step = saved
+    pipe.model.load_state_dict(model_sd)
+    with torch.no_grad():
+        for k, v in pipe.state.ema_params.items():
+            v.copy_(ema[k])
+    pipe.state.optimizer.load_state_dict(opt)
+    pipe.state.step = step
+
+
+def phase_train_full_domain(dev, dtype: str, steps: int, compare: bool):
+    """The flagship trained at the padded full domain (589x789 -> 608x800),
+    batch 2, attention 'pallas', remat, through ``TrainingPipeline``: per step
+    2 K2 forward launches (forward and the remat recompute, decoder block 1 at
+    [2, 7600, 4, 32]) and 1 K2 backward; the loss finite. With ``compare``, one
+    more step from a saved state with K2 swapped for the plain attention
+    (forward and backward): the loss and every parameter's gradient against
+    the kernel step's."""
+    import tempfile
+
+    from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
+
+    spec = TRAIN_FULL
+    variant = K2_VARIANT[getattr(torch, dtype)]
+    with tempfile.TemporaryDirectory() as tmp:
+        pipe = TrainingPipeline(train_config(tmp, dtype, "pallas", True), [], device=dev)
+        batches = train_batches(torch, steps, spec["batch"], spec["hw"], dev, seed=40)
+        loader = TimedBatches(batches)
+        pipe.train_loader = loader
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()  # the full-domain training path's run starts here
+        loss = pipe.train_batches(steps)
+        k1c, k2f, k2b = k1_counts(), k2_counts(), k2_bwd_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        step_s = loader.step_s()
+        cmp = {}
+        if compare:
+            g = torch.Generator(dev).manual_seed(50)
+            t = torch.rand(spec["batch"], generator=g, device=dev) * (1 - 1e-3) + 1e-3
+            z = torch.randn(batches[0]["x"].shape, generator=g, device=dev)
+            loss_k, grads_k, saved = _step_grads(pipe, batches[0], t, z)
+            _restore(pipe, saved)
+            restore = _plain_k2()
+            try:
+                loss_p, grads_p, _ = _step_grads(pipe, batches[0], t, z)
+            finally:
+                restore()
+            parts_k, parts_p = _grad_parts(grads_k), _grad_parts(grads_p)
+            rel = {n: ((parts_k[n] - parts_p[n]).abs().max()
+                       / parts_p[n].abs().max().clamp_min(1e-30)).item() for n in parts_p}
+            worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+            # reported only: the largest gradient difference against the largest gradient
+            overall = max((grads_k[n] - grads_p[n]).abs().max().item() for n in grads_p) / max(
+                grads_p[n].abs().max().item() for n in grads_p)
+            cmp = dict(loss_kernel=loss_k, loss_plain=loss_p,
+                       loss_rel_err=abs(loss_k - loss_p) / abs(loss_p),
+                       grad_rel_err_max=max(rel.values()),
+                       grad_rel_err_median=float(np.median(list(rel.values()))),
+                       grad_rel_err_worst=worst, grad_rel_err_overall=overall)
+    median = float(np.median(step_s))
+    per_step = {"k2_fwd": k2f[variant] / steps, "k2_bwd": k2b[variant] / steps}
+    emit(phase="train_full_domain", settings=f"flagship UNet, {dtype}, 589x789 -> 608x800, "
+         "batch 2, attention 'pallas', remat, Adam lr 5e-4, EMA 0.999", steps=steps,
+         mean_loss=loss, finite=bool(np.isfinite(loss)), step_s=step_s, step_s_median=median,
+         samples_per_s=spec["batch"] / median, peak_memory_gb=peak, k1_launches=list(k1c),
+         k2_launches_by_variant=k2f, k2_bwd_launches_by_variant=k2b,
+         k2_launches_per_step=per_step, kernel_vs_plain_attention=cmp,
+         tolerance=f"loss within 1e-2, each parameter's gradient (q, k, v of a fused "
+                   f"projection apart) within {GRAD_REL_TOL} of its max |ref| (bf16: the "
+                   "kernel rounds P to bf16 for P.V)")
+    check(np.isfinite(loss), f"full-domain train loss {loss}")
+    check(per_step == {"k2_fwd": 2, "k2_bwd": 1} and k1c == (0, 0),
+          f"full-domain train: K2 per step {per_step}, K1 {k1c}; expected 2 + 1 and no K1")
+    if compare:
+        check(cmp["loss_rel_err"] <= 1e-2 and cmp["grad_rel_err_max"] <= GRAD_REL_TOL,
+              f"full-domain train step, kernel vs plain attention: {cmp}")
+    return {"k2_bwd": k2b[variant], "k2_fwd": k2f[variant], "step_s_median": median}
 
 
 def _post(url: str, body: dict):
@@ -847,12 +1152,20 @@ def main() -> int:
                          seconds=b.seconds) for m, b in zip(modules, builds)])
 
     attention_rows = phase_attention_kernel(dev, sfu["exp_per_s"])
+    bwd_rows = phase_attention_backward(dev)
     k1_rows = phase_conv_gn_kernel(dev)
     model, serve_model, tiny_k2 = phase_model(dev)
     launches = phase_full_domain(dev, model)
     del model
     torch.cuda.empty_cache()
     fp32 = phase_fp32_full_width(dev, launches["wall_s"])
+    torch.cuda.empty_cache()
+    # training before serving: the serving engine sets cudnn.deterministic
+    phase_train_128(dev)
+    torch.cuda.empty_cache()
+    train_bf16 = phase_train_full_domain(dev, "bfloat16", TRAIN_FULL["steps"], compare=True)
+    torch.cuda.empty_cache()
+    train_fp32 = phase_train_full_domain(dev, "float32", 1, compare=False)
     torch.cuda.empty_cache()
     serving = phase_serving(dev)
     samplers = phase_samplers(dev, serve_model)
@@ -864,12 +1177,34 @@ def main() -> int:
     kernels = [
         _k2_summary(attention_rows, "tc_bf16", "mma.sync bf16", launches=k2["tc_bf16"],
                     launches_by_path={"full_domain": k2["tc_bf16"],
-                                      "fp32_full_domain": fp32["k2"]["tc_bf16"]}),
+                                      "fp32_full_domain": fp32["k2"]["tc_bf16"],
+                                      "train_full_domain_tc_bf16": train_bf16["k2_fwd"]}),
         _k2_summary(attention_rows, "fp32", "tf32x3 (mma.sync)", launches=fp32["k2"]["fp32"],
                     launches_by_path={"full_domain": k2["fp32"],
-                                      "fp32_full_domain": fp32["k2"]["fp32"]},
+                                      "fp32_full_domain": fp32["k2"]["fp32"],
+                                      "train_full_domain_fp32": train_fp32["k2_fwd"]},
                     launches_outside_main_path={"model/tiny_fp32_unet": tiny_k2["fp32"]}),
     ]
+    for variant, run in (("tc_bf16", train_bf16), ("fp32", train_fp32)):
+        at = next(r for r in bwd_rows if r["variant"] == variant and r["shape"] == [2, 7600, 4, 32])
+        mine = [r for r in bwd_rows if r["variant"] == variant]
+        kernels.append({
+            "name": f"flash_attention_bwd_{variant}",
+            "route": "cuda",
+            "mma": None,
+            "source": "sbgm_danra_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "sbgm_danra_tpu/ops/pallas_attention.py:143",
+            "launches": run["k2_bwd"],
+            "launches_by_path": {f"train_full_domain_{variant}": run["k2_bwd"]},
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "worst_err_over_tolerance": max(r["worst_err_over_tolerance"] for r in mine),
+            **{key: at[key] for key in ("ms", "kernel_ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "bytes" if at["bound_by"] == "bytes" else "operations",
+            "bound_term": at["bound_by"],
+            "at": f"{at['shape']} {at['dtype']}, decoder block 1 at 608x800, one backward "
+                  "(delta, dk/dv, dq); max_abs_err is the largest gradient error over its "
+                  "max |ref|",
+        })
     for name in ("conv3x3_stats", "gn_apply"):
         kernels.append({
             "name": name,

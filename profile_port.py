@@ -46,6 +46,16 @@ The decoder's chain shapes, the ragged shapes and ``device_ms`` are kept here
 and imported by ``chip_smoke.py`` and the tests: this script measures the
 package of another checkout, so it cannot take them from the package.
 
+``--paths k2bwd`` times K2's backward alone (``k2bwd_rows``: the three
+backward kernels on strided q, k, v against the dense plain backward, warm and
+cold, SDPA's backward and the bound; and the forward with its lse output off
+and on) in ``--dtype``. ``--paths train`` times one train step of the
+flagship through ``TrainingPipeline`` (the port's step: DSM loss, backward,
+Adam, EMA, BatchNorm statistics) at 128x128, batch 128 (the flagship's),
+attention 'xla', and at 589x789 -> 608x800, batch 2, attention 'pallas',
+remat, in ``--dtype``: wall seconds of ``--repeats`` steps and the profiler's
+breakdown of one, as for the paths above.
+
 ``--paths k2`` times K2 alone (``flash_attention_cuda`` on contiguous
 seeded inputs, which every version takes) in ``--dtype`` at the full-domain
 shape and at the card tests' shapes: mean device ms of 20 launches
@@ -110,6 +120,7 @@ CLASSES = (
     # every variant (flash_attention_fwd_kernel_tc, flash_attention_fwd_kernel_tf32);
     # before "attention (SDPA)", whose patterns would also match them
     ("K2 flash_attention_fwd", ("flash_attention_fwd_kernel",)),
+    ("K2 flash_attention_bwd", ("flash_attention_bwd_",)),
     ("K1 conv3x3_stats", ("conv3x3_stats",)),
     ("K1 gn_apply", ("gn_apply",)),
     ("GroupNorm (PyTorch)", ("GroupNorm", "group_norm", "RowwiseMoments", "ComputeFusedParams")),
@@ -119,6 +130,7 @@ CLASSES = (
     ("conv (cuDNN)", ("conv", "Conv", "implicit", "fprop", "cudnn")),
     ("matmul (cuBLAS)", ("gemm", "Gemm", "gemv", "xmma")),
     ("attention (SDPA)", ("fmha", "flash_fwd", "attention", "efficient")),
+    ("optimizer and EMA (foreach)", ("multi_tensor_apply", "foreach")),
     ("reductions", ("reduce_kernel",)),
     ("elementwise", ("elementwise",)),
 )
@@ -153,7 +165,10 @@ def profile(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    # device events, without the user annotations the profiler puts on the
+    # device's timeline (e.g. "Optimizer.step#Adam.step"), which are no kernels
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"
+               and not getattr(e, "is_user_annotation", False)]
     by_class, by_name, intervals = {}, {}, []
     for e in kernels:
         dur = e.time_range.end - e.time_range.start
@@ -238,6 +253,128 @@ def k2_rows(torch, dev, dtype_name: str) -> list:
                              worst_err_over_tolerance_vs_fp64=worst(got, fp64),
                              plain_fp32_worst_err_over_tolerance_vs_fp64=worst(plain, fp64)))
     return rows
+
+
+# K2's backward: the full-domain decoder shape, then shapes off the path
+K2_BWD_SHAPES = ((2, 7600, 4, 32), (1, 4096, 2, 64), (2, 1000, 2, 128), (2, 333, 2, 24))
+
+
+def k2bwd_rows(torch, dev, dtype_name: str, shapes=K2_BWD_SHAPES) -> list:
+    """K2's backward alone (``_launch_bwd``: delta, dk/dv, dq) on strided q, k, v
+    (chunks of one packed projection) against the dense plain backward: each
+    gradient's max |err| over its max |ref|; ``ms`` (mean of 5 calls),
+    ``kernel_ms`` (cold, ``device_ms``), the plain version's ms, SDPA's
+    backward (SDPA forward + backward minus forward) and the bound (5 products
+    of 2 S^2 D B H flops and B H S^2 exponentials; bytes of q, k, v, O, dO and
+    lse in, dq, dk, dv out); the forward's ms with its lse output off and on."""
+    import torch.nn.functional as F
+
+    from sbgm_danra_tpu_torch.ops import cuda_attention as ca
+
+    def ms(fn, iters=5):
+        fn()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / iters
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(dev).manual_seed(20)
+    dtype = getattr(torch, dtype_name)
+    exp_rate = sfu_rate(torch)["exp_per_s"]
+    rows = []
+    for shape in shapes:
+        b, s_len, h, d = shape
+        packed = torch.randn(b, s_len, 3 * h * d, generator=gen, device=dev).to(dtype)
+        q, k, v = (t.reshape(shape) for t in packed.chunk(3, dim=-1))
+        dout = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        out, lse = ca._launch(q, k, v, with_lse=True)
+        plain_lse = ca.attention_lse(q, k)
+        got = ca._launch_bwd(q, k, v, out, dout, lse)
+        repeat = all(torch.equal(x, y) for x, y in zip(got, ca._launch_bwd(q, k, v, out, dout,
+                                                                              lse)))
+        want = ca.flash_attention_bwd_reference(q.float(), k.float(), v.float(), out.float(),
+                                                dout.float(), plain_lse)
+        errs = {n: ((x.float() - y).abs().max() / y.abs().max()).item()
+                for n, x, y in zip(("dq", "dk", "dv"), got, want)}
+        del want
+        qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        dout_t = dout.transpose(1, 2)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qs, ks, vs)
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(qs, ks, vs)
+            return torch.autograd.grad(o, (qs, ks, vs), dout_t)
+
+        operands = (q, k, v, out, dout, lse)
+        copies = [[t.clone() for t in operands] for _ in range(COLD_COPIES)]
+        row = dict(
+            shape=list(shape), dtype=dtype_name, rel_err=errs, repeat_bit_identical=repeat,
+            lse_max_abs_err=(lse - plain_lse).abs().max().item(),
+            ms=ms(lambda: ca._launch_bwd(*operands)),
+            kernel_ms=device_ms(torch, [functools.partial(ca._launch_bwd, *c) for c in copies]),
+            plain_ms=ms(lambda: ca.flash_attention_bwd_reference(
+                q.float(), k.float(), v.float(), out.float(), dout.float(), plain_lse), 2),
+            library_ms=ms(sdpa_fwd_bwd, 10) - ms(sdpa_fwd, 10),
+            forward_ms_lse_off=ms(lambda: ca._launch(q, k, v), 10),
+            forward_ms_lse_on=ms(lambda: ca._launch(q, k, v, with_lse=True), 10),
+            **bound(5 * 2.0 * b * h * s_len * s_len * d,
+                    8 * q.numel() * q.element_size() + 4 * b * h * s_len, dtype_name,
+                    exps=float(b * h * s_len * s_len), exp_rate=exp_rate))
+        rows.append(row)
+        del copies, got, q, k, v, packed, qs, ks, vs
+        torch.cuda.empty_cache()
+    return rows
+
+
+FULL_DOMAIN = (589, 789)
+
+
+def train_config(tmp: str, dtype: str, backend: str, remat: bool):
+    """The flagship's training section (configs/flagship_synth.yaml: Adam, lr
+    5e-4, EMA 0.999, L2 1e-6, seed 0) at the flagship's widths, through the
+    port's own reader (no YAML)."""
+    from sbgm_danra_tpu_torch.config import from_dict
+
+    return from_dict({
+        "experiment": {"config_name": "train_probe"},
+        "paths": {"checkpoint_dir": tmp},
+        "highres": {"variable": "prcp"},
+        "lowres": {"condition_variables": ["temp", "prcp"]},
+        "model": {"compute_dtype": dtype, "attention_backend": backend},
+        "training": {"seed": 0, "learning_rate": 5e-4, "optimizer": "adam", "with_ema": True,
+                     "ema_decay": 0.999, "weight_decay": 1e-6, "remat": remat,
+                     "lr_scheduler": "none", "early_stopping": False},
+    })
+
+
+def train_batches(torch, n: int, batch: int, domain, dev, seed: int) -> list:
+    """Seeded synthetic batches with the flagship's keys on the card: x, y,
+    cond_img (2 LR channels), lsm_cond and topo_cond (value, mask), sdf; the
+    full domain (589x789) padded to 608x800 as full-domain sampling pads it."""
+    from sbgm_danra_tpu_torch.evaluate.full_domain import pad_conditioning, pad_field, padded_dims
+
+    domain = tuple(domain)
+    hw = padded_dims(*domain) if domain == FULL_DOMAIN else domain
+    out = []
+    for i in range(n):
+        g = torch.Generator(dev).manual_seed(seed + i)
+        b = pad_conditioning({
+            "y": torch.randint(1, 5, (batch,), generator=g, device=dev),
+            "cond_img": torch.randn(batch, *domain, 2, generator=g, device=dev),
+            "lsm_cond": (torch.rand(batch, *domain, 2, generator=g, device=dev) > 0.5).float(),
+            "topo_cond": torch.randn(batch, *domain, 2, generator=g, device=dev),
+        }, hw)
+        b["x"] = torch.randn(batch, *hw, 1, generator=g, device=dev)
+        b["sdf"] = pad_field(torch.rand(batch, *domain, 1, generator=g, device=dev), hw)
+        out.append(b)
+    return out
 
 
 # Decoder chains (H, W, Cin, Cout) of one flagship UNet evaluation, blocks 0-3,
@@ -431,7 +568,7 @@ def main() -> int:
                    help="checkout whose sbgm_danra_tpu_torch is measured")
     p.add_argument("--label", default="change")
     p.add_argument("--paths", default="full_domain,serving",
-                   help="comma-separated: full_domain, serving, k1, k2")
+                   help="comma-separated: full_domain, serving, k1, k2, k2bwd, train")
     p.add_argument("--k1-sweep", action="store_true",
                    help="with k1: also time every launch shape the plan could choose")
     p.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"),
@@ -506,6 +643,27 @@ def main() -> int:
             row = dict(label=args.label, root=args.root, path="k2", card=smi, **row)
             print(json.dumps(row), flush=True)
             results.append(row)
+    if "k2bwd" in args.paths.split(","):
+        for row in k2bwd_rows(torch, dev, args.dtype):
+            row = dict(label=args.label, root=args.root, path="k2bwd", card=smi, **row)
+            print(json.dumps(row), flush=True)
+            results.append(row)
+    if "train" in args.paths.split(","):
+        import tempfile
+
+        from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
+
+        tmp = tempfile.mkdtemp()
+        for name, hw, batch, backend, remat in (
+                ("train_128", (128, 128), 128, "xla", False),  # configs/flagship_synth.yaml:67
+                ("train_full_domain", FULL_DOMAIN, 2, "pallas", True)):
+            pipe = TrainingPipeline(train_config(tmp, args.dtype, backend, remat), [],
+                                    device=dev)
+            batch_list = train_batches(torch, 1, batch, hw, dev, seed=60)
+            runs[name] = (f"one train step, {hw[0]}x{hw[1]}, batch {batch}, {args.dtype}, "
+                          f"attention {backend}, remat {remat}",
+                          functools.partial(pipe._train_step, pipe.state, batch_list[0],
+                                            torch.Generator(dev).manual_seed(0)))
     for path, (what, fn) in runs.items():
         torch.backends.cudnn.benchmark = False
         out = fn()  # warm-up
@@ -518,8 +676,10 @@ def main() -> int:
             walls.append(time.perf_counter() - t0)
         torch.cuda.reset_peak_memory_stats()
         prof = profile(torch, fn)
+        finite = (np.isfinite(out).all() if isinstance(out, np.ndarray)
+                  else all(bool(torch.isfinite(v).all()) for v in out.values()))
         row = dict(label=args.label, root=args.root, path=path, what=what, card=smi,
-                   wall_s=walls, finite=bool(np.isfinite(out).all()),
+                   wall_s=walls, finite=bool(finite),
                    peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **prof)
         print(json.dumps(row), flush=True)
         results.append(row)

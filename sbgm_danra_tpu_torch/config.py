@@ -3,9 +3,11 @@
 A copy of the parts of ``sbgm_danra_tpu/config.py`` that the port reads: the
 same section and field names, defaults, ``${env:VAR}`` interpolation, dot-key
 overrides and type coercion, and ``get_model_string`` from
-``sbgm_danra_tpu/utils/naming.py``. Only the fields that ``serve.py`` and
-``models/unet.py`` read are declared; every other section and key of a config
-is skipped, since the JAX package's reader is the one that checks them.
+``sbgm_danra_tpu/utils/naming.py``. Only the fields that ``serve.py``,
+``models/unet.py``, ``transforms.py`` (the statistics files behind the
+back-transforms) and ``training/`` read are declared; every other section and
+key of a config is skipped, since the JAX package's reader is the one that
+checks them.
 
 PyYAML is imported inside ``load_config`` and ``parse_override`` only, so that
 the serving path imports it only when it reads a file.
@@ -58,17 +60,31 @@ class ExperimentConfig:
 
 
 @dataclass
+class PathsConfig:
+    checkpoint_dir: str = "./checkpoints"
+    stats_load_dir: str = "./stats"
+
+
+@dataclass
 class HighresConfig:
     model: str = "DANRA"
     variable: str = "temp"
     data_size: Tuple[int, int] = (128, 128)
+    scaling_method: str = "zscore"
+    full_domain_dims: Tuple[int, int] = (589, 789)
+    cutout_domains: Optional[Tuple[int, int, int, int]] = (170, 350, 340, 520)
+    buffer_frac: float = 0.5
 
 
 @dataclass
 class LowresConfig:
     model: str = "ERA5"
     condition_variables: Tuple[str, ...] = ("temp",)
+    scaling_methods: Tuple[str, ...] = ("zscore",)
+    full_domain_dims: Tuple[int, int] = (589, 789)
+    cutout_domains: Optional[Tuple[int, int, int, int]] = None
     resize_factor: int = 1
+    buffer_frac: float = 0.5
 
 
 @dataclass
@@ -114,8 +130,55 @@ class StationaryConditionsConfig:
 
 
 @dataclass
+class TransformsConfig:
+    sample_w_cutouts: bool = True
+
+
+@dataclass
+class LRSchedulerParams:
+    factor: float = 0.5
+    patience: int = 5
+    threshold: float = 0.01
+    min_lr: float = 1e-6
+    step_size: int = 10
+    gamma: float = 0.1
+    t_max: int = 100
+    eta_min: float = 1e-6
+
+
+@dataclass
+class EarlyStoppingParams:
+    patience: int = 50
+    min_delta: float = 1e-4
+
+
+@dataclass
 class TrainingConfig:
+    """The fields of the JAX reader's training section that the port's trainer
+    and serving engine act on; the reader skips the others (fused steps, the
+    extreme sentinel, profiling, checkpoint cadence), which the port does not
+    do yet (ROADMAP)."""
+
+    seed: int = 42
+    learning_rate: float = 5e-4
+    lr_scheduler: str = "ReduceLROnPlateau"  # | StepLR | CosineAnnealing | none
+    lr_scheduler_params: LRSchedulerParams = field(default_factory=LRSchedulerParams)
+    weight_init: bool = True
+    with_ema: bool = True
+    load_ema: bool = False
+    ema_decay: float = 0.9999
+    weight_decay: float = 1e-6
+    epochs: int = 100
+    steps_per_epoch: Optional[int] = None
     loss_type: str = "sdfweighted"
+    sdf_weighted_loss: bool = True
+    optimizer: str = "adam"  # adam | adamw | sgd
+    momentum: float = 0.9
+    early_stopping: bool = True
+    early_stopping_params: EarlyStoppingParams = field(default_factory=EarlyStoppingParams)
+    detect_anomaly: bool = False
+    remat: bool = False
+    skip_nonfinite_updates: bool = False
 
 
 @dataclass
@@ -134,10 +197,12 @@ class EvaluationConfig:
 @dataclass
 class Config:
     experiment: ExperimentConfig = field(default_factory=ExperimentConfig)
+    paths: PathsConfig = field(default_factory=PathsConfig)
     highres: HighresConfig = field(default_factory=HighresConfig)
     lowres: LowresConfig = field(default_factory=LowresConfig)
     sampler: SamplerConfig = field(default_factory=SamplerConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    transforms: TransformsConfig = field(default_factory=TransformsConfig)
     stationary_conditions: StationaryConditionsConfig = field(
         default_factory=StationaryConditionsConfig
     )
@@ -188,6 +253,11 @@ def _from_mapping(cls, data: Mapping[str, Any]):
     hints = typing.get_type_hints(cls)
     names = {f.name for f in dataclasses.fields(cls)}
     return cls(**{k: _coerce(v, hints[k]) for k, v in data.items() if k in names})
+
+
+def from_dict(data: Mapping[str, Any]) -> Config:
+    """A nested dict of config sections -> typed Config."""
+    return _from_mapping(Config, data)
 
 
 def load_config(path: str, overrides: Optional[Mapping[str, Any]] = None) -> Config:

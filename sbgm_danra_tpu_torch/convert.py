@@ -14,8 +14,11 @@ Flax's inner ``BatchNorm_0`` level is dropped); the leaves map as:
 - BatchNorm ``mean`` / ``var`` -> ``running_mean`` / ``running_var``;
 - ``label_emb/embedding`` -> ``label_emb.weight``; the Fourier ``W`` buffers as is.
 
-Unknown or missing keys, and shape mismatches, raise. This module imports no
-JAX. The torch -> Flax direction lands with the checkpoint port.
+Unknown or missing keys, and shape mismatches, raise. A training checkpoint's
+tree may also hold ``ema_params`` (the EMA copy of ``params``, as
+``export_flax_checkpoint.py`` writes it): ``state_dicts_from_flax`` maps it
+onto a second state_dict with the same statistics and buffers. This module
+imports no JAX. The torch -> Flax direction is not ported yet.
 """
 
 from __future__ import annotations
@@ -105,7 +108,21 @@ def state_dict_from_flax(variables: Mapping, model: nn.Module) -> Dict[str, torc
     return out
 
 
+def state_dicts_from_flax(variables: Mapping, model: nn.Module):
+    """(params state_dict, EMA state_dict or None) from a tree that may hold
+    ``ema_params`` beside ``params``, ``batch_stats`` and ``buffers``."""
+    flat = flatten(variables) if any(isinstance(v, Mapping) for v in variables.values()) \
+        else dict(variables)
+    ema = {k[len("ema_"):]: v for k, v in flat.items() if k.startswith("ema_params/")}
+    base = {k: v for k, v in flat.items() if not k.startswith("ema_params/")}
+    params = state_dict_from_flax(base, model)
+    if not ema:
+        return params, None
+    shared = {k: v for k, v in base.items() if not k.startswith("params/")}
+    return params, state_dict_from_flax({**ema, **shared}, model)
+
+
 def load_flax_npz(path: str, model: nn.Module) -> nn.Module:
     """Load a bridged ``.npz`` of Flax variables into ``model`` (in place)."""
-    model.load_state_dict(state_dict_from_flax(load_npz(path), model))
+    model.load_state_dict(state_dicts_from_flax(load_npz(path), model)[0])
     return model

@@ -104,6 +104,15 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
+// The row's log-sum-exp in natural-log units, log sum_k exp(scale s_k): the
+// lazy max m is a raw score and p = exp(scale (s - m)), so it is scale m +
+// log l. Written only where the caller asks for it (the backward's input);
+// one lane of the row's quad stores it into lse [batch, heads, seq].
+__device__ __forceinline__ void write_lse(float* lse, int b, int h, int heads, int seq, int row,
+                                          float m, float den, float scale) {
+  lse[((int64_t)b * heads + h) * seq + row] = fmaf(m, scale, logf(den));
+}
+
 // Block shape of the tensor-core variant: 4 warps of 16 query rows each, with
 // kStages K/V tiles of 64 keys in shared memory.
 template <int D>
@@ -144,8 +153,8 @@ __global__ void __launch_bounds__(TcTile<D>::kThreads)
 flash_attention_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
                               const __nv_bfloat16* __restrict__ v,
-                              __nv_bfloat16* __restrict__ o, Strides st, int seq, int heads,
-                              float scale) {
+                              __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                              Strides st, int seq, int heads, float scale) {
   using T = TcTile<D>;
   constexpr int kLd = T::kLd;
   constexpr int kTile = kTcBlockN * kLd;   // elements of one staged K or V tile
@@ -307,8 +316,10 @@ flash_attention_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
     float den = l[r];
     den += __shfl_xor_sync(0xffffffffu, den, 1);
     den += __shfl_xor_sync(0xffffffffu, den, 2);
-    den = fmaxf(den, 1e-30f);
     const int row = q0 + warp * 16 + g + 8 * r;
+    // from the sum itself: a NaN row keeps a NaN lse (fmaxf would drop it)
+    if (lse != nullptr && tq == 0 && row < seq) write_lse(lse, b, h, heads, seq, row, m[r], den, scale);
+    den = fmaxf(den, 1e-30f);
     if (row < seq) {
 #pragma unroll
       for (int n = 0; n < kOTiles; ++n) {
@@ -343,8 +354,9 @@ struct Tf32Tile {
 template <int D>
 __global__ void __launch_bounds__(Tf32Tile<D>::kThreads, D == 32 ? 3 : 1)
 flash_attention_fwd_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
-                                const float* __restrict__ v, float* __restrict__ o, Strides st,
-                                int seq, int heads, float scale) {
+                                const float* __restrict__ v, float* __restrict__ o,
+                                float* __restrict__ lse, Strides st, int seq, int heads,
+                                float scale) {
   using T = Tf32Tile<D>;
   constexpr int kLd = T::kLd;
   constexpr int kBlockN = T::kBlockN;
@@ -535,8 +547,10 @@ flash_attention_fwd_kernel_tf32(const float* __restrict__ q, const float* __rest
     float den = l[r];
     den += __shfl_xor_sync(0xffffffffu, den, 1);
     den += __shfl_xor_sync(0xffffffffu, den, 2);
-    den = fmaxf(den, 1e-30f);
     const int row = q0 + warp * 16 + g + 8 * r;
+    // from the sum itself: a NaN row keeps a NaN lse (fmaxf would drop it)
+    if (lse != nullptr && tq == 0 && row < seq) write_lse(lse, b, h, heads, seq, row, m[r], den, scale);
+    den = fmaxf(den, 1e-30f);
     if (row < seq) {
 #pragma unroll
       for (int n = 0; n < kOTiles; ++n) {
@@ -553,11 +567,348 @@ flash_attention_fwd_kernel_tf32(const float* __restrict__ q, const float* __rest
 }
 
 // ---------------------------------------------------------------------------
+// backward: dq, dk, dv without the S x S matrices (FlashAttention-2's split)
+//
+// Replaces the VJP of pallas_flash_attention (pallas_attention.py _bwd), which
+// recomputes dense attention under jax.vjp and holds S x S scores. Here the
+// forward's log-sum-exp per row (lse) lets any block recompute its tile of
+// P = exp(scale q k^T - lse) exactly, so three kernels suffice and none holds
+// more than one 64 x 64 tile of scores:
+//   1. bwd_delta:  D_i = sum_d dO_id O_id (fp32), one warp per (b, s, h) row;
+//   2. bwd_dkdv:   one block per (64-key tile, b*h) walks every 64-row Q tile:
+//                  P and dP = dO V^T for the tile pair, dS = P (dP - D), then
+//                  dV += P^T dO and dK += dS^T Q scale in registers;
+//   3. bwd_dq:     one block per (64-row Q tile, b*h) walks every K/V tile
+//                  and sums dQ += dS K scale in registers.
+// Each output element is summed by one thread in a fixed order: no atomics,
+// and repeated calls are bit-identical. Keys and rows at or past S are zero
+// in shared memory and their P and dS are set to 0 (a select, so a NaN
+// elsewhere cannot leak into them); their gradients are not stored.
+//
+// What bounds it: 7 products of 2 S^2 D flops per (b, h) (dkdv recomputes S
+// and dP and does two more, dq recomputes both and does one), 1.5x the 5 that
+// a single-pass backward needs, and B H S^2 exponentials twice. This first
+// version does them as fp32 FMAs on the CUDA cores, for either input dtype
+// (inputs are widened to fp32 as they are staged): each thread owns a 4 x 4
+// sub-tile of the 64 x 64 score tile (rows 4 ty + i, keys tx + 16 j) and reads
+// Q/dO and K/V rows from shared memory 16 bytes at a time (row pitch D + 4
+// floats: eight consecutive rows fall on distinct bank quads), then owns one
+// key (dkdv) or one row (dq) and a quarter of D of the accumulators. It is
+// bound by shared-memory instruction throughput, not by the FMA rate; the tensor cores are
+// the next step (mma.sync as the forward).
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdTile = 64;              // query rows and keys per tile
+constexpr int kBwdLdP = kBwdTile + 4;     // pitch of the 64 x 64 P / dS tiles
+
+template <int D>
+struct BwdTile {
+  static constexpr int kLd = D + 4;      // fp32 row pitch of Q, dO, K, V tiles
+  static constexpr int kPart = D / 4;    // accumulator columns per thread
+  static constexpr int kRowFloats = kBwdTile * kLd;
+  // dkdv: K, V, Q, dO tiles, lse and delta of the Q tile, P and dS
+  static constexpr int kDkdvBytes = (4 * kRowFloats + 2 * kBwdTile + 2 * kBwdTile * kBwdLdP) * 4;
+  // dq: Q, dO, K, V tiles, lse and delta, dS transposed
+  static constexpr int kDqBytes = (4 * kRowFloats + 2 * kBwdTile + kBwdTile * kBwdLdP) * 4;
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void from_float(float& y, float x) { y = x; }
+__device__ __forceinline__ void from_float(__nv_bfloat16& y, float x) { y = __float2bfloat16(x); }
+
+// Rows r0 .. r0 + 63 of one (b, h) of a [*, seq, heads, D] tensor (row stride
+// `stride` elements, `src` at the head's first element) into dst[64][kLd] as
+// fp32; rows at or past seq are zero.
+template <int D, typename E>
+__device__ __forceinline__ void stage_tile(float* dst, const E* src, int64_t stride, int r0,
+                                           int seq) {
+  using T = BwdTile<D>;
+  for (int i = threadIdx.x; i < kBwdTile * D; i += kBwdThreads) {
+    const int r = i / D, d = i % D;
+    dst[r * T::kLd + d] = r0 + r < seq ? to_float(src[(int64_t)(r0 + r) * stride + d]) : 0.f;
+  }
+}
+
+// The thread's 4 x 4 sub-tile of a = X Y^T and c = U W^T for 64-row tiles
+// X, U (rows 4 ty + i) and Y, W (rows tx + 16 j), all [64][kLd].
+template <int D>
+__device__ __forceinline__ void two_products(const float* x, const float* y, const float* u,
+                                             const float* w, int ty, int tx, float (&a)[4][4],
+                                             float (&c)[4][4]) {
+  using T = BwdTile<D>;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[i][j] = c[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 xr[4], ur[4], yr[4], wr[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      xr[i] = *reinterpret_cast<const float4*>(x + (4 * ty + i) * T::kLd + d);
+      ur[i] = *reinterpret_cast<const float4*>(u + (4 * ty + i) * T::kLd + d);
+      yr[i] = *reinterpret_cast<const float4*>(y + (tx + 16 * i) * T::kLd + d);
+      wr[i] = *reinterpret_cast<const float4*>(w + (tx + 16 * i) * T::kLd + d);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        a[i][j] = fmaf(xr[i].x, yr[j].x, a[i][j]);
+        a[i][j] = fmaf(xr[i].y, yr[j].y, a[i][j]);
+        a[i][j] = fmaf(xr[i].z, yr[j].z, a[i][j]);
+        a[i][j] = fmaf(xr[i].w, yr[j].w, a[i][j]);
+        c[i][j] = fmaf(ur[i].x, wr[j].x, c[i][j]);
+        c[i][j] = fmaf(ur[i].y, wr[j].y, c[i][j]);
+        c[i][j] = fmaf(ur[i].z, wr[j].z, c[i][j]);
+        c[i][j] = fmaf(ur[i].w, wr[j].w, c[i][j]);
+      }
+  }
+}
+
+// acc[n] += sum_r coef[r * coef_pitch] * rows[r * kLd + n] for the kPart
+// columns starting at `rows`, over the 64 rows of a tile.
+template <int D>
+__device__ __forceinline__ void accumulate_rows(float (&acc)[BwdTile<D>::kPart], const float* coef,
+                                                int coef_pitch, const float* rows) {
+  using T = BwdTile<D>;
+#pragma unroll 4
+  for (int r = 0; r < kBwdTile; ++r) {
+    const float cr = coef[r * coef_pitch];
+#pragma unroll
+    for (int n = 0; n < T::kPart; n += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(rows + r * T::kLd + n);
+      acc[n] = fmaf(cr, v.x, acc[n]);
+      acc[n + 1] = fmaf(cr, v.y, acc[n + 1]);
+      acc[n + 2] = fmaf(cr, v.z, acc[n + 2]);
+      acc[n + 3] = fmaf(cr, v.w, acc[n + 3]);
+    }
+  }
+}
+
+// delta [batch, heads, seq] = rowwise sum of dO O, for contiguous
+// [batch, seq, heads, D] dO and O; one warp per row.
+template <int D, typename E>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_attention_bwd_delta_kernel(const E* __restrict__ o, const E* __restrict__ dout,
+                                 float* __restrict__ delta, int64_t rows, int seq, int heads) {
+  const int64_t row = (int64_t)blockIdx.x * (kBwdThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32)
+    acc = fmaf(to_float(dout[row * D + d]), to_float(o[row * D + d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {  // row = (b seq + s) heads + h
+    const int64_t h = row % heads, bs = row / heads;
+    const int64_t b = bs / seq, s = bs % seq;
+    delta[(b * heads + h) * seq + s] = acc;
+  }
+}
+
+// The tile pair's P and dS: P = exp(scale s - lse) where row and key are
+// below seq, else 0; dS = P (dP - delta), 0 where P is masked.
+__device__ __forceinline__ void probabilities(const float (&s)[4][4], const float (&dp)[4][4],
+                                              const float* lse2, const float* delta, int ty,
+                                              int tx, int r0, int c0, int seq, float c,
+                                              float (&p)[4][4], float (&ds)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * ty + i;
+    const bool row_ok = r0 + r < seq;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool ok = row_ok && c0 + tx + 16 * j < seq;
+      const float pr = exp2_approx(fmaf(s[i][j], c, -lse2[r]));
+      p[i][j] = ok ? pr : 0.f;
+      ds[i][j] = ok ? pr * (dp[i][j] - delta[r]) : 0.f;
+    }
+  }
+}
+
+template <int D, typename E>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_attention_bwd_dkdv_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                                const E* __restrict__ v, const E* __restrict__ dout,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                E* __restrict__ dk, E* __restrict__ dv, Strides st, int seq,
+                                int heads, float scale) {
+  using T = BwdTile<D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* k_s = reinterpret_cast<float*>(smem);
+  float* v_s = k_s + T::kRowFloats;
+  float* q_s = v_s + T::kRowFloats;
+  float* do_s = q_s + T::kRowFloats;
+  float* lse_s = do_s + T::kRowFloats;       // lse * log2(e)
+  float* delta_s = lse_s + kBwdTile;
+  float* p_s = delta_s + kBwdTile;           // [row][key]
+  float* ds_s = p_s + kBwdTile * kBwdLdP;    // [row][key]
+
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const int k0 = blockIdx.x * kBwdTile;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int key = threadIdx.x % kBwdTile, part = threadIdx.x / kBwdTile;  // accumulators
+  const int64_t o_row = (int64_t)heads * D;
+  const E* qg = q + b * st.qb + h * D;
+  const E* dog = dout + (int64_t)b * seq * o_row + h * D;
+  const float* lse_g = lse + ((int64_t)b * heads + h) * seq;
+  const float* delta_g = delta + ((int64_t)b * heads + h) * seq;
+  const float c = scale * kLog2e;
+
+  stage_tile<D>(k_s, k + b * st.kb + h * D, st.kr, k0, seq);
+  stage_tile<D>(v_s, v + b * st.vb + h * D, st.vr, k0, seq);
+  float dk_acc[T::kPart], dv_acc[T::kPart];
+#pragma unroll
+  for (int n = 0; n < T::kPart; ++n) dk_acc[n] = dv_acc[n] = 0.f;
+
+  for (int r0 = 0; r0 < seq; r0 += kBwdTile) {
+    __syncthreads();  // every thread is done with the previous Q tile
+    stage_tile<D>(q_s, qg, st.qr, r0, seq);
+    stage_tile<D>(do_s, dog, o_row, r0, seq);
+    for (int r = threadIdx.x; r < kBwdTile; r += kBwdThreads) {
+      const bool ok = r0 + r < seq;
+      lse_s[r] = ok ? lse_g[r0 + r] * kLog2e : 0.f;
+      delta_s[r] = ok ? delta_g[r0 + r] : 0.f;
+    }
+    __syncthreads();
+    float s[4][4], dp[4][4], p[4][4], ds[4][4];
+    two_products<D>(q_s, k_s, do_s, v_s, ty, tx, s, dp);
+    probabilities(s, dp, lse_s, delta_s, ty, tx, r0, k0, seq, c, p, ds);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        p_s[(4 * ty + i) * kBwdLdP + tx + 16 * j] = p[i][j];
+        ds_s[(4 * ty + i) * kBwdLdP + tx + 16 * j] = ds[i][j];
+      }
+    __syncthreads();
+    accumulate_rows<D>(dv_acc, p_s + key, kBwdLdP, do_s + part * T::kPart);
+    accumulate_rows<D>(dk_acc, ds_s + key, kBwdLdP, q_s + part * T::kPart);
+  }
+  if (k0 + key < seq) {
+    const int64_t at = ((int64_t)b * seq + k0 + key) * o_row + h * D + part * T::kPart;
+#pragma unroll
+    for (int n = 0; n < T::kPart; ++n) {
+      from_float(dk[at + n], dk_acc[n] * scale);
+      from_float(dv[at + n], dv_acc[n]);
+    }
+  }
+}
+
+template <int D, typename E>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_attention_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                              const E* __restrict__ v, const E* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              E* __restrict__ dq, Strides st, int seq, int heads, float scale) {
+  using T = BwdTile<D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);
+  float* do_s = q_s + T::kRowFloats;
+  float* k_s = do_s + T::kRowFloats;
+  float* v_s = k_s + T::kRowFloats;
+  float* lse_s = v_s + T::kRowFloats;
+  float* delta_s = lse_s + kBwdTile;
+  float* dst_s = delta_s + kBwdTile;  // dS transposed, [key][row]
+
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const int r0 = blockIdx.x * kBwdTile;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int row = threadIdx.x % kBwdTile, part = threadIdx.x / kBwdTile;
+  const int64_t o_row = (int64_t)heads * D;
+  const E* kg = k + b * st.kb + h * D;
+  const E* vg = v + b * st.vb + h * D;
+  const float* lse_g = lse + ((int64_t)b * heads + h) * seq;
+  const float* delta_g = delta + ((int64_t)b * heads + h) * seq;
+  const float c = scale * kLog2e;
+
+  stage_tile<D>(q_s, q + b * st.qb + h * D, st.qr, r0, seq);
+  stage_tile<D>(do_s, dout + (int64_t)b * seq * o_row + h * D, o_row, r0, seq);
+  for (int r = threadIdx.x; r < kBwdTile; r += kBwdThreads) {
+    const bool ok = r0 + r < seq;
+    lse_s[r] = ok ? lse_g[r0 + r] * kLog2e : 0.f;
+    delta_s[r] = ok ? delta_g[r0 + r] : 0.f;
+  }
+  float dq_acc[T::kPart];
+#pragma unroll
+  for (int n = 0; n < T::kPart; ++n) dq_acc[n] = 0.f;
+
+  for (int k0 = 0; k0 < seq; k0 += kBwdTile) {
+    __syncthreads();  // every thread is done with the previous K/V tile
+    stage_tile<D>(k_s, kg, st.kr, k0, seq);
+    stage_tile<D>(v_s, vg, st.vr, k0, seq);
+    __syncthreads();
+    float s[4][4], dp[4][4], p[4][4], ds[4][4];
+    two_products<D>(q_s, k_s, do_s, v_s, ty, tx, s, dp);
+    probabilities(s, dp, lse_s, delta_s, ty, tx, r0, k0, seq, c, p, ds);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dst_s[(tx + 16 * j) * kBwdLdP + 4 * ty + i] = ds[i][j];
+    __syncthreads();
+    accumulate_rows<D>(dq_acc, dst_s + row, kBwdLdP, k_s + part * T::kPart);
+  }
+  if (r0 + row < seq) {
+    const int64_t at = ((int64_t)b * seq + r0 + row) * o_row + h * D + part * T::kPart;
+#pragma unroll
+    for (int n = 0; n < T::kPart; ++n) from_float(dq[at + n], dq_acc[n] * scale);
+  }
+}
+
+template <int D, typename E>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const float* lse, void* dq, void* dk, void* dv, float* delta, Strides st,
+               int batch, int seq, int heads, float scale, cudaStream_t stream) {
+  using T = BwdTile<D>;
+  const int64_t rows = (int64_t)batch * seq * heads;
+  const int rows_per_block = kBwdThreads / 32;
+  flash_attention_bwd_delta_kernel<D, E>
+      <<<(unsigned)((rows + rows_per_block - 1) / rows_per_block), kBwdThreads, 0, stream>>>(
+          static_cast<const E*>(o), static_cast<const E*>(dout), delta, rows, seq, heads);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<D, E>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, T::kDkdvBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((seq + kBwdTile - 1) / kBwdTile, batch * heads);
+  flash_attention_bwd_dkdv_kernel<D, E><<<grid, kBwdThreads, T::kDkdvBytes, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
+      static_cast<const E*>(dout), lse, delta, static_cast<E*>(dk), static_cast<E*>(dv), st, seq,
+      heads, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<D, E>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, T::kDqBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_attention_bwd_dq_kernel<D, E><<<grid, kBwdThreads, T::kDqBytes, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
+      static_cast<const E*>(dout), lse, delta, static_cast<E*>(dq), st, seq, heads, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bwd_dim(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                   const float* lse, void* dq, void* dk, void* dv, float* delta, Strides st,
+                   int batch, int seq, int heads, int dtype, float scale, cudaStream_t s) {
+  if (dtype == 0)
+    return launch_bwd<D, float>(q, k, v, o, dout, lse, dq, dk, dv, delta, st, batch, seq, heads,
+                                scale, s);
+  if (dtype == 1)
+    return launch_bwd<D, __nv_bfloat16>(q, k, v, o, dout, lse, dq, dk, dv, delta, st, batch, seq,
+                                        heads, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
 // launches
 
 template <int D>
-int launch_fp32(const void* q, const void* k, const void* v, void* o, Strides st, int batch,
-                int seq, int heads, float scale, cudaStream_t stream) {
+int launch_fp32(const void* q, const void* k, const void* v, void* o, float* lse, Strides st,
+                int batch, int seq, int heads, float scale, cudaStream_t stream) {
   using T = Tf32Tile<D>;
   const cudaError_t attr = cudaFuncSetAttribute(flash_attention_fwd_kernel_tf32<D>,
                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -566,13 +917,13 @@ int launch_fp32(const void* q, const void* k, const void* v, void* o, Strides st
   const dim3 grid((seq + T::kBlockM - 1) / T::kBlockM, batch * heads);
   flash_attention_fwd_kernel_tf32<D><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), st, seq, heads, scale);
+      static_cast<float*>(o), lse, st, seq, heads, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_tc(const void* q, const void* k, const void* v, void* o, Strides st, int batch,
-              int seq, int heads, float scale, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, Strides st,
+              int batch, int seq, int heads, float scale, cudaStream_t stream) {
   using T = TcTile<D>;
   if (T::kSmemBytes > 48 * 1024) {  // above 48 KB only after opting in (per device)
     const cudaError_t attr = cudaFuncSetAttribute(flash_attention_fwd_kernel_tc<D>,
@@ -583,16 +934,16 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, Strides st, 
   const dim3 grid((seq + T::kBlockM - 1) / T::kBlockM, batch * heads);
   flash_attention_fwd_kernel_tc<D><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), st, seq, heads,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, st, seq, heads,
       scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_dim(const void* q, const void* k, const void* v, void* o, Strides st, int batch,
-               int seq, int heads, int dtype, float scale, cudaStream_t s) {
-  if (dtype == 0) return launch_fp32<D>(q, k, v, o, st, batch, seq, heads, scale, s);
-  if (dtype == 1) return launch_tc<D>(q, k, v, o, st, batch, seq, heads, scale, s);
+int launch_dim(const void* q, const void* k, const void* v, void* o, float* lse, Strides st,
+               int batch, int seq, int heads, int dtype, float scale, cudaStream_t s) {
+  if (dtype == 0) return launch_fp32<D>(q, k, v, o, lse, st, batch, seq, heads, scale, s);
+  if (dtype == 1) return launch_tc<D>(q, k, v, o, lse, st, batch, seq, heads, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -603,11 +954,38 @@ extern "C" {
 // q, k, v: device pointers to [batch, seq, heads, head_dim] arrays with unit
 // stride on head_dim and head stride head_dim; *_batch / *_row are their
 // element strides (multiples of 16 bytes, 16-B aligned pointers). o: a
-// contiguous [batch, seq, heads, head_dim] array. dtype 0 = float32 (3xTF32
-// tensor cores), 1 = bfloat16 (tensor cores); head_dim in {32, 64, 128}. Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// contiguous [batch, seq, heads, head_dim] array. lse: null, or a contiguous
+// float32 [batch, heads, seq] array that receives each row's log-sum-exp
+// log sum_k exp(scale q.k) for the backward. dtype 0 = float32 (3xTF32
+// tensor cores), 1 = bfloat16 (tensor cores); head_dim in {32, 64, 128}.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
 int sbgm_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                              long long q_batch, long long q_row, long long k_batch,
+                             long long k_row, long long v_batch, long long v_row, int batch,
+                             int seq, int heads, int head_dim, int dtype, float scale, void* lse,
+                             void* stream) {
+  if (batch <= 0 || seq <= 0 || heads <= 0 || batch * heads > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides st{q_batch, q_row, k_batch, k_row, v_batch, v_row};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  switch (head_dim) {
+    case 32: return launch_dim<32>(q, k, v, o, l, st, batch, seq, heads, dtype, scale, s);
+    case 64: return launch_dim<64>(q, k, v, o, l, st, batch, seq, heads, dtype, scale, s);
+    case 128: return launch_dim<128>(q, k, v, o, l, st, batch, seq, heads, dtype, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The backward of sbgm_flash_attention_fwd: q, k, v as there (same strides),
+// o the forward's output and dout its gradient (both contiguous [batch, seq,
+// heads, head_dim] in the same dtype), lse the forward's [batch, heads, seq]
+// log-sum-exp. dq, dk, dv: contiguous [batch, seq, heads, head_dim] outputs in
+// the inputs' dtype; delta: float32 [batch, heads, seq] scratch. Three kernels
+// on `stream`; returns the first launch error (0 on success).
+int sbgm_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                             const void* dout, const void* lse, void* dq, void* dk, void* dv,
+                             void* delta, long long q_batch, long long q_row, long long k_batch,
                              long long k_row, long long v_batch, long long v_row, int batch,
                              int seq, int heads, int head_dim, int dtype, float scale,
                              void* stream) {
@@ -615,10 +993,18 @@ int sbgm_flash_attention_fwd(const void* q, const void* k, const void* v, void* 
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides st{q_batch, q_row, k_batch, k_row, v_batch, v_row};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
   switch (head_dim) {
-    case 32: return launch_dim<32>(q, k, v, o, st, batch, seq, heads, dtype, scale, s);
-    case 64: return launch_dim<64>(q, k, v, o, st, batch, seq, heads, dtype, scale, s);
-    case 128: return launch_dim<128>(q, k, v, o, st, batch, seq, heads, dtype, scale, s);
+    case 32:
+      return launch_bwd_dim<32>(q, k, v, o, dout, l, dq, dk, dv, dl, st, batch, seq, heads,
+                                dtype, scale, s);
+    case 64:
+      return launch_bwd_dim<64>(q, k, v, o, dout, l, dq, dk, dv, dl, st, batch, seq, heads,
+                                dtype, scale, s);
+    case 128:
+      return launch_bwd_dim<128>(q, k, v, o, dout, l, dq, dk, dv, dl, st, batch, seq, heads,
+                                 dtype, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

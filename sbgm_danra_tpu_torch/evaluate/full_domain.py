@@ -6,7 +6,8 @@ geo value channels are edge-replicated; the CFG mask channels are
 zero-padded, so that padding does not claim conditioning outside the domain.
 At 608x800 decoder block 1 attends over 76x100 = 7,600 tokens, which sends
 that layer to the CUDA flash kernel when the model's attention backend is
-'pallas'.
+'pallas'. A float32 model (``compute_dtype="float32"``) samples with TF32 off
+(``precision.exact_fp32``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sbgm_danra_tpu_torch.precision import exact_fp32
 from sbgm_danra_tpu_torch.sampling.samplers import Rng, SamplerConfig, get_sampler
 from sbgm_danra_tpu_torch.sde import VESDE
 
@@ -68,16 +70,18 @@ def sample_full_domain(
     sde=VESDE(),
     config: SamplerConfig = SamplerConfig(),
     sampler: str = "pc_sampler",
+    compute_dtype: Optional[str] = None,
 ) -> np.ndarray:
     """Generate full-domain HR fields; returns (batch, H, W) cropped to the domain.
 
     Noise is drawn on ``rng``'s device, which must be the device of ``cond``
-    and of the model behind ``score_fn``.
+    and of the model behind ``score_fn``. ``compute_dtype`` is the model's
+    (``ModelSpec.compute_dtype``): "float32" turns TF32 off for the sampler's call.
     """
     target = padded_dims(*domain_hw)
     padded = pad_conditioning(cond, target)
     sampler_fn = get_sampler(sampler)
     shape = (batch, target[0], target[1], 1)
-    with torch.inference_mode():
+    with exact_fp32(compute_dtype), torch.inference_mode():
         out = sampler_fn(score_fn, rng, shape, sde, config, cond=padded)
     return out[:, : domain_hw[0], : domain_hw[1], 0].float().cpu().numpy()

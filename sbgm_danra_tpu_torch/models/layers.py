@@ -76,11 +76,20 @@ class GroupNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm (eps 1e-5) on running statistics, fp32 math.
+    """Flax ``nn.BatchNorm`` (eps 1e-5, momentum 0.9) in fp32, result in ``out_dtype``.
 
-    The running-statistics update is training work (ROADMAP F2) and waits for
-    the training port; there is no train mode here.
+    ``train=False`` normalises with the running statistics. ``train=True``
+    normalises with the batch's mean and biased variance, taken in one pass
+    as Flax takes them (E[x^2] - mean^2, clamped at 0), and records them in
+    ``batch_stats`` (detached) without touching the running statistics: the
+    train step folds them in once, after the backward, with
+    ``update_running_stats`` (ra = 0.9 ra + 0.1 batch, the biased variance
+    as Flax uses; ``F.batch_norm`` would take the unbiased one). A remat
+    recompute of the forward records the same statistics again, and nothing
+    is updated twice.
     """
+
+    momentum = 0.9  # Flax's: the running statistics keep 0.9 of themselves
 
     def __init__(self, channels: int, out_dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -89,11 +98,30 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.batch_stats = None  # (mean, var) of the last train-mode forward
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
-                         self.bias, False, 0.0, 1e-5)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
+                             self.bias, False, 0.0, 1e-5)
+            return y.to(self.out_dtype)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        self.batch_stats = (mean.detach(), var.detach())
+        mul = torch.rsqrt(var + 1e-5) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(self.out_dtype)
+
+    @torch.no_grad()
+    def update_running_stats(self) -> None:
+        """Fold the recorded batch statistics into the running ones, once."""
+        if self.batch_stats is None:
+            raise RuntimeError("no train-mode forward recorded batch statistics")
+        mean, var = self.batch_stats
+        self.running_mean.copy_(self.momentum * self.running_mean + (1 - self.momentum) * mean)
+        self.running_var.copy_(self.momentum * self.running_var + (1 - self.momentum) * var)
+        self.batch_stats = None
 
 
 class LayerNorm(nn.Module):

@@ -2,7 +2,8 @@
 
 NCHW tensors (channels_last in memory inside the UNet). Padding follows the
 JAX package, which reproduces torch's geometry: 3x3 convs pad (1, 1) at every
-stride, the 1x1 downsample pads nothing. BatchNorm runs on running statistics.
+stride, the 1x1 downsample pads nothing. BatchNorm runs on running statistics,
+or with ``train=True`` on the batch's (``layers.BatchNorm``).
 """
 
 from __future__ import annotations
@@ -32,10 +33,10 @@ class BasicBlock(nn.Module):
         else:
             self.down_conv = self.down_bn = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        identity = x if self.down_conv is None else self.down_bn(self.down_conv(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x), train))
+        out = self.bn2(self.conv2(out), train)
+        identity = x if self.down_conv is None else self.down_bn(self.down_conv(x), train)
         return F.relu(out + identity)
 
 
@@ -51,3 +52,8 @@ class ResNetStage(nn.Sequential):
                 BasicBlock(in_features if i == 0 else features, features,
                            stride if i == 0 else 1, dtype),
             )
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        for block in self:
+            x = block(x, train)
+        return x

@@ -11,7 +11,15 @@ The public layout is NHWC, as in JAX. Inside, the NHWC input is viewed as
 NCHW once (a channels_last tensor, so no copy) and the result viewed back once.
 The decoder's conv3x3 -> GroupNorm chains run through K1
 (``ops/fused_conv_gn.py``): on the card its CUDA kernels, on the CPU their
-plain version.
+plain version. ``forward(train=True)`` is the training forward: BatchNorm on
+the batch's statistics (recorded for the train step, ``layers.BatchNorm``),
+and the decoder's chains through ``reference_chain``, plain differentiable
+ops. That is the JAX package's own route for training: it trains through
+plain ``nn.Conv`` + GroupNorm, and its Pallas kernel has no VJP
+(``sbgm_danra_tpu/ops/fused_conv_gn.py:17-19``), so K1 has no backward here
+either. The route follows the explicit ``train`` flag, never
+``torch.is_grad_enabled()``, so that a remat recompute takes the route of the
+forward it repeats; evaluation and sampling (``train=False``) keep K1.
 ``stem_impl``, ``fuse_upsample`` and ``fuse_head`` are accepted for
 ``ModelSpec`` parity: they are TPU lowerings of the same math, so every value
 computes the one unfused chain.
@@ -38,7 +46,7 @@ from sbgm_danra_tpu_torch.models.layers import (
     init_like_flax,
 )
 from sbgm_danra_tpu_torch.models.resnet import ResNetStage
-from sbgm_danra_tpu_torch.ops.fused_conv_gn import conv3x3_gn_relu
+from sbgm_danra_tpu_torch.ops.fused_conv_gn import conv3x3_gn_relu, reference_chain
 from sbgm_danra_tpu_torch.ops.stem_conv import conv8x8s2
 from sbgm_danra_tpu_torch.ops.upsample import upsample2x_bilinear
 from sbgm_danra_tpu_torch.sde import VESDE
@@ -109,7 +117,8 @@ class Encoder(nn.Module):
             h = _nchw(getattr(self, f"attn{idx}")(_nhwc(h)))
         return h
 
-    def forward(self, x, t, y=None, cond_img=None, lsm_cond=None, topo_cond=None):
+    def forward(self, x, t, y=None, cond_img=None, lsm_cond=None, topo_cond=None,
+                train: bool = False):
         parts = [x] + [c for c in (lsm_cond, topo_cond, cond_img) if c is not None]
         x = torch.cat(parts, dim=-1) if len(parts) > 1 else x
         temb = self.time_embed(t)
@@ -119,9 +128,9 @@ class Encoder(nn.Module):
         fmaps = []
         h = self.conv1(_nchw(x.to(self.dtype)))
         fmaps.append(self._stage_out(h, temb, 0))
-        h = torch.relu(self.bn1(self.conv2(fmaps[-1])))
+        h = torch.relu(self.bn1(self.conv2(fmaps[-1]), train))
         for i in range(4):
-            h = getattr(self, f"layer{i + 1}")(h)
+            h = getattr(self, f"layer{i + 1}")(h, train)
             h = self._stage_out(h, temb, i + 1)
             fmaps.append(h)
         return tuple(fmaps)
@@ -178,28 +187,31 @@ class DecoderBlock(nn.Module):
             if compute_attn else None
         )
 
-    def _conv_norm(self, x: torch.Tensor, conv: Conv2d, norm: Optional[GroupNorm]) -> torch.Tensor:
+    def _conv_norm(self, x: torch.Tensor, conv: Conv2d, norm: Optional[GroupNorm],
+                   train: bool = False) -> torch.Tensor:
         """NHWC ``x`` -> conv -> norm -> NCHW. A conv followed by a norm is one K1
         call without activation: the same function as the two modules, with
-        their parameters."""
+        their parameters; in training its plain, differentiable version."""
         if norm is None:
             return conv(_nchw(x))
         c = conv.out_channels
         gamma = norm.weight if norm.weight is not None else torch.ones(c, device=x.device)
         beta = norm.bias if norm.bias is not None else torch.zeros(c, device=x.device)
-        out = conv3x3_gn_relu(x.to(conv.compute_dtype), conv.weight.permute(2, 3, 1, 0),
-                              conv.bias, gamma, beta, groups=norm.num_groups, activation=False)
+        chain = reference_chain if train else conv3x3_gn_relu
+        out = chain(x.to(conv.compute_dtype), conv.weight.permute(2, 3, 1, 0),
+                    conv.bias, gamma, beta, groups=norm.num_groups, activation=False)
         return _nchw(out)
 
     def forward(self, fmap: torch.Tensor, skip: Optional[torch.Tensor] = None,
-                t: Optional[torch.Tensor] = None) -> torch.Tensor:
+                t: Optional[torch.Tensor] = None, train: bool = False) -> torch.Tensor:
         if self.use_resize_conv:
-            x = self._conv_norm(upsample2x_bilinear(_nhwc(fmap)), self.conv_up, self.norm1)
+            x = self._conv_norm(upsample2x_bilinear(_nhwc(fmap)), self.conv_up, self.norm1,
+                                train)
         else:
             x = self.transpose(fmap)
             if self.norm1 is not None:
                 x = self.norm1(x)
-        x = self._conv_norm(_nhwc(x), self.conv, self.norm2)
+        x = self._conv_norm(_nhwc(x), self.conv, self.norm2, train)
         if skip is not None:
             if skip.shape != x.shape:
                 raise ValueError(f"skip shape {tuple(skip.shape)} must match {tuple(x.shape)}")
@@ -249,14 +261,15 @@ class Decoder(nn.Module):
         self.final = DecoderBlock(in_ch, output_channels, activation="identity",
                                   compute_attn=False, norm="none", **common)
 
-    def forward(self, fmaps: Sequence[torch.Tensor], t: Optional[torch.Tensor] = None):
+    def forward(self, fmaps: Sequence[torch.Tensor], t: Optional[torch.Tensor] = None,
+                train: bool = False):
         if len(fmaps) != self.n_blocks + 1:
             raise ValueError(f"Decoder expected {self.n_blocks + 1} feature maps, got {len(fmaps)}")
         rev = list(reversed(fmaps))
         out = rev[0]
         for i in range(self.n_blocks):
-            out = getattr(self, f"block{i}")(out, rev[i + 1], t)
-        return self.final(out, None, None)
+            out = getattr(self, f"block{i}")(out, rev[i + 1], t, train)
+        return self.final(out, None, None, train)
 
 
 class ScoreUNet(nn.Module):
@@ -269,12 +282,10 @@ class ScoreUNet(nn.Module):
 
     def forward(self, x, t, y=None, cond_img=None, lsm_cond=None, topo_cond=None,
                 train: bool = False):
-        if train:
-            raise NotImplementedError(
-                "training mode (BatchNorm statistics) lands with the training port")
         t = torch.as_tensor(t, dtype=torch.float32, device=x.device)
-        fmaps = self.encoder(x, t, y=y, cond_img=cond_img, lsm_cond=lsm_cond, topo_cond=topo_cond)
-        score = _nhwc(self.decoder(fmaps, t=t))
+        fmaps = self.encoder(x, t, y=y, cond_img=cond_img, lsm_cond=lsm_cond, topo_cond=topo_cond,
+                             train=train)
+        score = _nhwc(self.decoder(fmaps, t=t, train=train))
         std = self.sde.marginal_prob_std(t).reshape(-1, 1, 1, 1)
         return (score.float() / std).to(x.dtype)
 

@@ -1,34 +1,39 @@
-"""Hand-written CUDA flash attention (forward) for Hopper, and its plain version.
+"""Hand-written CUDA flash attention (forward and backward) for Hopper, and its plain versions.
 
 Counterpart of ``sbgm_danra_tpu/ops/pallas_attention.py`` (the Pallas TPU
-kernel ``pallas_flash_attention``). The kernel source is
-``sbgm_danra_tpu_torch/csrc/flash_attention.cu``; its header comment gives the
+kernel ``pallas_flash_attention`` and its custom VJP). The kernel source is
+``sbgm_danra_tpu_torch/csrc/flash_attention.cu``; its comments give the
 design and what bounds it on the card. ``ops/_nvcc.py`` compiles it with
-``nvcc`` for ``sm_90a`` into a shared library with a plain C entry point, at
+``nvcc`` for ``sm_90a`` into a shared library with plain C entry points, at
 first use, and loads it with ``ctypes``.
 
-- ``flash_attention_cuda``: the kernel's entry point. CUDA tensors only; it
-  raises on anything else, and raises if the build or the launch fails. A
-  bfloat16 call runs the bf16 tensor-core variant (``tc_bf16``), a float32
-  call the 3xTF32 tensor-core variant (``fp32``), which keeps fp32's accuracy.
+- ``flash_attention_cuda``: the kernel's entry point, differentiable. CUDA
+  tensors only; it raises on anything else, and raises if the build or a
+  launch fails. A bfloat16 call runs the bf16 tensor-core variant
+  (``tc_bf16``), a float32 call the 3xTF32 tensor-core variant (``fp32``),
+  which keeps fp32's accuracy. When autograd needs the gradient the forward
+  also writes each row's log-sum-exp, and the backward launches the three
+  backward kernels (delta, dk/dv, dq) on the saved q, k, v, output and
+  log-sum-exp: the same gradients as the JAX VJP's dense recomputation,
+  without the S x S matrices.
 - ``kernel_layout``: the wrapper's checks as a pure function of shapes,
   strides, dtypes and addresses: the variant, the head dim the kernel is built
   for and the strides it is handed, or an error.
 - ``flash_attention_reference``: dense softmax(q k^T / sqrt(D)) v in fp32, the
-  plain version the CPU tests and the card comparison use.
-- ``launches``: how many times the kernel was launched in this process;
-  ``launches_by_variant`` the same by variant.
+  plain version the CPU tests and the card comparison use;
+  ``attention_lse`` the plain log-sum-exp and ``flash_attention_bwd_reference``
+  the plain backward (dense, fp32), which the CPU tests hold against
+  ``jax.grad`` of the Pallas kernel and the card holds the kernels against.
+- ``launches`` / ``launches_by_variant``: forward launches in this process;
+  ``bwd_launches`` / ``bwd_launches_by_variant`` backward calls (each one
+  launches the three backward kernels).
 
 q, k and v may be strided views, as the chunks of a packed QKV projection
-are: the kernel takes each one's batch and row strides. It needs a unit
+are: the kernels take each one's batch and row strides. They need a unit
 stride on D and the heads of a row packed (head stride D); rows must be
-16-byte aligned, since both variants copy them 16 bytes at a time. A head dim
+16-byte aligned, since the forward copies them 16 bytes at a time. A head dim
 that is padded up to a supported one is copied anyway, so any layout is taken
-there. The output is a fresh contiguous [B, S, H, D].
-
-Gradient: not yet. The JAX kernel's VJP recomputes dense attention
-(pallas_attention.py:143-146); the port's backward lands with training, and
-until then a backward through the kernel raises.
+there. The output and the gradients are fresh contiguous [B, S, H, D].
 """
 
 from __future__ import annotations
@@ -51,6 +56,8 @@ _MAX_GRID_Y = 65535  # batch * heads is the grid's y dimension
 
 launches = 0
 launches_by_variant = {name: 0 for name in VARIANTS.values()}
+bwd_launches = 0
+bwd_launches_by_variant = {name: 0 for name in VARIANTS.values()}
 
 
 class KernelLayout(NamedTuple):
@@ -69,9 +76,14 @@ def build_library() -> _nvcc.BuiltLibrary:
     built.lib.sbgm_flash_attention_fwd.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         *[ctypes.c_longlong] * 6,
-        *[ctypes.c_int] * 5, ctypes.c_float, ctypes.c_void_p,
+        *[ctypes.c_int] * 5, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
     ]
     built.lib.sbgm_flash_attention_fwd.restype = ctypes.c_int
+    built.lib.sbgm_flash_attention_bwd.argtypes = [
+        *[ctypes.c_void_p] * 10, *[ctypes.c_longlong] * 6,
+        *[ctypes.c_int] * 5, ctypes.c_float, ctypes.c_void_p,
+    ]
+    built.lib.sbgm_flash_attention_bwd.restype = ctypes.c_int
     return built
 
 
@@ -113,8 +125,7 @@ def kernel_layout(shapes, strides, dtypes, addresses) -> KernelLayout:
     return KernelLayout(VARIANTS[dtype], d, False, tuple((st[0], st[1]) for st in strides))
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    global launches
+def _checked_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> KernelLayout:
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
             where = x.device if isinstance(x, torch.Tensor) else type(x).__name__
@@ -125,39 +136,88 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         if x.device != q.device:
             raise ValueError(f"q, k, v must share one [B, S, H, D] shape, dtype and device; "
                              f"{name} is on {x.device}, q on {q.device}")
-    layout = kernel_layout(*zip(*((x.shape, x.stride(), x.dtype, x.data_ptr())
-                                  for x in (q, k, v))))
+    return kernel_layout(*zip(*((x.shape, x.stride(), x.dtype, x.data_ptr())
+                                for x in (q, k, v))))
+
+
+def _pad_d(tensors, dp: int):
+    """Zero columns change no score and give zero output and gradient columns."""
+    return [F.pad(x, (0, dp - x.shape[-1])) for x in tensors]
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool = False):
+    """The forward kernel: (output, lse [B, H, S] fp32 or None)."""
+    global launches
+    layout = _checked_layout(q, k, v)
     b, s, h, d = q.shape
     dp = layout.head_dim
     if layout.padded:
-        # zero columns change no score and give zero output columns
-        q, k, v = (F.pad(x, (0, dp - d)) for x in (q, k, v))
+        q, k, v = _pad_d((q, k, v), dp)
     out = torch.empty((b, s, h, dp), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
     built = build_library()
     with torch.cuda.device(q.device):
         rc = built.lib.sbgm_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *(st for pair in layout.strides for st in pair),
             b, s, h, dp, _DTYPE_CODES[q.dtype], ctypes.c_float(1.0 / math.sqrt(d)),
+            None if lse is None else lse.data_ptr(),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     _nvcc.check_launch(built, rc, "flash attention")
     launches += 1
     launches_by_variant[layout.variant] += 1
-    return out[..., :d].contiguous() if layout.padded else out
+    return (out[..., :d].contiguous() if layout.padded else out), lse
+
+
+def _launch_bwd(q, k, v, out, dout, lse):
+    """The backward kernels: (dq, dk, dv), contiguous [B, S, H, D] in q's dtype."""
+    global bwd_launches
+    layout = _checked_layout(q, k, v)
+    b, s, h, d = q.shape
+    for name, x, dtype in (("out", out, q.dtype), ("dout", dout, q.dtype),
+                           ("lse", lse, torch.float32)):
+        want = (b, h, s) if name == "lse" else (b, s, h, d)
+        if (x.device != q.device or x.dtype != dtype or tuple(x.shape) != want
+                or not x.is_contiguous()):
+            raise ValueError(f"flash attention backward: {name} must be a contiguous {dtype} "
+                             f"{list(want)} on {q.device}; got {x.dtype} {list(x.shape)} on "
+                             f"{x.device}")
+    dp = layout.head_dim
+    if layout.padded:
+        q, k, v, out, dout = _pad_d((q, k, v, out, dout), dp)
+    grads = torch.empty((3, b, s, h, dp), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    built = build_library()
+    with torch.cuda.device(q.device):
+        rc = built.lib.sbgm_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), grads[0].data_ptr(), grads[1].data_ptr(), grads[2].data_ptr(),
+            delta.data_ptr(), *(st for pair in layout.strides for st in pair),
+            b, s, h, dp, _DTYPE_CODES[q.dtype], ctypes.c_float(1.0 / math.sqrt(d)),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    _nvcc.check_launch(built, rc, "flash attention backward")
+    bwd_launches += 1
+    bwd_launches_by_variant[layout.variant] += 1
+    if layout.padded:
+        return tuple(g[..., :d].contiguous() for g in grads)
+    return tuple(grads)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v):
-        return _launch(q, k, v)
+        need_grad = any(ctx.needs_input_grad)
+        out, lse = _launch(q, k, v, with_lse=need_grad)
+        if need_grad:
+            ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "the CUDA flash-attention kernel has no backward yet; it lands with the "
-            "training port (ROADMAP queue 2, K2 backward)"
-        )
+        q, k, v, out, lse = ctx.saved_tensors
+        return _launch_bwd(q, k, v, out, grad.contiguous(), lse)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -172,3 +232,29 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor)
     scores = torch.einsum("bqhd,bkhd->bhqk", qf * (1.0 / math.sqrt(d)), kf)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
+
+
+def attention_lse(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Each row's log-sum-exp log sum_k exp(q.k / sqrt(D)), [B, H, S] fp32:
+    the plain version of the forward kernel's lse output."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float() * (1.0 / math.sqrt(q.shape[-1])),
+                          k.float())
+    return torch.logsumexp(scores, dim=-1)
+
+
+def flash_attention_bwd_reference(q, k, v, out, dout, lse):
+    """The plain backward: dense, in fp32, from the saved q, k, v, output and
+    lse (as the kernels take them); returns (dq, dk, dv) in q's dtype.
+
+    P = exp(q k^T scale - lse), dV = P^T dO, dP = dO V^T, D = rowsum(dO O),
+    dS = P (dP - D), dQ = dS K scale, dK = dS^T Q scale."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, of, gf = (x.float() for x in (q, k, v, out, dout))
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf * scale, kf) - lse.float()[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    delta = (gf * of).sum(-1).permute(0, 2, 1)[..., None]  # [B, H, S, 1]
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)

@@ -2,13 +2,14 @@
 
 Every method takes a tensor or a Python float and returns a float32 tensor on
 the input's device; the arithmetic follows the JAX package's order of
-operations so that float32 results agree to the last bits. ``dsm_loss`` and
-``sdf_weights`` come with the training port.
+operations so that float32 results agree to the last bits. ``sdf_weights``
+and ``dsm_loss`` are the training loss (``sbgm_danra_tpu/sde.py:152-206``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
 import torch
 
@@ -114,3 +115,49 @@ def edm_sigma_schedule(
     smax, smin = _f32(sigma_max), _f32(sigma_min)
     return (smax**inv_rho + i * (smin**inv_rho - smax**inv_rho)) ** rho
 
+
+
+def sdf_weights(sdf: Optional[torch.Tensor], like: torch.Tensor, max_land_weight: float = 1.0,
+                min_sea_weight: float = 0.5) -> torch.Tensor:
+    """Loss weights from the normalised signed-distance field:
+    sigmoid(sdf) (max_land - min_sea) + min_sea; ones when no SDF is given."""
+    if sdf is None:
+        return torch.ones_like(like)
+    return torch.sigmoid(sdf) * (max_land_weight - min_sea_weight) + min_sea_weight
+
+
+def dsm_loss(
+    score_fn: Callable[..., torch.Tensor],
+    x: torch.Tensor,
+    t: Optional[torch.Tensor] = None,
+    z: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    sde=VESDE(),
+    t_eps: float = 1e-3,
+    sdf: Optional[torch.Tensor] = None,
+    max_land_weight: float = 1.0,
+    min_sea_weight: float = 0.5,
+    **cond,
+) -> torch.Tensor:
+    """Denoising score-matching loss on the clean NHWC target ``x``.
+
+    ``t`` [B] (U(t_eps, 1)) and ``z`` (N(0, 1), x's shape and dtype) are drawn
+    on ``generator`` where they are not given; the tests hand both packages the
+    same draws. x_t = m(t) x + std(t) z; the loss is the mean over the batch of
+    the sum over H, W and C of w (score std + z)^2, with w = ``sdf_weights``.
+    ``cond`` goes to ``score_fn(x_t, t, **cond)``.
+    """
+    b = x.shape[0]
+    if t is None:
+        t = torch.rand((b,), generator=generator, device=x.device, dtype=torch.float32)
+        t = t * (1.0 - t_eps) + t_eps
+    if z is None:
+        z = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    std = sde.marginal_prob_std(t)
+    mean_coeff = sde.marginal_prob_mean_coeff(t)
+    bshape = (b,) + (1,) * (x.dim() - 1)
+    x_t = mean_coeff.reshape(bshape) * x + std.reshape(bshape) * z
+    score = score_fn(x_t, t, **cond)
+    w = sdf_weights(sdf, x, max_land_weight, min_sea_weight)
+    sq = w * (score * std.reshape(bshape) + z) ** 2
+    return torch.mean(torch.sum(sq, dim=tuple(range(1, x.dim()))))

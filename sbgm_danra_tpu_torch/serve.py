@@ -20,9 +20,15 @@ dispatch shape never changes, and on CUDA the engine sets
 The engine's settings are a plain dataclass (``ServeSettings``), so the serving
 path imports nothing of the JAX package; ``settings_from_config`` and
 ``main`` read the repo's YAML configs through the port's own reader
-(``sbgm_danra_tpu_torch/config.py``). There are no back-transforms yet
-(``transforms.py`` is not ported): like the JAX engine when its statistics
-are missing, the engine returns fields in normalized space and logs that once.
+(``sbgm_danra_tpu_torch/config.py``). As the JAX engine does
+(``sbgm_danra_tpu/serve.py:63-65``, ``:188-189``), the settings carry the
+back-transform of the generated field, built from the statistics files
+(``transforms.back_transforms_for_config``), and ``generate`` answers in
+physical units through it; where the statistics are missing it warns, and the
+fields stay in normalised space. With ``load_ema`` (``training.load_ema``) the
+engine loads the EMA weights of a training checkpoint: the port's own
+(``training/checkpointing.py``) or a bridged ``.npz`` holding ``ema_params/``.
+An fp32 model serves with TF32 off (``precision.exact_fp32``).
 """
 
 from __future__ import annotations
@@ -41,8 +47,10 @@ import torch
 
 from sbgm_danra_tpu_torch.config import get_model_string, load_config, parse_override
 from sbgm_danra_tpu_torch.models.unet import ModelSpec, build_score_model, model_spec_from_config
+from sbgm_danra_tpu_torch.precision import exact_fp32
 from sbgm_danra_tpu_torch.sampling.samplers import SamplerConfig, get_sampler, pc_sampler
 from sbgm_danra_tpu_torch.sde import VESDE
+from sbgm_danra_tpu_torch.transforms import Transform, back_transforms_for_config
 
 logger = logging.getLogger(__name__)
 
@@ -58,6 +66,8 @@ class ServeSettings:
     n_lr: int  # LR condition channels
     model_string: str
     spread_calibration: Optional[float] = None
+    back_transform: Optional[Transform] = None  # normalised -> physical units
+    load_ema: bool = False
 
 
 # configs/flagship_synth.yaml as the config readers make it (CPU tests hold
@@ -73,6 +83,7 @@ FLAGSHIP_SYNTH = ServeSettings(
         "flagship_synth__HR_prcp_DANRA__SIZE_128x128__LR_temp_prcp_ERA5__"
         "LOSS_sdfweighted__HEADS_4__TIMESTEPS_25"
     ),
+    load_ema=True,
 )
 
 
@@ -96,6 +107,8 @@ def settings_from_config(cfg) -> ServeSettings:
         n_lr=len(cfg.lowres.condition_variables or ()),
         model_string=get_model_string(cfg),
         spread_calibration=cfg.evaluation.spread_calibration,
+        back_transform=back_transforms_for_config(cfg).get("generated"),
+        load_ema=cfg.training.load_ema,
     )
 
 
@@ -104,15 +117,30 @@ def member_seed(seed: int, member: int) -> int:
     return int(np.random.SeedSequence([seed, member]).generate_state(1, np.uint64)[0])
 
 
-def load_state_dict(source: Union[str, Mapping], model: torch.nn.Module) -> Mapping:
-    """A state_dict as given, or loaded from a ``torch.save`` file or a bridged Flax ``.npz``."""
+def load_state_dict(source: Union[str, Mapping], model: torch.nn.Module,
+                    use_ema: bool = False) -> Mapping:
+    """The weights to serve: a state_dict as given, or loaded from a file.
+
+    A file is a ``torch.save`` state_dict, a training checkpoint of the port
+    (``training/checkpointing.py``; its EMA weights with ``use_ema``) or a
+    bridged Flax ``.npz`` (``ema_params/`` in place of ``params/`` with
+    ``use_ema``). ``use_ema`` on a checkpoint without EMA weights raises.
+    """
     if not isinstance(source, str):
         return source
     if source.endswith(".npz"):
-        from sbgm_danra_tpu_torch.convert import load_npz, state_dict_from_flax
+        from sbgm_danra_tpu_torch.convert import load_npz, state_dicts_from_flax
 
-        return state_dict_from_flax(load_npz(source), model)
-    return torch.load(source, map_location="cpu", weights_only=True)
+        params, ema = state_dicts_from_flax(load_npz(source), model)
+        if use_ema and ema is None:
+            raise KeyError(f"{source} holds no ema_params/ to load with load_ema")
+        return ema if use_ema else params
+    loaded = torch.load(source, map_location="cpu", weights_only=True)
+    if "params" in loaded and "batch_stats" in loaded:  # a training checkpoint
+        from sbgm_danra_tpu_torch.training.checkpointing import model_state_dict
+
+        return model_state_dict(loaded, use_ema=use_ema)
+    return loaded
 
 
 class InferenceEngine:
@@ -130,14 +158,14 @@ class InferenceEngine:
             torch.backends.cudnn.deterministic = True
             torch.backends.cudnn.benchmark = False
         model = build_score_model(settings.spec, VESDE())
-        model.load_state_dict(load_state_dict(state_dict, model))
+        model.load_state_dict(load_state_dict(state_dict, model, use_ema=settings.load_ema))
         self.model = model.to(self.device).eval()
         self.sde = VESDE()
         self._sampler = get_sampler(settings.sampler_type)
-        logger.warning(
-            "torch engine has no back-transforms yet (transforms.py is not ported); "
-            "serving fields in normalized space"
-        )
+        self.back_transform = settings.back_transform
+        if self.back_transform is None:
+            logger.warning("no back-transform for the generated field (statistics missing); "
+                           "serving fields in normalized space")
         # serving-under-load observability: dispatches vs rows served
         self.n_dispatches = 0
         self.n_rows = 0
@@ -202,6 +230,8 @@ class InferenceEngine:
             # normalized-space ensemble inflation about the member mean
             mean = out.mean(axis=0, keepdims=True)
             out = mean + alpha * (out - mean)
+        if self.back_transform is not None:
+            out = np.asarray(self.back_transform(out), np.float32)
         return out
 
     def _dispatch(self, tickets: List["_Ticket"]) -> None:
@@ -219,7 +249,7 @@ class InferenceEngine:
         gens = [torch.Generator(self.device).manual_seed(s) for s in seeds]
         cond_t = {k: torch.from_numpy(v).to(self.device) for k, v in cond.items()}
         extra = {"per_member_step": True} if self._sampler is pc_sampler else {}
-        with torch.inference_mode():
+        with exact_fp32(self.settings.spec.compute_dtype), torch.inference_mode():
             out = self._sampler(self.score_fn, gens, (m, *self.hw, 1), self.sde,
                                 self.settings.sampler, cond=cond_t, **extra)
             out = out[..., 0].float().cpu().numpy()

@@ -1,0 +1,135 @@
+"""The port's own training checkpoints: best-validation and latest, with an
+exact resume (counterpart of ``sbgm_danra_tpu/training/checkpointing.py``).
+
+The JAX package writes Orbax, which the card machine cannot read (no JAX, no
+orbax there). A checkpoint here is one ``torch.save`` file per step,
+``ckpt_<step>.pt``, holding
+
+    {"step", "params", "batch_stats", "buffers", "optimizer", "ema_params",
+     "scheduler", "early_stop", "meta"}
+
+with the tensors on the CPU: the parameters, the BatchNorm running statistics
+and the fixed buffers (the Fourier frequencies) by state_dict key, the
+optimizer's ``state_dict`` (its state and the learning rate), the EMA copy,
+the scheduler's and early stopping's state, and host metadata (epoch,
+validation loss, history, model string). ``index.json`` keeps each step's
+validation loss; the manager keeps the ``max_to_keep`` newest files and the
+best one. A file is written beside its final name and renamed into place.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from sbgm_danra_tpu_torch.training.state import TrainState
+
+_STATS = ("running_mean", "running_var")
+
+
+def _cpu(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
+
+
+def state_tree(state: TrainState, scheduler=None, early_stop=None,
+               meta: Optional[Dict] = None) -> Dict:
+    """The checkpoint's contents for ``state`` (tensors copied to the CPU)."""
+    params = dict(state.model.named_parameters())
+    buffers = dict(state.model.named_buffers())
+    return {
+        "step": state.step,
+        "params": _cpu(params),
+        "batch_stats": _cpu({k: v for k, v in buffers.items() if k.endswith(_STATS)}),
+        "buffers": _cpu({k: v for k, v in buffers.items() if not k.endswith(_STATS)}),
+        "optimizer": state.optimizer.state_dict(),
+        "ema_params": _cpu(state.ema_params),
+        "scheduler": scheduler.state_dict() if scheduler is not None else None,
+        "early_stop": early_stop.state_dict() if early_stop is not None else None,
+        "meta": dict(meta or {}),
+    }
+
+
+def model_state_dict(tree: Dict, use_ema: bool = False) -> Dict[str, torch.Tensor]:
+    """A checkpoint's weights as a model state_dict: its parameters (or, with
+    ``use_ema``, its EMA copy), statistics and buffers."""
+    if use_ema and not tree.get("ema_params"):
+        raise KeyError("the checkpoint holds no EMA weights to load with load_ema")
+    params = tree["ema_params"] if use_ema else tree["params"]
+    return {**params, **tree["batch_stats"], **tree["buffers"]}
+
+
+@torch.no_grad()
+def restore_into(state: TrainState, tree: Dict, scheduler=None, early_stop=None) -> Dict:
+    """Load a checkpoint's tree into ``state`` (and the scheduler and early
+    stopping, when given); returns its metadata."""
+    state.model.load_state_dict(model_state_dict(tree))
+    state.optimizer.load_state_dict(tree["optimizer"])
+    for name, ema in state.ema_params.items():
+        ema.copy_(tree["ema_params"][name])
+    state.step = int(tree["step"])
+    if scheduler is not None and tree.get("scheduler"):
+        scheduler.load_state_dict(tree["scheduler"])
+    if early_stop is not None and tree.get("early_stop"):
+        early_stop.load_state_dict(tree["early_stop"])
+    return dict(tree.get("meta") or {})
+
+
+class CheckpointManager:
+    """Writes ``ckpt_<step>.pt`` under ``directory`` and tracks the best
+    validation loss; keeps the ``max_to_keep`` newest and the best."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+        self._index_path = os.path.join(self.directory, "index.json")
+        self._index: Dict[int, float] = {}
+        if os.path.exists(self._index_path):
+            with open(self._index_path) as f:
+                self._index = {int(k): float(v) for k, v in json.load(f).items()}
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.directory, f"ckpt_{step:08d}.pt")
+
+    def save(self, step: int, state: TrainState, meta: Optional[Dict] = None, scheduler=None,
+             early_stop=None) -> str:
+        meta = dict(meta or {})
+        final = self.path(step)
+        tmp = final + ".tmp"
+        torch.save(state_tree(state, scheduler, early_stop, meta), tmp)
+        os.replace(tmp, final)
+        self._index[step] = float(meta.get("val_loss", float("inf")))
+        best = self.best_step()
+        for old in sorted(self._index)[:-self.max_to_keep]:
+            if old != best:
+                self._index.pop(old)
+                if os.path.exists(self.path(old)):
+                    os.remove(self.path(old))
+        with open(self._index_path + ".tmp", "w") as f:
+            json.dump({str(k): v for k, v in self._index.items()}, f)
+        os.replace(self._index_path + ".tmp", self._index_path)
+        return final
+
+    def latest_step(self) -> Optional[int]:
+        return max(self._index) if self._index else None
+
+    def best_step(self) -> Optional[int]:
+        if not self._index:
+            return None
+        return min(self._index, key=lambda s: (self._index[s], -s))
+
+    def load_tree(self, step: Optional[int] = None, best: bool = False) -> Tuple[int, Dict]:
+        if step is None:
+            step = self.best_step() if best else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"No checkpoints under {self.directory}")
+        return step, torch.load(self.path(step), map_location="cpu", weights_only=True)
+
+    def restore(self, state: TrainState, step: Optional[int] = None, best: bool = False,
+                scheduler=None, early_stop=None) -> Dict:
+        """Restore into ``state`` (built like the saved one); returns the metadata."""
+        _, tree = self.load_tree(step, best)
+        return restore_into(state, tree, scheduler, early_stop)

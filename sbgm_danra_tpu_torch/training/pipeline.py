@@ -1,0 +1,213 @@
+"""Epoch-level training engine (counterpart of ``sbgm_danra_tpu/training/pipeline.py``,
+cut to what the port trains with today).
+
+``TrainingPipeline`` owns the model, its ``TrainState``, the train and eval
+steps, the scheduler, early stopping and the port's checkpoints:
+
+- ``train_batches`` / ``validate_batches``: one epoch of steps / validation
+  losses over the loaders;
+- ``train``: the epoch loop: scheduler stepped on the validation loss (the
+  training loss where there is none), the best checkpoint written on every
+  improvement, early stopping;
+- ``save`` / ``load``: the port's checkpoints with an exact resume;
+- ``score_fn(use_ema)``: the sampling closure over the (EMA) weights.
+
+``train_loader`` and ``valid_loader`` are any iterables of batch dicts: model
+kwargs (``x``, ``y``, ``cond_img``, ``lsm_cond``, ``topo_cond``, ``sdf``) or
+the dataset's collated samples, which ``extract_batch`` maps onto them; numpy
+arrays or tensors, moved to the pipeline's device. A loader with
+``set_epoch`` is told the epoch. A float32 model's steps and score function
+run with TF32 off (``precision.exact_fp32``).
+
+Not here yet (ROADMAP): the data loaders and the device data path, fused
+K-step dispatches (``training/fused.py``), per-epoch preview sampling, the
+extreme-precipitation sentinel, rate-limited and asynchronous checkpoint
+writes, and meshes.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import os
+import time
+from typing import Callable, Dict, Iterable, List, Optional
+
+import numpy as np
+import torch
+
+from sbgm_danra_tpu_torch.config import get_model_string
+from sbgm_danra_tpu_torch.models.unet import build_score_model, model_spec_from_config
+from sbgm_danra_tpu_torch.precision import exact_fp32
+from sbgm_danra_tpu_torch.sde import VESDE
+from sbgm_danra_tpu_torch.training.checkpointing import CheckpointManager
+from sbgm_danra_tpu_torch.training.schedulers import EarlyStopping, make_scheduler
+from sbgm_danra_tpu_torch.training.state import create_train_state
+from sbgm_danra_tpu_torch.training.train_step import (
+    make_eval_step,
+    make_score_fn,
+    make_train_step,
+)
+
+logger = logging.getLogger(__name__)
+
+_MODEL_KEYS = ("x", "y", "cond_img", "lsm_cond", "topo_cond", "sdf")
+
+
+def extract_batch(batch: Dict, hr_var: str) -> Dict:
+    """A collated sample dict -> score-model kwargs (a copy of
+    ``sbgm_danra_tpu/data/loader.py::extract_batch``): the HR target -> x, the
+    sorted LR channels concatenated -> cond_img, the geo maps -> lsm_cond /
+    topo_cond, plus sdf and the class y."""
+    out: Dict = {}
+    hr_key = f"{hr_var}_hr"
+    if hr_key not in batch:
+        hr_keys = [k for k in batch if k.endswith("_hr") and k != "lsm_hr"]
+        if not hr_keys:
+            raise ValueError("No HR image found in batch")
+        hr_key = hr_keys[0]
+    out["x"] = batch[hr_key]
+    lr_keys = sorted(k for k in batch if k.endswith("_lr"))
+    if lr_keys:
+        parts = [batch[k] for k in lr_keys]
+        cat = torch.cat if isinstance(parts[0], torch.Tensor) else np.concatenate
+        out["cond_img"] = cat(parts, -1)
+    if "lsm" in batch:
+        out["lsm_cond"] = batch["lsm"]
+    if "topo" in batch:
+        out["topo_cond"] = batch["topo"]
+    if "classifier" in batch:
+        y = batch["classifier"]
+        out["y"] = y.to(torch.int32) if isinstance(y, torch.Tensor) else y.astype(np.int32)
+    if "sdf" in batch:
+        out["sdf"] = batch["sdf"]
+    if "lsm_hr" in batch:
+        out["lsm_hr"] = batch["lsm_hr"]
+    return out
+
+
+class TrainingPipeline:
+    """Owns the model, state and steps, and runs the epoch loop."""
+
+    def __init__(self, cfg, train_loader: Iterable[Dict],
+                 valid_loader: Optional[Iterable[Dict]] = None, device: str = "cuda"):
+        self.cfg = cfg
+        self.train_loader = train_loader
+        self.valid_loader = valid_loader
+        self.device = torch.device(device)
+        self.sde = VESDE()
+        self.spec = model_spec_from_config(cfg)
+        t = cfg.training
+        init = torch.Generator().manual_seed(t.seed)
+        self.model = build_score_model(self.spec, self.sde, generator=init)
+        self.state = create_train_state(cfg, self.model, init)
+        self.model.to(self.device)
+        # the optimizer was built on the CPU tensors: .to moved them in place
+        self.state.ema_params = {k: v.to(self.device) for k, v in self.state.ema_params.items()}
+        self.model_string = get_model_string(cfg)
+        self.generator = torch.Generator(self.device).manual_seed(t.seed)
+        eps = cfg.sampler.t_eps
+        precision = exact_fp32(self.spec.compute_dtype)
+        self._train_step = precision(make_train_step(
+            self.model, self.sde, t_eps=eps, use_sdf_weights=t.sdf_weighted_loss,
+            detect_anomaly=t.detect_anomaly, remat=t.remat,
+            skip_nonfinite_updates=t.skip_nonfinite_updates))
+        self._eval_step = precision(make_eval_step(self.model, self.sde, t_eps=eps,
+                                                   use_sdf_weights=t.sdf_weighted_loss))
+        self.scheduler = make_scheduler(cfg)
+        es = t.early_stopping_params
+        self.early_stopping = EarlyStopping(es.patience, es.min_delta) if t.early_stopping \
+            else None
+        self.checkpoints = CheckpointManager(
+            os.path.join(cfg.paths.checkpoint_dir, self.model_string))
+        self.history: Dict[str, List[float]] = {"train_loss": [], "val_loss": [], "lr": []}
+        self.epoch = 0
+
+    def _batches(self, loader: Iterable[Dict]) -> Iterable[Dict[str, torch.Tensor]]:
+        for raw in loader:
+            batch = raw if "x" in raw else extract_batch(raw, self.cfg.highres.variable)
+            yield {k: torch.as_tensor(batch[k]).to(self.device, non_blocking=True)
+                   for k in _MODEL_KEYS if batch.get(k) is not None}
+
+    def train_batches(self, max_steps: Optional[int] = None) -> float:
+        """One epoch of optimizer steps; the mean training loss."""
+        losses = []
+        t0 = time.perf_counter()
+        for i, batch in enumerate(self._batches(self.train_loader)):
+            if max_steps is not None and i >= max_steps:
+                break
+            metrics = self._train_step(self.state, batch, self.generator)
+            if self.cfg.training.detect_anomaly and not bool(metrics["finite"]):
+                raise FloatingPointError(
+                    f"Non-finite loss/gradients at step {self.state.step}")
+            losses.append(metrics["loss"])
+        if not losses:
+            return float("nan")
+        mean = float(torch.stack(losses).mean())
+        dt = time.perf_counter() - t0
+        logger.info("epoch %d: %d steps in %.1fs (%.2f steps/s)", self.epoch, len(losses), dt,
+                    len(losses) / dt)
+        return mean
+
+    def validate_batches(self, max_steps: Optional[int] = None) -> float:
+        if self.valid_loader is None:
+            return float("nan")
+        losses = []
+        for i, batch in enumerate(self._batches(self.valid_loader)):
+            if max_steps is not None and i >= max_steps:
+                break
+            losses.append(self._eval_step(self.state, batch, self.generator)["loss"])
+        return float(torch.stack(losses).mean()) if losses else float("nan")
+
+    def _meta(self, val_loss: float) -> Dict:
+        return {"epoch": self.epoch, "val_loss": val_loss,
+                "history": {k: list(v) for k, v in self.history.items()},
+                "model_string": self.model_string}
+
+    def save(self, val_loss: float) -> str:
+        return self.checkpoints.save(self.state.step, self.state, self._meta(val_loss),
+                                     self.scheduler, self.early_stopping)
+
+    def load(self, best: bool = False) -> None:
+        meta = self.checkpoints.restore(self.state, best=best, scheduler=self.scheduler,
+                                        early_stop=self.early_stopping)
+        self.epoch = meta.get("epoch", 0)
+        self.history = meta.get("history", self.history)
+        self.state.with_learning_rate(self.scheduler.lr)
+
+    def train(self, epochs: Optional[int] = None, steps_per_epoch: Optional[int] = None,
+              on_epoch_end: Optional[Callable[["TrainingPipeline", int, float, float], None]]
+              = None) -> Dict[str, List[float]]:
+        cfg = self.cfg
+        epochs = epochs or cfg.training.epochs
+        steps_per_epoch = steps_per_epoch or cfg.training.steps_per_epoch
+        best_val = min(self.history["val_loss"], default=math.inf)
+        for _ in range(epochs):
+            t0 = time.time()
+            if hasattr(self.train_loader, "set_epoch"):
+                self.train_loader.set_epoch(self.epoch)
+            train_loss = self.train_batches(steps_per_epoch)
+            val_loss = self.validate_batches(steps_per_epoch)
+            self.history["train_loss"].append(train_loss)
+            self.history["val_loss"].append(val_loss)
+            self.history["lr"].append(self.scheduler.lr)
+            logger.info("epoch %d: train %.4f  val %.4f  lr %.2e  (%.1fs)", self.epoch,
+                        train_loss, val_loss, self.scheduler.lr, time.time() - t0)
+            monitored = val_loss if np.isfinite(val_loss) else train_loss
+            self.epoch += 1
+            if monitored < best_val:
+                best_val = monitored
+                self.save(monitored)
+            self.state.with_learning_rate(self.scheduler.step(monitored))
+            if on_epoch_end is not None:
+                on_epoch_end(self, self.epoch, train_loss, val_loss)
+            if self.early_stopping is not None and self.early_stopping.update(monitored):
+                logger.info("early stopping at epoch %d", self.epoch)
+                break
+        return self.history
+
+    def score_fn(self, use_ema: Optional[bool] = None):
+        """Sampling closure over the EMA weights (``training.with_ema``) or the parameters."""
+        use_ema = self.cfg.training.with_ema if use_ema is None else use_ema
+        return exact_fp32(self.spec.compute_dtype)(
+            make_score_fn(self.model, self.state, use_ema=use_ema))

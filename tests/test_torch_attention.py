@@ -1,6 +1,8 @@
 """Torch port: flash attention (plain version, dispatcher, CUDA entry point) and
 SpatialSelfAttention against the JAX package."""
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -133,8 +135,14 @@ class TestCudaEntryPoint:
             _padded_head_dim(160)
 
     def test_backward_raises(self):
-        with pytest.raises(NotImplementedError, match="backward"):
-            cuda_attention._FlashAttention.backward(None, torch.zeros(1))
+        """The backward launches the kernels or raises: on CPU tensors it
+        raises, and nothing gives way to the plain backward."""
+        q, k, v = map(torch.from_numpy, _qkv(s=64))
+        ctx = SimpleNamespace(saved_tensors=(q, k, v, q, torch.zeros(2, 2, 64)))
+        before = cuda_attention.bwd_launches
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            cuda_attention._FlashAttention.backward(ctx, torch.zeros_like(q))
+        assert cuda_attention.bwd_launches == before
 
 
 def _layout(*tensors):
@@ -258,3 +266,44 @@ class TestSpatialSelfAttention:
         module = SpatialSelfAttention(8, 2, "ring")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             module(torch.zeros(1, 2, 2, 8))
+
+
+class TestBackwardPlainVersion:
+    """K2's backward: the plain lse and ``flash_attention_bwd_reference`` (what
+    the card holds the backward kernels against) against ``jax.grad`` of the
+    Pallas kernel, run in interpret mode as tests/test_pallas_attention.py runs
+    it (its VJP recomputes dense attention)."""
+
+    @pytest.mark.parametrize("s, d", [(300, 32), (200, 24)])
+    def test_matches_jax_grad_of_pallas_kernel(self, s, d):
+        """dq, dk, dv for a random cotangent at a ragged S (not a multiple of
+        128) and a padded D: 5e-5 abs + 5e-5 rel, the JAX test's own gradient
+        tolerance."""
+        q, k, v = _qkv(s=s, d=d, seed=2)
+        g = np.random.default_rng(3).normal(size=q.shape).astype(np.float32)
+
+        def f(q_, k_, v_):
+            return jnp.sum(pallas_flash_attention(q_, k_, v_, 128, 128) * g)
+
+        want = jax.grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+        tq, tk, tv = map(torch.from_numpy, (q, k, v))
+        out = flash_attention_reference(tq, tk, tv)
+        lse = cuda_attention.attention_lse(tq, tk)
+        got = cuda_attention.flash_attention_bwd_reference(tq, tk, tv, out, torch.from_numpy(g),
+                                                           lse)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=5e-5, rtol=5e-5)
+
+    def test_lse_matches_jax(self):
+        q, k, _ = _qkv(s=300, d=32, seed=4)
+        scores = jnp.einsum("bqhd,bkhd->bhqk", jnp.asarray(q) / np.sqrt(32.0), jnp.asarray(k))
+        want = jax.nn.logsumexp(scores, axis=-1)
+        got = cuda_attention.attention_lse(torch.from_numpy(q), torch.from_numpy(k))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-6)
+
+    def test_returns_input_dtype(self):
+        q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(s=64))
+        out = flash_attention_reference(q, k, v)
+        grads = cuda_attention.flash_attention_bwd_reference(
+            q, k, v, out, torch.ones_like(out), cuda_attention.attention_lse(q, k))
+        assert all(x.dtype == torch.bfloat16 and x.shape == q.shape for x in grads)

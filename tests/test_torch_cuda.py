@@ -157,10 +157,17 @@ def test_rejects_mixed_dtypes(cuda):
         flash_attention_cuda(q, k.bfloat16(), v)
 
 
-def test_backward_raises(cuda):
+def test_backward_matches_plain(cuda):
+    """A backward through the kernel gives the gradients of autograd through
+    the plain version (fp32, 1e-4 of each gradient's max |ref|)."""
     q, k, v = (x.requires_grad_() for x in _qkv((1, 64, 2, 32), torch.float32, cuda))
-    with pytest.raises(NotImplementedError, match="no backward"):
-        flash_attention_cuda(q, k, v).sum().backward()
+    flash_attention_cuda(q, k, v).square().sum().backward()
+    got = [x.grad.clone() for x in (q, k, v)]
+    for x in (q, k, v):
+        x.grad = None
+    flash_attention_reference(q, k, v).square().sum().backward()
+    for a, x in zip(got, (q, k, v)):
+        assert (a - x.grad).abs().max() <= 1e-4 * x.grad.abs().max()
 
 
 def _k1_args(n, h, w, cin, cout, dtype, cuda, seed=0):
@@ -440,3 +447,130 @@ def test_k1_rejects_mixed_devices(cuda):
     x, kernel, bias, gamma, beta = _k1_args(1, 8, 8, 8, 8, torch.float32, cuda)
     with pytest.raises(ValueError, match="CUDA tensors"):
         k1.conv3x3_gn_cuda(x, kernel.cpu(), bias, gamma, beta, groups=4)
+
+
+# K2's backward (bwd_delta, bwd_dkdv, bwd_dq) and the forward's lse output
+
+_BWD_SHAPES = [(2, s, 4 if d == 32 else 2, d) for s in (1000, 4096, 7600) for d in (32, 64, 128)]
+
+
+def _packed_qkv(shape, dtype, cuda, seed):
+    """q, k, v as the model hands them: strided chunks of one [B, S, 3C] projection."""
+    b, s, h, d = shape
+    g = torch.Generator(cuda).manual_seed(seed)
+    packed = torch.randn(b, s, 3 * h * d, generator=g, device=cuda).to(dtype)
+    return [t.reshape(shape) for t in packed.chunk(3, dim=-1)]
+
+
+def _kernel_grads(q, k, v, dout):
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = flash_attention_cuda(q, k, v)
+    out.backward(dout)
+    return out.detach(), (q.grad, k.grad, v.grad)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", _BWD_SHAPES)
+def test_bwd_matches_plain_version(cuda, shape, dtype):
+    """dq, dk, dv of the kernels against the dense plain backward in fp32 on the
+    same inputs, the kernel's own output and the plain lse: each gradient within
+    1e-2 (bf16: the gradients are rounded to bf16, 2^-9 relative, and a row's
+    sums reach a few hundred terms of either sign) or 1e-4 (fp32: summation
+    order only) of its max |ref|; a second call repeats bit-identically, and
+    one call is one backward launch of the dtype's variant."""
+    q, k, v = _packed_qkv(shape, dtype, cuda, seed=3)
+    g = torch.Generator(cuda).manual_seed(4)
+    dout = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    before = dict(cuda_attention.bwd_launches_by_variant)
+    out, got = _kernel_grads(q, k, v, dout)
+    variant = "tc_bf16" if dtype == torch.bfloat16 else "fp32"
+    assert cuda_attention.bwd_launches_by_variant == {**before, variant: before[variant] + 1}
+    _, again = _kernel_grads(q, k, v, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    lse = cuda_attention.attention_lse(q, k)
+    want = cuda_attention.flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), out.float(), dout.float(), lse)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == shape
+        err = (a.float() - b).abs().max().item()
+        assert err <= tol * b.abs().max().item(), (name, err, b.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 7600, 4, 32), (1, 1000, 2, 64), (2, 333, 2, 128),
+                                   (2, 500, 2, 24)])
+def test_lse_matches_plain_version(cuda, shape, dtype):
+    """The forward's lse output against the plain log-sum-exp of the same
+    inputs: 1e-4 absolute (values near log S); the output does not change
+    when the lse is written."""
+    q, k, v = _packed_qkv(shape, dtype, cuda, seed=5)
+    out, lse = cuda_attention._launch(q, k, v, with_lse=True)
+    want = cuda_attention.attention_lse(q, k)
+    assert lse.shape == (shape[0], shape[2], shape[1])
+    assert (lse - want).abs().max().item() <= 1e-4
+    assert torch.equal(out, flash_attention_cuda(q, k, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bwd_nan_in_a_key_reaches_exactly_what_reads_it(cuda, dtype):
+    """A NaN in one key of (batch 0, head 1) makes every gradient of that
+    (batch, head) NaN, as the plain backward's, and no other."""
+    q, k, v = _packed_qkv((2, 4100, 2, 32), dtype, cuda, seed=6)
+    k = k.clone()
+    k[0, 3000, 1, 5] = float("nan")
+    dout = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(7),
+                       device=cuda).to(dtype)
+    out, got = _kernel_grads(q, k, v, dout)
+    want = cuda_attention.flash_attention_bwd_reference(
+        q, k, v, out, dout, cuda_attention.attention_lse(q, k))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        differ = torch.isnan(a) != torch.isnan(b)
+        assert not differ.any(), (name, differ.sum().item(), differ.nonzero()[:4].tolist(),
+                                  a[differ][:4].tolist(), b[differ][:4].tolist())
+        nan = torch.isnan(a[0, :, 1])
+        assert nan.all(), (name, nan.sum().item(), nan.numel(),
+                           (~nan).nonzero()[:4].tolist(), a[0, :, 1][~nan][:4].tolist())
+        assert torch.isfinite(a[0, :, 0]).all() and torch.isfinite(a[1]).all(), name
+
+
+def test_bwd_rejects_what_it_cannot_take(cuda):
+    """A backward on tensors of mixed dtypes raises; nothing gives way to the plain version."""
+    q, k, v = _packed_qkv((1, 128, 2, 32), torch.float32, cuda, seed=8)
+    out, lse = cuda_attention._launch(q, k, v, with_lse=True)
+    with pytest.raises(ValueError, match="dout"):
+        cuda_attention._launch_bwd(q, k, v, out, out.bfloat16(), lse)
+
+
+FAULTS = {"dk_zero": lambda dq, dk, dv: (dq, torch.zeros_like(dk), dv),
+          "dq_x1.1": lambda dq, dk, dv: (dq * 1.1, dk, dv),
+          "dv_x1.1": lambda dq, dk, dv: (dq, dk, dv * 1.1)}
+
+
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+def test_train_comparison_catches_a_k2_backward_fault(cuda, monkeypatch, capsys, fault):
+    """chip_smoke.py's full-domain train comparison (one bf16 step at 608x800
+    with K2 against the same step with the plain attention) fails when K2's
+    backward is wrong: a fault planted in the wrapper's dq, dk or dv reaches
+    only decoder block 1's attention and what lies upstream of it, and each
+    parameter's gradient (the q, k and v parts of the fused projection apart)
+    is held to its own max |ref|. Prints the reading."""
+    import json
+
+    import chip_smoke
+
+    real = cuda_attention._launch_bwd
+
+    def planted(*args):
+        return FAULTS[fault](*real(*args))
+
+    monkeypatch.setattr(cuda_attention, "_launch_bwd", planted)
+    with pytest.raises(AssertionError, match="kernel vs plain attention"):
+        chip_smoke.phase_train_full_domain(cuda, "bfloat16", 1, compare=True)
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    cmp = row["kernel_vs_plain_attention"]
+    with capsys.disabled():
+        print(f"\n{fault}: grad_rel_err_max {cmp['grad_rel_err_max']:.3e} (limit "
+              f"{chip_smoke.GRAD_REL_TOL}), overall {cmp['grad_rel_err_overall']:.3e}, "
+              f"worst {cmp['grad_rel_err_worst'][:2]}")
+    assert cmp["grad_rel_err_max"] > chip_smoke.GRAD_REL_TOL

@@ -88,10 +88,23 @@ class TestScoreUNet:
         assert rel_err(got, want) <= 1e-4
 
     def test_train_mode_not_ported(self):
-        model = build_score_model(ModelSpec(**TINY))
-        x = torch.zeros(1, 32, 32, 1)
-        with pytest.raises(NotImplementedError, match="training"):
-            model(x, torch.ones(1), train=True)
+        """Train mode, which the name predates: the forward with train=True
+        (BatchNorm on the batch's statistics, the decoder on the plain chain)
+        against Flax's train=True apply, 1e-4 of max |ref|; the forward records
+        the batch statistics and leaves the running ones alone."""
+        import jax
+
+        inputs = model_inputs(hw=(64, 64), seed=3)
+        jmodel, variables = jax_model_and_variables(TINY, inputs, seed=4)
+        want, _ = jax.jit(lambda v, a: jmodel.apply(v, **a, train=True, mutable=["batch_stats"]))(
+            variables, {k: jnp.asarray(v) for k, v in inputs.items()})
+        model = torch_model(TINY, variables)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        with torch.no_grad():
+            got = model(**torch_inputs(inputs), train=True)
+        assert rel_err(got.numpy(), np.asarray(want)) <= 1e-4
+        assert all(torch.equal(v, before[k]) for k, v in model.state_dict().items())
+        assert model.encoder.bn1.batch_stats is not None
 
     def test_inference_spec_fuses_head_at_full_domain(self):
         spec = ModelSpec(**TINY)
