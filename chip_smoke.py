@@ -38,12 +38,13 @@ Phases, one JSON line each on stdout:
      ``library_kernel_ms`` (the device time of the kernels that call launches,
      measured the same way); tolerances in each row. Bounds: ``profile_port.bound``
      (fp32 operations by the faster of FMAs at 67 and 3xTF32 at 495 TFLOP/s);
-3b. kernel (K2 backward): delta, dk/dv and dq (one ``_launch_bwd``) on
-   strided q, k, v against the dense plain backward in fp32, bf16 and fp32, at
-   the full-domain shape and off it: each gradient within 1e-2 (bf16) or 1e-4
-   (fp32) of its max |ref|, a repeat bit-identical, the forward's lse output
-   within 1e-4 of the plain lse; its time warm and cold, the plain version's,
-   SDPA's backward and the bound (``profile_port.k2bwd_rows``);
+3b. kernel (K2 backward): delta, dk/dv and dq (one ``_launch_bwd``; dk/dv and
+   dq on the tensor cores, bf16 mma.sync or 3xTF32) on strided q, k, v against
+   the dense plain backward in fp32, bf16 and fp32, at the full-domain shape
+   and off it: each gradient within 1e-2 (bf16) or 1e-4 (fp32) of its max
+   |ref|, a repeat bit-identical, the forward's lse output within 1e-4 of the
+   plain lse; its time warm and cold and each kernel's apart, the plain
+   version's, SDPA's backward and the bound (``profile_port.k2bwd_rows``);
 4. model: a tiny fp32 UNet on the card against the same weights on the CPU
    (TF32 off, attention kernel forced: max |err| <= 1e-4 max |ref|, with 8 K1
    launches), and flagship bf16 forwards at 128 px (batch 16) and 608x800
@@ -1191,14 +1192,15 @@ def main() -> int:
         kernels.append({
             "name": f"flash_attention_bwd_{variant}",
             "route": "cuda",
-            "mma": None,
+            "mma": "bf16 (mma.sync)" if variant == "tc_bf16" else "tf32x3 (mma.sync)",
             "source": "sbgm_danra_tpu_torch/csrc/flash_attention.cu",
             "replaces": "sbgm_danra_tpu/ops/pallas_attention.py:143",
             "launches": run["k2_bwd"],
             "launches_by_path": {f"train_full_domain_{variant}": run["k2_bwd"]},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "worst_err_over_tolerance": max(r["worst_err_over_tolerance"] for r in mine),
-            **{key: at[key] for key in ("ms", "kernel_ms", "plain_ms", "bound_ms", "library_ms")},
+            **{key: at[key] for key in ("ms", "kernel_ms", "kernel_ms_by_kernel", "plain_ms",
+                                        "bound_ms", "library_ms")},
             "bound_by": "bytes" if at["bound_by"] == "bytes" else "operations",
             "bound_term": at["bound_by"],
             "at": f"{at['shape']} {at['dtype']}, decoder block 1 at 608x800, one backward "

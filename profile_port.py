@@ -48,8 +48,9 @@ package of another checkout, so it cannot take them from the package.
 
 ``--paths k2bwd`` times K2's backward alone (``k2bwd_rows``: the three
 backward kernels on strided q, k, v against the dense plain backward, warm and
-cold, SDPA's backward and the bound; and the forward with its lse output off
-and on) in ``--dtype``. ``--paths train`` times one train step of the
+cold, the delta, dk/dv and dq kernels' device times apart, SDPA's backward,
+the bound, and the time of the design's 7 products at the data sheet's
+peak; and the forward with its lse output off and on) in ``--dtype``. ``--paths train`` times one train step of the
 flagship through ``TrainingPipeline`` (the port's step: DSM loss, backward,
 Adam, EMA, BatchNorm statistics) at 128x128, batch 128 (the flagship's),
 attention 'xla', and at 589x789 -> 608x800, batch 2, attention 'pallas',
@@ -259,14 +260,41 @@ def k2_rows(torch, dev, dtype_name: str) -> list:
 K2_BWD_SHAPES = ((2, 7600, 4, 32), (1, 4096, 2, 64), (2, 1000, 2, 128), (2, 333, 2, 24))
 
 
+BWD_KERNELS = ("bwd_delta", "bwd_dkdv", "bwd_dq")
+
+
+def bwd_kernel_ms(torch, call, iters: int = 5) -> dict:
+    """Device ms per call of each of K2's backward kernels (delta, dk/dv, dq),
+    from ``torch.profiler`` over ``iters`` calls on one set of operands."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    call()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    total = dict.fromkeys(BWD_KERNELS, 0.0)
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            for name in BWD_KERNELS:
+                if name in e.name:
+                    total[name] += (e.time_range.end - e.time_range.start) / 1e3
+    return {name.removeprefix("bwd_"): ms / iters for name, ms in total.items()}
+
+
 def k2bwd_rows(torch, dev, dtype_name: str, shapes=K2_BWD_SHAPES) -> list:
     """K2's backward alone (``_launch_bwd``: delta, dk/dv, dq) on strided q, k, v
     (chunks of one packed projection) against the dense plain backward: each
     gradient's max |err| over its max |ref|; ``ms`` (mean of 5 calls),
-    ``kernel_ms`` (cold, ``device_ms``), the plain version's ms, SDPA's
-    backward (SDPA forward + backward minus forward) and the bound (5 products
-    of 2 S^2 D B H flops and B H S^2 exponentials; bytes of q, k, v, O, dO and
-    lse in, dq, dk, dv out); the forward's ms with its lse output off and on."""
+    ``kernel_ms`` (cold, ``device_ms``), each kernel's device ms
+    (``bwd_kernel_ms``), the plain version's ms, SDPA's backward (SDPA forward
+    + backward minus forward) and the bound (5 products of 2 S^2 D B H flops
+    and B H S^2 exponentials; bytes of q, k, v, O, dO and lse in, dq, dk, dv
+    out) beside ``design_at_peak_ms``, the time of the 7 products and 2 B H
+    S^2 exponentials that dk/dv and dq do at the data sheet's peak rates (no
+    floor of mma.sync, whose own rate on the card this does not measure); the
+    forward's ms with its lse output off and on."""
     import torch.nn.functional as F
 
     from sbgm_danra_tpu_torch.ops import cuda_attention as ca
@@ -313,6 +341,7 @@ def k2bwd_rows(torch, dev, dtype_name: str, shapes=K2_BWD_SHAPES) -> list:
             return torch.autograd.grad(o, (qs, ks, vs), dout_t)
 
         operands = (q, k, v, out, dout, lse)
+        nbytes = 8 * q.numel() * q.element_size() + 4 * b * h * s_len
         copies = [[t.clone() for t in operands] for _ in range(COLD_COPIES)]
         row = dict(
             shape=list(shape), dtype=dtype_name, rel_err=errs, repeat_bit_identical=repeat,
@@ -322,11 +351,14 @@ def k2bwd_rows(torch, dev, dtype_name: str, shapes=K2_BWD_SHAPES) -> list:
             plain_ms=ms(lambda: ca.flash_attention_bwd_reference(
                 q.float(), k.float(), v.float(), out.float(), dout.float(), plain_lse), 2),
             library_ms=ms(sdpa_fwd_bwd, 10) - ms(sdpa_fwd, 10),
+            kernel_ms_by_kernel=bwd_kernel_ms(torch, lambda: ca._launch_bwd(*operands)),
             forward_ms_lse_off=ms(lambda: ca._launch(q, k, v), 10),
             forward_ms_lse_on=ms(lambda: ca._launch(q, k, v, with_lse=True), 10),
-            **bound(5 * 2.0 * b * h * s_len * s_len * d,
-                    8 * q.numel() * q.element_size() + 4 * b * h * s_len, dtype_name,
-                    exps=float(b * h * s_len * s_len), exp_rate=exp_rate))
+            **bound(5 * 2.0 * b * h * s_len * s_len * d, nbytes, dtype_name,
+                    exps=float(b * h * s_len * s_len), exp_rate=exp_rate),
+            design_at_peak_ms=bound(7 * 2.0 * b * h * s_len * s_len * d, nbytes, dtype_name,
+                                    exps=2.0 * b * h * s_len * s_len,
+                                    exp_rate=exp_rate)["bound_ms"])
         rows.append(row)
         del copies, got, q, k, v, packed, qs, ks, vs
         torch.cuda.empty_cache()

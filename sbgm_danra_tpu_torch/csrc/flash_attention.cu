@@ -131,20 +131,21 @@ template <class T, int kRowsN, typename E>
 __device__ __forceinline__ void stage_rows(E* dst, const E* src, int64_t stride, int r0,
                                            int seq) {
   static_assert(kRowsN * T::kChunks % T::kThreads == 0, "whole copies per thread");
+  static_assert(T::kThreads % T::kChunks == 0, "a thread keeps its column of chunks");
   constexpr int kVec = 16 / sizeof(E);
-  const E* base = src + r0 * stride;
+  // a thread's copies are kRowStep rows apart, and one pointer steps through
+  // them: offsets held per copy from tile to tile (8 a thread at fp32 D >= 64)
+  // cost the fp32 backward 196-656 B of spill
+  constexpr int kRowStep = T::kThreads / T::kChunks;
+  const int r = threadIdx.x / T::kChunks, c = threadIdx.x % T::kChunks;
+  const int64_t step = kRowStep * stride;
+  const E* p = src + (r0 + r) * stride + c * kVec;
   const bool whole = r0 + kRowsN <= seq;  // uniform: only the last tile is ragged
 #pragma unroll
-  for (int it = 0; it < kRowsN * T::kChunks / T::kThreads; ++it) {
-    const int i = threadIdx.x + it * T::kThreads;
-    const int r = i / T::kChunks, c = i % T::kChunks;
-    const int64_t off = r * stride + c * kVec;  // the same for every tile: hoisted
-    if (whole) {
-      cp_async16(dst + r * T::kLd + c * kVec, base + off, true);
-    } else {
-      const bool ok = r0 + r < seq;
-      cp_async16(dst + r * T::kLd + c * kVec, ok ? base + off : src, ok);
-    }
+  for (int it = 0; it < kRowsN * T::kChunks / T::kThreads; ++it, p += step) {
+    const int row = r + it * kRowStep;
+    const bool ok = whole || r0 + row < seq;
+    cp_async16(dst + row * T::kLd + c * kVec, ok ? p : src, ok);
   }
 }
 
@@ -572,128 +573,287 @@ flash_attention_fwd_kernel_tf32(const float* __restrict__ q, const float* __rest
 // Replaces the VJP of pallas_flash_attention (pallas_attention.py _bwd), which
 // recomputes dense attention under jax.vjp and holds S x S scores. Here the
 // forward's log-sum-exp per row (lse) lets any block recompute its tile of
-// P = exp(scale q k^T - lse) exactly, so three kernels suffice and none holds
-// more than one 64 x 64 tile of scores:
-//   1. bwd_delta:  D_i = sum_d dO_id O_id (fp32), one warp per (b, s, h) row;
-//   2. bwd_dkdv:   one block per (64-key tile, b*h) walks every 64-row Q tile:
-//                  P and dP = dO V^T for the tile pair, dS = P (dP - D), then
-//                  dV += P^T dO and dK += dS^T Q scale in registers;
-//   3. bwd_dq:     one block per (64-row Q tile, b*h) walks every K/V tile
-//                  and sums dQ += dS K scale in registers.
-// Each output element is summed by one thread in a fixed order: no atomics,
-// and repeated calls are bit-identical. Keys and rows at or past S are zero
-// in shared memory and their P and dS are set to 0 (a select, so a NaN
-// elsewhere cannot leak into them); their gradients are not stored.
+// P = exp(scale q k^T - lse) exactly, so three kernels suffice and no score
+// tile leaves registers:
+//   1. bwd_delta: D_i = sum_d dO_id O_id (fp32), one warp per (b, s, h) row;
+//   2. bwd_dkdv:  one block per (key tile, b*h), 4 warps of 16 keys (32 at
+//                 bf16 D = 32), walks every Q tile: S^T = K Q^T and dP^T =
+//                 V dO^T with the keys as the M dimension, P^T =
+//                 exp2(S^T c - lse2[row]), dS^T = P^T (dP^T - D[row]), then
+//                 dV += P^T dO and dK += dS^T Q;
+//   3. bwd_dq:    one block per (Q tile, b*h), 4 warps of 16 rows (32 at bf16
+//                 D = 32), walks every K/V tile: S = Q K^T, dP = dO V^T, dS as
+//                 above, dQ += dS K.
+// dK and dQ take the scale once, as they are stored. Each output element is
+// summed by one thread in a fixed order: no atomics, and repeated calls are
+// bit-identical.
 //
-// What bounds it: 7 products of 2 S^2 D flops per (b, h) (dkdv recomputes S
-// and dP and does two more, dq recomputes both and does one), 1.5x the 5 that
-// a single-pass backward needs, and B H S^2 exponentials twice. This first
-// version does them as fp32 FMAs on the CUDA cores, for either input dtype
-// (inputs are widened to fp32 as they are staged): each thread owns a 4 x 4
-// sub-tile of the 64 x 64 score tile (rows 4 ty + i, keys tx + 16 j) and reads
-// Q/dO and K/V rows from shared memory 16 bytes at a time (row pitch D + 4
-// floats: eight consecutive rows fall on distinct bank quads), then owns one
-// key (dkdv) or one row (dq) and a quarter of D of the accumulators. It is
-// bound by shared-memory instruction throughput, not by the FMA rate; the tensor cores are
-// the next step (mma.sync as the forward).
+// What bounds it on an H100: 7 products of 2 S^2 D flops per (b, h) (dkdv
+// recomputes S and dP and does two more, dq recomputes both and does one),
+// 1.4x the 5 a single-pass backward needs, and 2 B H S^2 exponentials. At
+// [2, 7600, 4, 32] that is 0.21 ms of bf16 tensor-core time at the data
+// sheet's peak and 0.22 ms of SFU time (16 ex2 per clock per SM); how close
+// mma.sync itself comes to that peak on the card is not measured here.
+// Leaving out the exponentials or the bf16 packing, halving the ldmatrix
+// traffic or changing the occupancy moved neither kernel (PERF.md): the
+// tensor pipe waits on dependency chains. So the design keeps the chains
+// independent and everything but the streamed tiles in registers:
+//   - the block's own side (K and V in dkdv, Q and dO in dq) is loaded once as
+//     mma A fragments and stays in registers in bf16 (D <= 64; else, and in
+//     fp32, it is reread from shared memory per k-step, to leave the
+//     registers to the accumulators); the other side streams in tiles of 64
+//     rows (32 at D = 128) through a ring of three shared-memory slots filled
+//     by cp.async, one barrier per tile, as the forward streams K/V; dkdv's
+//     ring also carries the Q tile's lse and D (4-byte copies);
+//   - at bf16 D = 32 (the path's shape) a warp owns two m16 tiles, so that
+//     every B fragment feeds four mma, and takes each 64-row tile in two
+//     sub-steps of 32 to bound the score registers;
+//   - the streamed tile is read as both B operands straight from its [row][d]
+//     layout: as the .col B of S^T / S and dP^T / dP by ldmatrix without
+//     .trans, and as the row-major B of dV, dK, dQ by ldmatrix.trans;
+//   - a sub-step issues all its S^T and dP^T (S, dP) products before its first
+//     exponential (__syncwarp between them): left alone, ptxas runs each
+//     score tile's two products, then its exponentials, then the next tile
+//     in the same registers, which leaves two mma chains in flight a warp;
+//   - P^T and dS^T (dS in dq) stay in registers: the fp32 C fragments of two
+//     adjacent n8 score tiles, packed to bf16, are one k16 A fragment of the
+//     next product (the forward's C -> A reuse for P). bf16 rounds P and dS
+//     once, as operands; every sum is fp32;
+//   - rows and keys at or past S are zero-filled by cp.async. Only the last
+//     streamed tile's instance selects P and dS of rows (dkdv) or keys (dq)
+//     past S to 0: a zero-filled row or key has s = 0 and p = exp2(-lse2) !=
+//     0, and a select (not a product with a mask) keeps a NaN elsewhere out.
+//     The block's own rows or keys past S are computed and not stored.
+// fp32 runs the same skeleton in 3xTF32 on mma.sync m16n8k8, the forward's
+// split (hi rounded on the bits, lo = x - hi, lo hi + hi lo + hi hi): the A
+// fragments are split as loaded; the streamed tile's .col B fragments come by
+// ldmatrix (an 8x8 b16 matrix is an 8x4 fp32 one) and are split as loaded;
+// P^T and dS^T (dS) keep their lanes, the tf32 A fragment's k index q standing
+// for score column 2q and q + 4 for 2q + 1, so the row-major B is read in that
+// permuted row order by 32-bit loads (conflict-free at the 4-float row pad),
+// and P and dS are split after their exponentials. The long sums (dV, dK, dQ
+// over every row or key) do not ride in the tensor cores' accumulator, whose
+// additions do not round to nearest: carried whole over 7600 rows they drift
+// by 1e-4 of max |dV| (D = 128), the whole tolerance. Each streamed tile is
+// summed into a partial from zero and folded into the accumulator by a rounded
+// fp32 add (per k-step at D >= 64, where a second set of registers does not
+// fit). At fp32 D >= 64 (off the path) dk/dv's registers are full: it
+// spills 16-24 B a thread (PERF.md).
 
-constexpr int kBwdThreads = 256;
-constexpr int kBwdTile = 64;              // query rows and keys per tile
-constexpr int kBwdLdP = kBwdTile + 4;     // pitch of the 64 x 64 P / dS tiles
+constexpr int kDeltaThreads = 256;
 
-template <int D>
+// Block shape of the dkdv and dq kernels: 4 warps, each owning kMTiles m16
+// tiles of keys (dkdv) or query rows (dq); the other side streams in tiles of
+// kBlockT rows through kStages shared-memory slots and is consumed kSub rows
+// at a time (the score registers); rows padded by 16 B, as in the forwards.
+template <int D, typename E>
 struct BwdTile {
-  static constexpr int kLd = D + 4;      // fp32 row pitch of Q, dO, K, V tiles
-  static constexpr int kPart = D / 4;    // accumulator columns per thread
-  static constexpr int kRowFloats = kBwdTile * kLd;
-  // dkdv: K, V, Q, dO tiles, lse and delta of the Q tile, P and dS
-  static constexpr int kDkdvBytes = (4 * kRowFloats + 2 * kBwdTile + 2 * kBwdTile * kBwdLdP) * 4;
-  // dq: Q, dO, K, V tiles, lse and delta, dS transposed
-  static constexpr int kDqBytes = (4 * kRowFloats + 2 * kBwdTile + kBwdTile * kBwdLdP) * 4;
+  static constexpr bool kBf16 = std::is_same<E, __nv_bfloat16>::value;
+  static constexpr int kThreads = 128;
+  // two m16 tiles a warp at bf16 D = 32, the path's shape: every B fragment
+  // loaded from shared memory then feeds four mma instead of two
+  static constexpr int kMTiles = kBf16 && D <= 32 ? 2 : 1;
+  static constexpr int kWarpRows = 16 * kMTiles;
+  static constexpr int kBlockM = 4 * kWarpRows;
+  static constexpr int kBlockT = D >= 128 ? 32 : 64;
+  static constexpr int kSub = kMTiles == 2 ? 32 : kBlockT;
+  static constexpr int kLd = D + 16 / (int)sizeof(E);
+  static constexpr int kChunks = D * (int)sizeof(E) / 16;  // 16-B chunks per row
+  static constexpr int kStages = 3;
+  static constexpr bool kAInRegisters = kBf16 && D <= 64;
+  // fp32: the long sums (dV, dK, dQ) are rounded into their accumulators
+  // once per streamed tile at D = 32, once per k-step above (registers)
+  static constexpr bool kTilePartials = !kBf16 && D <= 32;
+  static constexpr bool kRoundEachStep = !kBf16 && D > 32;
+  static constexpr int kRowBytes = kLd * (int)sizeof(E);
+  // the block's own two tiles and two streamed tiles a slot; dkdv adds the
+  // streamed rows' lse and D a slot
+  static constexpr int kDqBytes = (2 * kBlockM + 2 * kStages * kBlockT) * kRowBytes;
+  static constexpr int kDkdvBytes = kDqBytes + 2 * kStages * kBlockT * 4;
 };
+
+// An mma A fragment of 16 rows at one k-step, and the B fragments of two
+// adjacent n8 tiles at one k-step: bf16 for m16n8k16, or fp32 for m16n8k8 in
+// 3xTF32, split into hi and lo.
+template <typename E>
+struct AFrag;
+template <>
+struct AFrag<__nv_bfloat16> {
+  static constexpr int kK = 16;  // depth of a k-step
+  uint32_t r[4];
+};
+template <>
+struct AFrag<float> {
+  static constexpr int kK = 8;
+  uint32_t hi[4], lo[4];
+};
+
+template <typename E>
+struct BPair;
+template <>
+struct BPair<__nv_bfloat16> {
+  uint32_t r[4];  // tile j: r[0..1], tile j + 1: r[2..3]
+};
+template <>
+struct BPair<float> {
+  uint32_t hi[4], lo[4];
+};
+
+// The A fragment at rows row0 .. row0 + 15 and k-step kk of a [rows][kLd]
+// tile: ldmatrix matrices 0-3 = (rows 0-7, first half of the step's k), (8-15,
+// first), (0-7, second), (8-15, second); in fp32 an 8x8 b16 matrix is an 8x4
+// fp32 one.
+template <int kLd>
+__device__ __forceinline__ void load_a(AFrag<__nv_bfloat16>& a, const __nv_bfloat16* tile,
+                                       int row0, int kk, int lane) {
+  const int mat = lane / 8, mrow = lane % 8;
+  ldmatrix_x4(a.r, tile + (row0 + (mat % 2) * 8 + mrow) * kLd + kk * 16 + (mat / 2) * 8);
+}
+
+template <int kLd>
+__device__ __forceinline__ void load_a(AFrag<float>& a, const float* tile, int row0, int kk,
+                                       int lane) {
+  const int mat = lane / 8, mrow = lane % 8;
+  uint32_t raw[4];
+  ldmatrix_x4(raw, tile + (row0 + (mat % 2) * 8 + mrow) * kLd + kk * 8 + (mat / 2) * 4);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(raw[i]), a.hi[i], a.lo[i]);
+}
+
+// B of n8 tiles j, j + 1 at k-step kk, the .col operand held as rows 8j ..
+// of a [n][kLd] tile (ldmatrix without .trans).
+template <int kLd>
+__device__ __forceinline__ void load_b_rows_as_n(BPair<__nv_bfloat16>& b,
+                                                 const __nv_bfloat16* tile, int j, int kk,
+                                                 int lane) {
+  const int mat = lane / 8, mrow = lane % 8;
+  ldmatrix_x4(b.r, tile + ((j + mat / 2) * 8 + mrow) * kLd + kk * 16 + (mat % 2) * 8);
+}
+
+template <int kLd>
+__device__ __forceinline__ void load_b_rows_as_n(BPair<float>& b, const float* tile, int j,
+                                                 int kk, int lane) {
+  const int mat = lane / 8, mrow = lane % 8;
+  uint32_t raw[4];
+  ldmatrix_x4(raw, tile + ((j + mat / 2) * 8 + mrow) * kLd + kk * 8 + (mat % 2) * 4);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(raw[i]), b.hi[i], b.lo[i]);
+}
+
+// B of output tiles n, n + 1 at k-step i, the row-major operand held as rows
+// (k) of a [k][kLd] tile at columns 8n ..: bf16 by ldmatrix.trans; fp32 by
+// 32-bit loads in the permuted k order of the A fragments that to_a makes
+// (k index q = row 2q, q + 4 = row 2q + 1).
+template <int kLd>
+__device__ __forceinline__ void load_b_rows_as_k(BPair<__nv_bfloat16>& b,
+                                                 const __nv_bfloat16* tile, int i, int n,
+                                                 int lane) {
+  const int mat = lane / 8, mrow = lane % 8;
+  ldmatrix_x4_trans(b.r, tile + (i * 16 + (mat % 2) * 8 + mrow) * kLd + (n + mat / 2) * 8);
+}
+
+template <int kLd>
+__device__ __forceinline__ void load_b_rows_as_k(BPair<float>& b, const float* tile, int i,
+                                                 int n, int lane) {
+  const float* row = tile + (i * 8 + 2 * (lane % 4)) * kLd + n * 8 + lane / 4;
+  split_tf32(row[0], b.hi[0], b.lo[0]);
+  split_tf32(row[kLd], b.hi[1], b.lo[1]);
+  split_tf32(row[8], b.hi[2], b.lo[2]);
+  split_tf32(row[kLd + 8], b.hi[3], b.lo[3]);
+}
+
+// c0 += a B_first, c1 += a B_second.
+__device__ __forceinline__ void mma_pair(float* c0, float* c1, const AFrag<__nv_bfloat16>& a,
+                                         const BPair<__nv_bfloat16>& b) {
+  mma_bf16(c0, a.r, b.r);
+  mma_bf16(c1, a.r, b.r + 2);
+}
+
+__device__ __forceinline__ void mma_pair(float* c0, float* c1, const AFrag<float>& a,
+                                         const BPair<float>& b) {
+  mma_tf32x3(c0, a.hi, a.lo, b.hi, b.lo);
+  mma_tf32x3(c1, a.hi, a.lo, b.hi + 2, b.lo + 2);
+}
+
+// mma_pair into a long sum (over every row or key of S): with kRound (fp32
+// at D >= 64) the k-step is summed from zero and added by a rounded fp32 add;
+// else in place (bf16, and fp32 into a per-tile partial).
+template <bool kRound, typename E>
+__device__ __forceinline__ void mma_long(float* c0, float* c1, const AFrag<E>& a,
+                                         const BPair<E>& b) {
+  if constexpr (kRound) {
+    float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_pair(p0, p1, a, b);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      c0[x] += p0[x];
+      c1[x] += p1[x];
+    }
+  } else {
+    mma_pair(c0, c1, a, b);
+  }
+}
+
+// Score tile `part` of an A fragment from its fp32 C-fragment values x =
+// (row g, col 2q), (g, 2q + 1), (g + 8, 2q), (g + 8, 2q + 1): bf16 packs two
+// n8 tiles (part 0, 1) into one k16 fragment; fp32 takes one tile in the
+// permuted k order and splits it.
+__device__ __forceinline__ void to_a(AFrag<__nv_bfloat16>& a, int part, const float (&x)[4]) {
+  a.r[part * 2] = pack_bf16(x[0], x[1]);
+  a.r[part * 2 + 1] = pack_bf16(x[2], x[3]);
+}
+
+__device__ __forceinline__ void to_a(AFrag<float>& a, int, const float (&x)[4]) {
+  split_tf32(x[0], a.hi[0], a.lo[0]);
+  split_tf32(x[2], a.hi[1], a.lo[1]);
+  split_tf32(x[1], a.hi[2], a.lo[2]);
+  split_tf32(x[3], a.hi[3], a.lo[3]);
+}
+
+// acc += part and part = 0, over n arrays of 4.
+template <int N>
+__device__ __forceinline__ void fold(float (&acc)[N][4], float (&part)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      acc[n][x] += part[n][x];
+      part[n][x] = 0.f;
+    }
+}
+
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_float(float& y, float x) { y = x; }
-__device__ __forceinline__ void from_float(__nv_bfloat16& y, float x) { y = __float2bfloat16(x); }
 
-// Rows r0 .. r0 + 63 of one (b, h) of a [*, seq, heads, D] tensor (row stride
-// `stride` elements, `src` at the head's first element) into dst[64][kLd] as
-// fp32; rows at or past seq are zero.
-template <int D, typename E>
-__device__ __forceinline__ void stage_tile(float* dst, const E* src, int64_t stride, int r0,
-                                           int seq) {
-  using T = BwdTile<D>;
-  for (int i = threadIdx.x; i < kBwdTile * D; i += kBwdThreads) {
-    const int r = i / D, d = i % D;
-    dst[r * T::kLd + d] = r0 + r < seq ? to_float(src[(int64_t)(r0 + r) * stride + d]) : 0.f;
-  }
-}
-
-// The thread's 4 x 4 sub-tile of a = X Y^T and c = U W^T for 64-row tiles
-// X, U (rows 4 ty + i) and Y, W (rows tx + 16 j), all [64][kLd].
-template <int D>
-__device__ __forceinline__ void two_products(const float* x, const float* y, const float* u,
-                                             const float* w, int ty, int tx, float (&a)[4][4],
-                                             float (&c)[4][4]) {
-  using T = BwdTile<D>;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a[i][j] = c[i][j] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 xr[4], ur[4], yr[4], wr[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      xr[i] = *reinterpret_cast<const float4*>(x + (4 * ty + i) * T::kLd + d);
-      ur[i] = *reinterpret_cast<const float4*>(u + (4 * ty + i) * T::kLd + d);
-      yr[i] = *reinterpret_cast<const float4*>(y + (tx + 16 * i) * T::kLd + d);
-      wr[i] = *reinterpret_cast<const float4*>(w + (tx + 16 * i) * T::kLd + d);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        a[i][j] = fmaf(xr[i].x, yr[j].x, a[i][j]);
-        a[i][j] = fmaf(xr[i].y, yr[j].y, a[i][j]);
-        a[i][j] = fmaf(xr[i].z, yr[j].z, a[i][j]);
-        a[i][j] = fmaf(xr[i].w, yr[j].w, a[i][j]);
-        c[i][j] = fmaf(ur[i].x, wr[j].x, c[i][j]);
-        c[i][j] = fmaf(ur[i].y, wr[j].y, c[i][j]);
-        c[i][j] = fmaf(ur[i].z, wr[j].z, c[i][j]);
-        c[i][j] = fmaf(ur[i].w, wr[j].w, c[i][j]);
-      }
-  }
-}
-
-// acc[n] += sum_r coef[r * coef_pitch] * rows[r * kLd + n] for the kPart
-// columns starting at `rows`, over the 64 rows of a tile.
-template <int D>
-__device__ __forceinline__ void accumulate_rows(float (&acc)[BwdTile<D>::kPart], const float* coef,
-                                                int coef_pitch, const float* rows) {
-  using T = BwdTile<D>;
-#pragma unroll 4
-  for (int r = 0; r < kBwdTile; ++r) {
-    const float cr = coef[r * coef_pitch];
-#pragma unroll
-    for (int n = 0; n < T::kPart; n += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(rows + r * T::kLd + n);
-      acc[n] = fmaf(cr, v.x, acc[n]);
-      acc[n + 1] = fmaf(cr, v.y, acc[n + 1]);
-      acc[n + 2] = fmaf(cr, v.z, acc[n + 2]);
-      acc[n + 3] = fmaf(cr, v.w, acc[n + 3]);
-    }
+// lse and D of rows r0 .. r0 + kRows - 1 into lse_dst / delta_dst, one 4-byte
+// cp.async a thread; rows at or past seq are zero.
+template <class T, int kRows>
+__device__ __forceinline__ void stage_row_stats(float* lse_dst, float* delta_dst,
+                                                const float* lse, const float* delta, int r0,
+                                                int seq) {
+  static_assert(2 * kRows <= T::kThreads, "one value a thread");
+  if (threadIdx.x < 2 * kRows) {
+    const int r = threadIdx.x % kRows;
+    const bool first = threadIdx.x < kRows, ok = r0 + r < seq;
+    const float* src = first ? lse : delta;
+    cp_async4((first ? lse_dst : delta_dst) + r, ok ? src + r0 + r : src, ok);
   }
 }
 
 // delta [batch, heads, seq] = rowwise sum of dO O, for contiguous
 // [batch, seq, heads, D] dO and O; one warp per row.
 template <int D, typename E>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kDeltaThreads)
 flash_attention_bwd_delta_kernel(const E* __restrict__ o, const E* __restrict__ dout,
                                  float* __restrict__ delta, int64_t rows, int seq, int heads) {
-  const int64_t row = (int64_t)blockIdx.x * (kBwdThreads / 32) + threadIdx.x / 32;
+  const int64_t row = (int64_t)blockIdx.x * (kDeltaThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
   float acc = 0.f;
@@ -708,183 +868,423 @@ flash_attention_bwd_delta_kernel(const E* __restrict__ o, const E* __restrict__ 
   }
 }
 
-// The tile pair's P and dS: P = exp(scale s - lse) where row and key are
-// below seq, else 0; dS = P (dP - delta), 0 where P is masked.
-__device__ __forceinline__ void probabilities(const float (&s)[4][4], const float (&dp)[4][4],
-                                              const float* lse2, const float* delta, int ty,
-                                              int tx, int r0, int c0, int seq, float c,
-                                              float (&p)[4][4], float (&ds)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    const bool row_ok = r0 + r < seq;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool ok = row_ok && c0 + tx + 16 * j < seq;
-      const float pr = exp2_approx(fmaf(s[i][j], c, -lse2[r]));
-      p[i][j] = ok ? pr : 0.f;
-      ds[i][j] = ok ? pr * (dp[i][j] - delta[r]) : 0.f;
-    }
-  }
-}
-
 template <int D, typename E>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(BwdTile<D, E>::kThreads)
 flash_attention_bwd_dkdv_kernel(const E* __restrict__ q, const E* __restrict__ k,
                                 const E* __restrict__ v, const E* __restrict__ dout,
                                 const float* __restrict__ lse, const float* __restrict__ delta,
                                 E* __restrict__ dk, E* __restrict__ dv, Strides st, int seq,
                                 int heads, float scale) {
-  using T = BwdTile<D>;
+  using T = BwdTile<D, E>;
+  using A = AFrag<E>;
+  using B = BPair<E>;
+  constexpr int kLd = T::kLd, kBlockT = T::kBlockT, kSub = T::kSub, kM = T::kMTiles;
+  constexpr int kTile = kBlockT * kLd;          // elements of one streamed tile
+  constexpr int kKSteps = D / A::kK;            // k-steps of S^T and dP^T
+  constexpr int kSTiles = kSub / 8;             // n8 score tiles per sub-step
+  constexpr int kPer = A::kK / 8;               // score tiles per k-step of dV, dK
+  constexpr int kPSteps = kSub / A::kK;         // k-steps of dV and dK per sub-step
+  constexpr int kOTiles = D / 8;                // n8 tiles of dK and dV
+  constexpr int kKept = T::kAInRegisters ? kKSteps : 1;
+
   extern __shared__ __align__(16) unsigned char smem[];
-  float* k_s = reinterpret_cast<float*>(smem);
-  float* v_s = k_s + T::kRowFloats;
-  float* q_s = v_s + T::kRowFloats;
-  float* do_s = q_s + T::kRowFloats;
-  float* lse_s = do_s + T::kRowFloats;       // lse * log2(e)
-  float* delta_s = lse_s + kBwdTile;
-  float* p_s = delta_s + kBwdTile;           // [row][key]
-  float* ds_s = p_s + kBwdTile * kBwdLdP;    // [row][key]
+  E* k_s = reinterpret_cast<E*>(smem);           // [kBlockM][kLd]
+  E* v_s = k_s + T::kBlockM * kLd;               // [kBlockM][kLd]
+  E* q_s = v_s + T::kBlockM * kLd;               // [kStages][kBlockT][kLd]
+  E* do_s = q_s + T::kStages * kTile;            // [kStages][kBlockT][kLd]
+  float* lse_s = reinterpret_cast<float*>(do_s + T::kStages * kTile);  // [kStages][kBlockT]
+  float* delta_s = lse_s + T::kStages * kBlockT;                       // [kStages][kBlockT]
 
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const int k0 = blockIdx.x * kBwdTile;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int key = threadIdx.x % kBwdTile, part = threadIdx.x / kBwdTile;  // accumulators
+  const int k0 = blockIdx.x * T::kBlockM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int row0 = warp * T::kWarpRows;  // the warp's first key in the block
   const int64_t o_row = (int64_t)heads * D;
   const E* qg = q + b * st.qb + h * D;
-  const E* dog = dout + (int64_t)b * seq * o_row + h * D;
+  const E* dog = dout + b * seq * o_row + h * D;
   const float* lse_g = lse + ((int64_t)b * heads + h) * seq;
   const float* delta_g = delta + ((int64_t)b * heads + h) * seq;
+  const int n_tiles = (seq + kBlockT - 1) / kBlockT;
+
+  // Q tile t (with its dO, lse and D) goes to slot t % kStages, one cp.async
+  // group per tile (K and V ride with tile 0), as the forward's K/V ring
+  auto stage_q = [&](int t) {
+    const int slot = t % T::kStages;
+    stage_rows<T, kBlockT>(q_s + slot * kTile, qg, st.qr, t * kBlockT, seq);
+    stage_rows<T, kBlockT>(do_s + slot * kTile, dog, o_row, t * kBlockT, seq);
+    stage_row_stats<T, kBlockT>(lse_s + slot * kBlockT, delta_s + slot * kBlockT, lse_g, delta_g,
+                             t * kBlockT, seq);
+  };
+  stage_rows<T, T::kBlockM>(k_s, k + b * st.kb + h * D, st.kr, k0, seq);
+  stage_rows<T, T::kBlockM>(v_s, v + b * st.vb + h * D, st.vr, k0, seq);
+  stage_q(0);
+  cp_async_commit();
+  if (n_tiles > 1) stage_q(1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  A ka[kKept][kM], va[kKept][kM];
+  if constexpr (T::kAInRegisters) {
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk)
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        load_a<kLd>(ka[kk][m], k_s, row0 + 16 * m, kk, lane);
+        load_a<kLd>(va[kk][m], v_s, row0 + 16 * m, kk, lane);
+      }
+  }
+  // dK, dV and (fp32 at D = 32) this tile's partial sums of them
+  float dk_acc[kM][kOTiles][4], dv_acc[kM][kOTiles][4];
+  float dk_part[kM][kOTiles][4], dv_part[kM][kOTiles][4];
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+#pragma unroll
+    for (int n = 0; n < kOTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk_acc[m][n][e] = dv_acc[m][n][e] = dk_part[m][n][e] =
+          dv_part[m][n][e] = 0.f;
+  float(&dk_sum)[kM][kOTiles][4] = T::kTilePartials ? dk_part : dk_acc;
+  float(&dv_sum)[kM][kOTiles][4] = T::kTilePartials ? dv_part : dv_acc;
   const float c = scale * kLog2e;
 
-  stage_tile<D>(k_s, k + b * st.kb + h * D, st.kr, k0, seq);
-  stage_tile<D>(v_s, v + b * st.vb + h * D, st.vr, k0, seq);
-  float dk_acc[T::kPart], dv_acc[T::kPart];
+  auto step = [&](const int t, auto ragged) {
+    cp_async_wait<1>();  // tile t has landed ...
+    __syncthreads();     // ... for every thread, and every warp is done with tile t-1
+    if (t + 2 < n_tiles) stage_q(t + 2);  // into tile t-1's slot
+    cp_async_commit();
+    const int slot = t % T::kStages;
 #pragma unroll
-  for (int n = 0; n < T::kPart; ++n) dk_acc[n] = dv_acc[n] = 0.f;
+    for (int sub = 0; sub < kBlockT / kSub; ++sub) {
+      const E* qs = q_s + slot * kTile + sub * kSub * kLd;
+      const E* dos = do_s + slot * kTile + sub * kSub * kLd;
+      const float* ls = lse_s + slot * kBlockT + sub * kSub;
+      const float* dls = delta_s + slot * kBlockT + sub * kSub;
+      const int r0 = t * kBlockT + sub * kSub;  // the sub-step's first query row
 
-  for (int r0 = 0; r0 < seq; r0 += kBwdTile) {
-    __syncthreads();  // every thread is done with the previous Q tile
-    stage_tile<D>(q_s, qg, st.qr, r0, seq);
-    stage_tile<D>(do_s, dog, o_row, r0, seq);
-    for (int r = threadIdx.x; r < kBwdTile; r += kBwdThreads) {
-      const bool ok = r0 + r < seq;
-      lse_s[r] = ok ? lse_g[r0 + r] * kLog2e : 0.f;
-      delta_s[r] = ok ? delta_g[r0 + r] : 0.f;
-    }
-    __syncthreads();
-    float s[4][4], dp[4][4], p[4][4], ds[4][4];
-    two_products<D>(q_s, k_s, do_s, v_s, ty, tx, s, dp);
-    probabilities(s, dp, lse_s, delta_s, ty, tx, r0, k0, seq, c, p, ds);
+      // S^T = K Q^T and dP^T = V dO^T: the warp's keys x the sub-step's rows
+      float s[kM][kSTiles][4], dp[kM][kSTiles][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int m = 0; m < kM; ++m)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p_s[(4 * ty + i) * kBwdLdP + tx + 16 * j] = p[i][j];
-        ds_s[(4 * ty + i) * kBwdLdP + tx + 16 * j] = ds[i][j];
+        for (int j = 0; j < kSTiles; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[m][j][e] = dp[m][j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk) {
+        A kf[kM], vf[kM];
+#pragma unroll
+        for (int m = 0; m < kM; ++m) {
+          if constexpr (T::kAInRegisters) {
+            kf[m] = ka[kk][m];
+            vf[m] = va[kk][m];
+          } else {
+            load_a<kLd>(kf[m], k_s, row0 + 16 * m, kk, lane);
+            load_a<kLd>(vf[m], v_s, row0 + 16 * m, kk, lane);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kSTiles; j += 2) {
+          B qb, ob;
+          load_b_rows_as_n<kLd>(qb, qs, j, kk, lane);
+          load_b_rows_as_n<kLd>(ob, dos, j, kk, lane);
+#pragma unroll
+          for (int m = 0; m < kM; ++m) {
+            mma_pair(s[m][j], s[m][j + 1], kf[m], qb);
+            mma_pair(dp[m][j], dp[m][j + 1], vf[m], ob);
+          }
+        }
       }
-    __syncthreads();
-    accumulate_rows<D>(dv_acc, p_s + key, kBwdLdP, do_s + part * T::kPart);
-    accumulate_rows<D>(dk_acc, ds_s + key, kBwdLdP, q_s + part * T::kPart);
-  }
-  if (k0 + key < seq) {
-    const int64_t at = ((int64_t)b * seq + k0 + key) * o_row + h * D + part * T::kPart;
+
+      __syncwarp();  // every product of the sub-step issues before its first exponential
+      // P^T and dS^T by k-step of dV += P^T dO and dK += dS^T Q; the columns
+      // (query rows) of score tile j in this lane are 8j + 2 tq and + 1
 #pragma unroll
-    for (int n = 0; n < T::kPart; ++n) {
-      from_float(dk[at + n], dk_acc[n] * scale);
-      from_float(dv[at + n], dv_acc[n]);
+      for (int i = 0; i < kPSteps; ++i) {
+        A pa[kM], dsa[kM];
+#pragma unroll
+        for (int part = 0; part < kPer; ++part) {
+          const int j = i * kPer + part;
+          const int col = j * 8 + 2 * tq;
+          const float2 l = *reinterpret_cast<const float2*>(ls + col);
+          const float2 dl = *reinterpret_cast<const float2*>(dls + col);
+          const float nl0 = -l.x * kLog2e, nl1 = -l.y * kLog2e;
+#pragma unroll
+          for (int m = 0; m < kM; ++m) {
+            const float(&sj)[4] = s[m][j];
+            const float(&dpj)[4] = dp[m][j];
+            float p[4] = {exp2_approx(fmaf(sj[0], c, nl0)), exp2_approx(fmaf(sj[1], c, nl1)),
+                          exp2_approx(fmaf(sj[2], c, nl0)), exp2_approx(fmaf(sj[3], c, nl1))};
+            float ds[4] = {p[0] * (dpj[0] - dl.x), p[1] * (dpj[1] - dl.y),
+                           p[2] * (dpj[2] - dl.x), p[3] * (dpj[3] - dl.y)};
+            if constexpr (decltype(ragged)::value) {  // query rows at or past seq
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (r0 + col + (e & 1) >= seq) p[e] = ds[e] = 0.f;
+            }
+            to_a(pa[m], part, p);
+            to_a(dsa[m], part, ds);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kOTiles; n += 2) {
+          B ob, qb;
+          load_b_rows_as_k<kLd>(ob, dos, i, n, lane);
+          load_b_rows_as_k<kLd>(qb, qs, i, n, lane);
+#pragma unroll
+          for (int m = 0; m < kM; ++m) {
+            mma_long<T::kRoundEachStep>(dv_sum[m][n], dv_sum[m][n + 1], pa[m], ob);
+            mma_long<T::kRoundEachStep>(dk_sum[m][n], dk_sum[m][n + 1], dsa[m], qb);
+          }
+        }
+      }
     }
-  }
+    if constexpr (T::kTilePartials) {
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        fold(dk_acc[m], dk_part[m]);
+        fold(dv_acc[m], dv_part[m]);
+      }
+    }
+  };
+  for (int t = 0; t + 1 < n_tiles; ++t) step(t, std::false_type{});
+  step(n_tiles - 1, std::true_type{});
+
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = k0 + row0 + 16 * m + g + 8 * r;
+      if (key < seq) {
+        const int64_t at = ((int64_t)b * seq + key) * o_row + h * D + 2 * tq;
+#pragma unroll
+        for (int n = 0; n < kOTiles; ++n) {
+          store2(dk + at + n * 8, dk_acc[m][n][2 * r] * scale, dk_acc[m][n][2 * r + 1] * scale);
+          store2(dv + at + n * 8, dv_acc[m][n][2 * r], dv_acc[m][n][2 * r + 1]);
+        }
+      }
+    }
 }
 
 template <int D, typename E>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(BwdTile<D, E>::kThreads)
 flash_attention_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
                               const E* __restrict__ v, const E* __restrict__ dout,
                               const float* __restrict__ lse, const float* __restrict__ delta,
                               E* __restrict__ dq, Strides st, int seq, int heads, float scale) {
-  using T = BwdTile<D>;
+  using T = BwdTile<D, E>;
+  using A = AFrag<E>;
+  using B = BPair<E>;
+  constexpr int kLd = T::kLd, kBlockT = T::kBlockT, kSub = T::kSub, kM = T::kMTiles;
+  constexpr int kTile = kBlockT * kLd;
+  constexpr int kKSteps = D / A::kK;
+  constexpr int kSTiles = kSub / 8;
+  constexpr int kPer = A::kK / 8;
+  constexpr int kPSteps = kSub / A::kK;  // k-steps of dQ per sub-step
+  constexpr int kOTiles = D / 8;
+  constexpr int kKept = T::kAInRegisters ? kKSteps : 1;
+
   extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);
-  float* do_s = q_s + T::kRowFloats;
-  float* k_s = do_s + T::kRowFloats;
-  float* v_s = k_s + T::kRowFloats;
-  float* lse_s = v_s + T::kRowFloats;
-  float* delta_s = lse_s + kBwdTile;
-  float* dst_s = delta_s + kBwdTile;  // dS transposed, [key][row]
+  E* q_s = reinterpret_cast<E*>(smem);   // [kBlockM][kLd]
+  E* do_s = q_s + T::kBlockM * kLd;      // [kBlockM][kLd]
+  E* k_s = do_s + T::kBlockM * kLd;      // [kStages][kBlockT][kLd]
+  E* v_s = k_s + T::kStages * kTile;     // [kStages][kBlockT][kLd]
 
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const int r0 = blockIdx.x * kBwdTile;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int row = threadIdx.x % kBwdTile, part = threadIdx.x / kBwdTile;
+  const int q0 = blockIdx.x * T::kBlockM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int row0 = warp * T::kWarpRows;  // the warp's first query row in the block
   const int64_t o_row = (int64_t)heads * D;
   const E* kg = k + b * st.kb + h * D;
   const E* vg = v + b * st.vb + h * D;
   const float* lse_g = lse + ((int64_t)b * heads + h) * seq;
   const float* delta_g = delta + ((int64_t)b * heads + h) * seq;
+  const int n_tiles = (seq + kBlockT - 1) / kBlockT;
+
+  auto stage_kv = [&](int t) {
+    const int slot = t % T::kStages;
+    stage_rows<T, kBlockT>(k_s + slot * kTile, kg, st.kr, t * kBlockT, seq);
+    stage_rows<T, kBlockT>(v_s + slot * kTile, vg, st.vr, t * kBlockT, seq);
+  };
+  stage_rows<T, T::kBlockM>(q_s, q + b * st.qb + h * D, st.qr, q0, seq);
+  stage_rows<T, T::kBlockM>(do_s, dout + b * seq * o_row + h * D, o_row, q0, seq);
+  stage_kv(0);
+  cp_async_commit();
+  if (n_tiles > 1) stage_kv(1);
+  cp_async_commit();
+
+  // the lane's rows (g, g + 8 of each m16 tile): -lse log2(e) and D
+  float nl[kM][2], dl[kM][2];
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + row0 + 16 * m + g + 8 * r;
+      nl[m][r] = row < seq ? -lse_g[row] * kLog2e : 0.f;
+      dl[m][r] = row < seq ? delta_g[row] : 0.f;
+    }
+  cp_async_wait<1>();
+  __syncthreads();
+
+  A qa[kKept][kM], oa[kKept][kM];
+  if constexpr (T::kAInRegisters) {
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk)
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        load_a<kLd>(qa[kk][m], q_s, row0 + 16 * m, kk, lane);
+        load_a<kLd>(oa[kk][m], do_s, row0 + 16 * m, kk, lane);
+      }
+  }
+  float acc[kM][kOTiles][4], part[kM][kOTiles][4];
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+#pragma unroll
+    for (int n = 0; n < kOTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = part[m][n][e] = 0.f;
+  float(&sum)[kM][kOTiles][4] = T::kTilePartials ? part : acc;
   const float c = scale * kLog2e;
 
-  stage_tile<D>(q_s, q + b * st.qb + h * D, st.qr, r0, seq);
-  stage_tile<D>(do_s, dout + (int64_t)b * seq * o_row + h * D, o_row, r0, seq);
-  for (int r = threadIdx.x; r < kBwdTile; r += kBwdThreads) {
-    const bool ok = r0 + r < seq;
-    lse_s[r] = ok ? lse_g[r0 + r] * kLog2e : 0.f;
-    delta_s[r] = ok ? delta_g[r0 + r] : 0.f;
-  }
-  float dq_acc[T::kPart];
+  auto step = [&](const int t, auto ragged) {
+    cp_async_wait<1>();
+    __syncthreads();
+    if (t + 2 < n_tiles) stage_kv(t + 2);
+    cp_async_commit();
 #pragma unroll
-  for (int n = 0; n < T::kPart; ++n) dq_acc[n] = 0.f;
+    for (int sub = 0; sub < kBlockT / kSub; ++sub) {
+      const E* ks = k_s + (t % T::kStages) * kTile + sub * kSub * kLd;
+      const E* vs = v_s + (t % T::kStages) * kTile + sub * kSub * kLd;
+      const int c0 = t * kBlockT + sub * kSub;  // the sub-step's first key
 
-  for (int k0 = 0; k0 < seq; k0 += kBwdTile) {
-    __syncthreads();  // every thread is done with the previous K/V tile
-    stage_tile<D>(k_s, kg, st.kr, k0, seq);
-    stage_tile<D>(v_s, vg, st.vr, k0, seq);
-    __syncthreads();
-    float s[4][4], dp[4][4], p[4][4], ds[4][4];
-    two_products<D>(q_s, k_s, do_s, v_s, ty, tx, s, dp);
-    probabilities(s, dp, lse_s, delta_s, ty, tx, r0, k0, seq, c, p, ds);
+      // S = Q K^T and dP = dO V^T: the warp's rows x the sub-step's keys
+      float s[kM][kSTiles][4], dp[kM][kSTiles][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int m = 0; m < kM; ++m)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) dst_s[(tx + 16 * j) * kBwdLdP + 4 * ty + i] = ds[i][j];
-    __syncthreads();
-    accumulate_rows<D>(dq_acc, dst_s + row, kBwdLdP, k_s + part * T::kPart);
-  }
-  if (r0 + row < seq) {
-    const int64_t at = ((int64_t)b * seq + r0 + row) * o_row + h * D + part * T::kPart;
+        for (int j = 0; j < kSTiles; ++j)
 #pragma unroll
-    for (int n = 0; n < T::kPart; ++n) from_float(dq[at + n], dq_acc[n] * scale);
-  }
+          for (int e = 0; e < 4; ++e) s[m][j][e] = dp[m][j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk) {
+        A qf[kM], of[kM];
+#pragma unroll
+        for (int m = 0; m < kM; ++m) {
+          if constexpr (T::kAInRegisters) {
+            qf[m] = qa[kk][m];
+            of[m] = oa[kk][m];
+          } else {
+            load_a<kLd>(qf[m], q_s, row0 + 16 * m, kk, lane);
+            load_a<kLd>(of[m], do_s, row0 + 16 * m, kk, lane);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kSTiles; j += 2) {
+          B kb, vb;
+          load_b_rows_as_n<kLd>(kb, ks, j, kk, lane);
+          load_b_rows_as_n<kLd>(vb, vs, j, kk, lane);
+#pragma unroll
+          for (int m = 0; m < kM; ++m) {
+            mma_pair(s[m][j], s[m][j + 1], qf[m], kb);
+            mma_pair(dp[m][j], dp[m][j + 1], of[m], vb);
+          }
+        }
+      }
+
+      __syncwarp();  // every product of the sub-step issues before its first exponential
+      // dS by k-step of dQ += dS K; the keys of score tile j in this lane are
+      // 8j + 2 tq and + 1
+#pragma unroll
+      for (int i = 0; i < kPSteps; ++i) {
+        A dsa[kM];
+#pragma unroll
+        for (int prt = 0; prt < kPer; ++prt) {
+          const int j = i * kPer + prt;
+#pragma unroll
+          for (int m = 0; m < kM; ++m) {
+            const float(&sj)[4] = s[m][j];
+            const float(&dpj)[4] = dp[m][j];
+            const float p0 = exp2_approx(fmaf(sj[0], c, nl[m][0]));
+            const float p1 = exp2_approx(fmaf(sj[1], c, nl[m][0]));
+            const float p2 = exp2_approx(fmaf(sj[2], c, nl[m][1]));
+            const float p3 = exp2_approx(fmaf(sj[3], c, nl[m][1]));
+            float ds[4] = {p0 * (dpj[0] - dl[m][0]), p1 * (dpj[1] - dl[m][0]),
+                           p2 * (dpj[2] - dl[m][1]), p3 * (dpj[3] - dl[m][1])};
+            if constexpr (decltype(ragged)::value) {  // keys at or past seq
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (c0 + j * 8 + 2 * tq + (e & 1) >= seq) ds[e] = 0.f;
+            }
+            to_a(dsa[m], prt, ds);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kOTiles; n += 2) {
+          B kb;
+          load_b_rows_as_k<kLd>(kb, ks, i, n, lane);
+#pragma unroll
+          for (int m = 0; m < kM; ++m)
+            mma_long<T::kRoundEachStep>(sum[m][n], sum[m][n + 1], dsa[m], kb);
+        }
+      }
+    }
+    if constexpr (T::kTilePartials) {
+#pragma unroll
+      for (int m = 0; m < kM; ++m) fold(acc[m], part[m]);
+    }
+  };
+  for (int t = 0; t + 1 < n_tiles; ++t) step(t, std::false_type{});
+  step(n_tiles - 1, std::true_type{});
+
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + row0 + 16 * m + g + 8 * r;
+      if (row < seq) {
+        E* out = dq + ((int64_t)b * seq + row) * o_row + h * D + 2 * tq;
+#pragma unroll
+        for (int n = 0; n < kOTiles; ++n)
+          store2(out + n * 8, acc[m][n][2 * r] * scale, acc[m][n][2 * r + 1] * scale);
+      }
+    }
+}
+
+// Dynamic shared memory above 48 KB needs the kernel's opt-in (per device).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 template <int D, typename E>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
                const float* lse, void* dq, void* dk, void* dv, float* delta, Strides st,
                int batch, int seq, int heads, float scale, cudaStream_t stream) {
-  using T = BwdTile<D>;
+  using T = BwdTile<D, E>;
   const int64_t rows = (int64_t)batch * seq * heads;
-  const int rows_per_block = kBwdThreads / 32;
+  const int rows_per_block = kDeltaThreads / 32;
   flash_attention_bwd_delta_kernel<D, E>
-      <<<(unsigned)((rows + rows_per_block - 1) / rows_per_block), kBwdThreads, 0, stream>>>(
+      <<<(unsigned)((rows + rows_per_block - 1) / rows_per_block), kDeltaThreads, 0, stream>>>(
           static_cast<const E*>(o), static_cast<const E*>(dout), delta, rows, seq, heads);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<D, E>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, T::kDkdvBytes);
+  const dim3 grid((seq + T::kBlockM - 1) / T::kBlockM, batch * heads);
+  err = allow_smem(flash_attention_bwd_dkdv_kernel<D, E>, T::kDkdvBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((seq + kBwdTile - 1) / kBwdTile, batch * heads);
-  flash_attention_bwd_dkdv_kernel<D, E><<<grid, kBwdThreads, T::kDkdvBytes, stream>>>(
+  flash_attention_bwd_dkdv_kernel<D, E><<<grid, T::kThreads, T::kDkdvBytes, stream>>>(
       static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
       static_cast<const E*>(dout), lse, delta, static_cast<E*>(dk), static_cast<E*>(dv), st, seq,
       heads, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<D, E>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, T::kDqBytes);
+  err = allow_smem(flash_attention_bwd_dq_kernel<D, E>, T::kDqBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_attention_bwd_dq_kernel<D, E><<<grid, kBwdThreads, T::kDqBytes, stream>>>(
+  flash_attention_bwd_dq_kernel<D, E><<<grid, T::kThreads, T::kDqBytes, stream>>>(
       static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
       static_cast<const E*>(dout), lse, delta, static_cast<E*>(dq), st, seq, heads, scale);
   return static_cast<int>(cudaGetLastError());
@@ -910,9 +1310,7 @@ template <int D>
 int launch_fp32(const void* q, const void* k, const void* v, void* o, float* lse, Strides st,
                 int batch, int seq, int heads, float scale, cudaStream_t stream) {
   using T = Tf32Tile<D>;
-  const cudaError_t attr = cudaFuncSetAttribute(flash_attention_fwd_kernel_tf32<D>,
-                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                T::kSmemBytes);
+  const cudaError_t attr = allow_smem(flash_attention_fwd_kernel_tf32<D>, T::kSmemBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((seq + T::kBlockM - 1) / T::kBlockM, batch * heads);
   flash_attention_fwd_kernel_tf32<D><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
@@ -925,12 +1323,8 @@ template <int D>
 int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, Strides st,
               int batch, int seq, int heads, float scale, cudaStream_t stream) {
   using T = TcTile<D>;
-  if (T::kSmemBytes > 48 * 1024) {  // above 48 KB only after opting in (per device)
-    const cudaError_t attr = cudaFuncSetAttribute(flash_attention_fwd_kernel_tc<D>,
-                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                  T::kSmemBytes);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-  }
+  const cudaError_t attr = allow_smem(flash_attention_fwd_kernel_tc<D>, T::kSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((seq + T::kBlockM - 1) / T::kBlockM, batch * heads);
   flash_attention_fwd_kernel_tc<D><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),

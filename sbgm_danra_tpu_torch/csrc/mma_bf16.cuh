@@ -31,6 +31,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                : "memory");
 }
 
+// 4 bytes global -> shared, asynchronously (cp.async.ca); valid = false
+// writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -13,9 +13,11 @@ first use, and loads it with ``ctypes``.
   (``tc_bf16``), a float32 call the 3xTF32 tensor-core variant (``fp32``),
   which keeps fp32's accuracy. When autograd needs the gradient the forward
   also writes each row's log-sum-exp, and the backward launches the three
-  backward kernels (delta, dk/dv, dq) on the saved q, k, v, output and
-  log-sum-exp: the same gradients as the JAX VJP's dense recomputation,
-  without the S x S matrices.
+  backward kernels on the saved q, k, v, output and log-sum-exp: delta
+  (rowwise dO.O), then dk/dv and dq on the tensor cores in the call's dtype
+  (bf16 mma.sync, or 3xTF32 mma.sync in fp32): the same gradients as the JAX
+  VJP's dense recomputation, without the S x S matrices, and bit-identical
+  from call to call.
 - ``kernel_layout``: the wrapper's checks as a pure function of shapes,
   strides, dtypes and addresses: the variant, the head dim the kernel is built
   for and the strides it is handed, or an error.
@@ -26,7 +28,7 @@ first use, and loads it with ``ctypes``.
   ``jax.grad`` of the Pallas kernel and the card holds the kernels against.
 - ``launches`` / ``launches_by_variant``: forward launches in this process;
   ``bwd_launches`` / ``bwd_launches_by_variant`` backward calls (each one
-  launches the three backward kernels).
+  launches the three backward kernels of its dtype's variant).
 
 q, k and v may be strided views, as the chunks of a packed QKV projection
 are: the kernels take each one's batch and row strides. They need a unit

@@ -469,16 +469,19 @@ def _kernel_grads(q, k, v, dout):
     return out.detach(), (q.grad, k.grad, v.grad)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", _BWD_SHAPES)
-def test_bwd_matches_plain_version(cuda, shape, dtype):
+def _check_bwd(shape, dtype, cuda, late_key_scale=None):
     """dq, dk, dv of the kernels against the dense plain backward in fp32 on the
     same inputs, the kernel's own output and the plain lse: each gradient within
-    1e-2 (bf16: the gradients are rounded to bf16, 2^-9 relative, and a row's
-    sums reach a few hundred terms of either sign) or 1e-4 (fp32: summation
-    order only) of its max |ref|; a second call repeats bit-identically, and
-    one call is one backward launch of the dtype's variant."""
+    1e-2 (bf16: P and dS are rounded to bf16 as mma operands and the gradients
+    to bf16, 2^-9 relative each, and a row's sums reach a few hundred terms of
+    either sign) or 1e-4 (fp32: 3xTF32 keeps fp32's accuracy; summation order
+    only) of its max |ref|; a second call repeats bit-identically, and one call
+    is one backward launch of the dtype's variant. ``late_key_scale`` scales
+    the keys past 4000."""
     q, k, v = _packed_qkv(shape, dtype, cuda, seed=3)
+    if late_key_scale is not None:
+        k = k.clone()
+        k[:, 4000:] *= late_key_scale
     g = torch.Generator(cuda).manual_seed(4)
     dout = torch.randn(shape, generator=g, device=cuda).to(dtype)
     before = dict(cuda_attention.bwd_launches_by_variant)
@@ -493,8 +496,66 @@ def test_bwd_matches_plain_version(cuda, shape, dtype):
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dtype and a.shape == shape
+        assert torch.isfinite(a).all(), name
         err = (a.float() - b).abs().max().item()
         assert err <= tol * b.abs().max().item(), (name, err, b.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", _BWD_SHAPES)
+def test_bwd_matches_plain_version(cuda, shape, dtype):
+    """See _check_bwd."""
+    _check_bwd(shape, dtype, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 33, 2, 24), (2, 65, 2, 24), (2, 7600, 2, 24),
+                                   (1, 33, 1, 32)])
+def test_bwd_ragged_and_small_sequences(cuda, shape, dtype):
+    """S below one tile, one row past a tile, and the path's S = 7600 (a last
+    tile of 48), with D = 24 zero-padded to 32: the last tile's padded rows
+    (dk/dv) and keys (dq) must contribute nothing (see _check_bwd)."""
+    _check_bwd(shape, dtype, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bwd_late_keys_far_above_the_early_max(cuda, dtype):
+    """Keys past 4000 x 8 (the F8 card test's forward case): scores some 40
+    above the early ones in log2 units, so P is near 1 on a few keys and dS
+    large there (see _check_bwd)."""
+    _check_bwd((2, 7600, 4, 32), dtype, cuda, late_key_scale=8)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bwd_one_call_is_one_launch_of_its_variant(cuda, dtype):
+    """One backward call counts one backward launch of its dtype's variant and
+    runs exactly the three backward kernels (delta, dk/dv, dq) once each on
+    the card, instantiated for its dtype. A profiler session that records no
+    device event at all (not even the gradient's fill) saw nothing and is
+    taken again, at most three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = (x.detach().requires_grad_() for x in _packed_qkv((1, 300, 2, 32), dtype, cuda, 9))
+    variant = "tc_bf16" if dtype == torch.bfloat16 else "fp32"
+    for _ in range(3):
+        out = flash_attention_cuda(q, k, v)
+        before = dict(cuda_attention.bwd_launches_by_variant)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out.backward(torch.ones_like(out))
+            torch.cuda.synchronize()
+        assert cuda_attention.bwd_launches_by_variant == {**before, variant: before[variant] + 1}
+        device = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        if device:
+            break
+    else:
+        pytest.fail("the profiler recorded no device event in three sessions")
+    names = [n for n in device if "flash_attention_bwd" in n]
+    for kernel in ("bwd_delta", "bwd_dkdv", "bwd_dq"):
+        found = [n for n in names if kernel in n]
+        assert len(found) == 1, (kernel, names)
+        assert ("__nv_bfloat16" in found[0]) == (dtype == torch.bfloat16), found[0]
+    assert len(names) == 3, names
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -87,7 +87,7 @@ class TestScoreUNet:
         assert got.shape == (1, 64, 96, 1)
         assert rel_err(got, want) <= 1e-4
 
-    def test_train_mode_not_ported(self):
+    def test_train_mode_matches_flax(self):
         """Train mode, which the name predates: the forward with train=True
         (BatchNorm on the batch's statistics, the decoder on the plain chain)
         against Flax's train=True apply, 1e-4 of max |ref|; the forward records
