@@ -70,7 +70,17 @@ Phases, one JSON line each on stdout:
    128x128, batch 128, Adam lr 5e-4 with EMA, 5 steps: no K1 or K2 launch in
    the steps, loss finite, EMA and BatchNorm statistics moved, step time,
    samples/s, peak memory; then one EMA eval step (8 K1 launches);
-5d. train_full_domain: the same at 589x789 -> 608x800, batch 2, attention
+5d. train_data: the flagship's data path (``configs/flagship_synth.yaml``
+   through ``profile_port.data_config``): 32 synthetic days at 589x789 (no
+   'all' split), the card-resident stacks, the card sampler at batch 128
+   against the same sampler on the CPU with the same draws (every key equal,
+   the SDF within 1e-6), its SDF against the host EDT on all 128 masks
+   (1e-4), the sampler's device ms and launches, 20 flagship steps each on
+   the device loader, the host loader (1 worker) and random batches,
+   ``train_main`` for one epoch of 10 steps with its checkpoint read back,
+   and one EDM-18 full-domain sample conditioned on the first test day with
+   the trained EMA weights, back-transformed: 272 K1 and 34 K2 launches;
+5e. train_full_domain: 5c's step at 589x789 -> 608x800, batch 2, attention
    'pallas', remat: bf16, 3 steps with 2 K2 forward and 1 K2 backward launch
    a step (decoder block 1 at [2, 7600, 4, 32]), then one step from a saved
    state with K2 swapped for the plain attention: loss within 1e-2 and each
@@ -94,6 +104,7 @@ prints nothing on stdout.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import subprocess
@@ -107,8 +118,9 @@ from http.server import ThreadingHTTPServer
 import numpy as np
 import torch
 
-from profile_port import (CHAINS_128, CHAINS_FULL, COLD_COPIES, K1_RAGGED, bound, device_ms,
-                          k2bwd_rows, profile, sfu_rate, train_batches, train_config)
+from profile_port import (CHAINS_128, CHAINS_FULL, COLD_COPIES, DATA_DAYS, K1_RAGGED, OnCard,
+                          RepeatedDays, bound, data_config, device_ms, k2bwd_rows, profile,
+                          sampler_profile, sfu_rate, step_seconds, train_batches, train_config)
 
 FULL_DOMAIN = (589, 789)
 EDM_NODES = 18
@@ -775,7 +787,11 @@ GRAD_REL_TOL = 2.5e-2
 
 class TimedBatches:
     """An iterable of batches that synchronises the card before handing out
-    each one, and stamps the host clock: the gaps are whole train steps."""
+    each one, and stamps the host clock: the gaps are whole train steps. Its
+    batches are model kwargs on the card, so the trainer takes them as a
+    device loader's (no prefetch thread between the stamps and the steps)."""
+
+    is_device_loader = True
 
     def __init__(self, batches):
         self.batches, self.stamps = batches, []
@@ -845,6 +861,148 @@ def phase_train_128(dev):
     check(ema_moved > 0 and bn_moved > 0, f"EMA moved {ema_moved}, BN statistics {bn_moved}")
     check_k1(eval_k1, 1, "EMA eval step at 128 px")
     return {"step_s_median": median}
+
+
+DATA_STEPS = 20  # timed flagship steps per loader
+SAMPLE_KEYS = ("x", "cond_img", "lsm_cond", "topo_cond", "y", "lsm_hr")
+
+
+def phase_train_data(dev):
+    """The flagship's data path on the card: synthetic stores at 589x789
+    (32 days, no 'all' split: a depth cut), the card-resident train and valid
+    stacks, the card sampler at batch 128 against the same sampler on the CPU
+    with the same draws (every key equal, the SDF within 1e-6), its SDF against
+    the host EDT on all 128 masks (1e-4; a mask without land is 0 on the card),
+    the sampler's device time and launches, 20 flagship steps each on the
+    device loader, the host loader (``num_workers`` 1, as configured) and
+    random batches in one pipeline, ``train_main`` for one epoch of 10 steps
+    with its checkpoint read back, and one EDM-18 full-domain sample
+    conditioned on the first test day (``make_dataset(cfg, "test",
+    full_domain=True)``) with the trained EMA weights, back-transformed to mm:
+    272 K1 and 34 K2 launches."""
+    import tempfile
+
+    from sbgm_danra_tpu_torch.cli.entries import train_main
+    from sbgm_danra_tpu_torch.cli.main_app import synthetic_data
+    from sbgm_danra_tpu_torch.data.device_data import make_sample_fn
+    from sbgm_danra_tpu_torch.data.factory import make_dataset, make_loaders
+    from sbgm_danra_tpu_torch.data.loader import DataLoader, collate, extract_batch
+    from sbgm_danra_tpu_torch.evaluate.full_domain import padded_dims, sample_full_domain
+    from sbgm_danra_tpu_torch.models.unet import (build_score_model, inference_spec,
+                                                  model_spec_from_config)
+    from sbgm_danra_tpu_torch.ops.sdf import sdf_from_mask
+    from sbgm_danra_tpu_torch.sampling.samplers import SamplerConfig
+    from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
+    from sbgm_danra_tpu_torch.transforms import back_transforms_for_config
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = data_config(tmp)
+        t0 = time.perf_counter()
+        synthetic_data(cfg, DATA_DAYS, no_all_split=True)
+        gen_s = time.perf_counter() - t0
+        train, valid, _ = make_loaders(cfg, device=dev)
+        stacks = train.stacks
+        resident_gib = (stacks.nbytes() + valid.stacks.nbytes()) / 2**30
+
+        g = torch.Generator(dev).manual_seed(21)
+        draws = train.draws(g)
+        card = train.sample_from(*draws)
+        ref = make_sample_fn(train.crop_hw)(*(d.cpu() for d in draws), stacks.fields.cpu(),
+                                            stacks.statics.cpu(), stacks.classifier.cpu())
+        unequal = [k for k in SAMPLE_KEYS if not torch.equal(card[k].cpu(), ref[k])]
+        sdf_vs_cpu = (card["sdf"].cpu() - ref["sdf"]).abs().max().item()
+        masks = card["lsm_hr"][..., 0].cpu().numpy()
+        sdf = card["sdf"][..., 0].cpu().numpy()
+        no_land = [i for i, m in enumerate(masks) if not m.any()]
+        sdf_vs_edt = max(float(np.abs(sdf[i] - sdf_from_mask(masks[i])).max())
+                         for i in range(len(masks)) if i not in no_land)
+        no_land_zero = all(not sdf[i].any() for i in no_land)
+        sampler = sampler_profile(torch, train, g)
+
+        pipe = TrainingPipeline(cfg, train, valid, device=dev)
+        host = DataLoader(RepeatedDays(make_dataset(cfg, "train"), 128), batch_size=128,
+                          shuffle=True, num_workers=cfg.data_handling.num_workers, seed=0)
+        random = OnCard(train_batches(torch, DATA_STEPS, 128, (128, 128), dev, seed=40))
+        steps = {}
+        for name, loader in (("device_loader", train), ("host_loader_1_worker", host),
+                             ("random_batches", random)):
+            step_seconds(torch, pipe, loader, 2)  # warm-up
+            steps[name] = step_seconds(torch, pipe, loader, DATA_STEPS)
+        losses_finite = all(np.isfinite(r["mean_loss"]) for r in steps.values())
+        del pipe, random
+        torch.cuda.empty_cache()
+
+        epoch_cfg = data_config(tmp, epochs=1, steps_per_epoch=10)
+        t0 = time.perf_counter()
+        trained = train_main(epoch_cfg, device=dev)
+        train_main_s = time.perf_counter() - t0
+        # a pipeline that only reads the checkpoint trains nothing: no fused
+        # steps to check against its (empty) loader
+        reread = TrainingPipeline(data_config(tmp, epochs=1, steps_per_epoch=10, fused_steps=0),
+                                  [], device=dev)
+        reread.load()
+        read_back = (reread.state.step == trained.state.step == 10 and reread.epoch == 1
+                     and all(torch.equal(a, b) for a, b in zip(
+                         reread.model.state_dict().values(),
+                         trained.model.state_dict().values()))
+                     and all(torch.equal(reread.state.ema_params[k], v)
+                             for k, v in trained.state.ema_params.items()))
+        history = trained.history
+
+        day = make_dataset(cfg, "test", full_domain=True)
+        b = extract_batch(collate([day[0]]), cfg.highres.variable)
+        cond = {k: torch.as_tensor(b[k]).to(dev) for k in ("y", "cond_img", "lsm_cond",
+                                                         "topo_cond")}
+        spec = inference_spec(dataclasses.replace(model_spec_from_config(cfg),
+                                                  attention_backend="pallas"),
+                              padded_dims(*FULL_DOMAIN))
+        model = build_score_model(spec).to(dev)
+        weights = trained.model.state_dict()
+        weights.update(trained.state.ema_params)
+        model.load_state_dict(weights)
+        del trained, reread
+        config = SamplerConfig(num_steps=EDM_NODES, guidance_scale=3.0, s_churn=0.0)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reset_counts()  # the conditioned full-domain sample's run starts here
+            out = sample_full_domain(lambda x, t, **c: model(x, t, **c),
+                                     torch.Generator(dev).manual_seed(3), cond,
+                                     domain_hw=FULL_DOMAIN, batch=1, config=config,
+                                     sampler="edm_sampler")
+            sample_s = time.perf_counter() - t0
+            k1c, k2c = k1_counts(), k2_counts()
+        mm = np.asarray(back_transforms_for_config(cfg)["generated"](out))
+        test_date = day.date_of(0)
+    evaluations = 2 * (EDM_NODES - 1)
+    median = {k: float(np.median(v["step_s"])) for k, v in steps.items()}
+    emit(phase="train_data", settings="configs/flagship_synth.yaml (prcp log_zscore HR at "
+         "128x128 inside [170, 350, 340, 520] of 589x789, LR temp and prcp, lsm, topo, SDF "
+         "loss, CFG 0.1, 4 seasons, bf16 UNet, batch 128), 32 synthetic days (train 22, "
+         "valid 4, test 6)", days=DATA_DAYS, generate_s=gen_s, resident_gib=resident_gib,
+         train_load_s=stacks.load_s, train_upload_s=stacks.upload_s,
+         sampler_vs_cpu_unequal_keys=unequal, sdf_vs_cpu_max_abs=sdf_vs_cpu,
+         sdf_vs_cpu_tolerance=1e-6, sdf_vs_edt_max_abs=sdf_vs_edt, sdf_vs_edt_tolerance=1e-4,
+         masks_without_land=len(no_land), **sampler, steps=steps, step_s_median=median,
+         device_vs_random_step=median["device_loader"] / median["random_batches"],
+         train_losses_finite=losses_finite, train_main_s=train_main_s,
+         train_main_history=history, checkpoint_read_back=read_back,
+         full_domain_test_date=test_date, full_domain_shape=list(out.shape),
+         full_domain_finite=bool(np.isfinite(out).all() and np.isfinite(mm).all()),
+         full_domain_mm_mean=float(mm.mean()), full_domain_mm_max=float(mm.max()),
+         full_domain_wall_s=sample_s, k1_launches=list(k1c), k2_launches_by_variant=k2c)
+    check(not unequal and sdf_vs_cpu <= 1e-6,
+          f"card sampler differs from the CPU's: {unequal}, SDF {sdf_vs_cpu}")
+    check(sdf_vs_edt <= 1e-4 and no_land_zero, f"card SDF vs host EDT {sdf_vs_edt}")
+    check(losses_finite and all(np.isfinite(history["train_loss"] + history["val_loss"])),
+          f"train losses {history}")
+    check(read_back, "train_main's checkpoint did not read back to the same state")
+    check(out.shape == (1, *FULL_DOMAIN) and np.isfinite(out).all() and np.isfinite(mm).all(),
+          f"bad conditioned full-domain sample {out.shape}")
+    check(k2c == {"tc_bf16": evaluations, "fp32": 0},
+          f"conditioned full-domain sample: K2 launches {k2c}")
+    check_k1(k1c, evaluations, "conditioned full-domain sample")
+    return {"k2": k2c, "conv3x3_stats": k1c[0], "gn_apply": k1c[1]}
 
 
 def _plain_k2():
@@ -1164,6 +1322,8 @@ def main() -> int:
     # training before serving: the serving engine sets cudnn.deterministic
     phase_train_128(dev)
     torch.cuda.empty_cache()
+    train_data = phase_train_data(dev)
+    torch.cuda.empty_cache()
     train_bf16 = phase_train_full_domain(dev, "bfloat16", TRAIN_FULL["steps"], compare=True)
     torch.cuda.empty_cache()
     train_fp32 = phase_train_full_domain(dev, "float32", 1, compare=False)
@@ -1178,6 +1338,7 @@ def main() -> int:
     kernels = [
         _k2_summary(attention_rows, "tc_bf16", "mma.sync bf16", launches=k2["tc_bf16"],
                     launches_by_path={"full_domain": k2["tc_bf16"],
+                                      "train_data/full_domain": train_data["k2"]["tc_bf16"],
                                       "fp32_full_domain": fp32["k2"]["tc_bf16"],
                                       "train_full_domain_tc_bf16": train_bf16["k2_fwd"]}),
         _k2_summary(attention_rows, "fp32", "tf32x3 (mma.sync)", launches=fp32["k2"]["fp32"],
@@ -1215,7 +1376,9 @@ def main() -> int:
             "source": "sbgm_danra_tpu_torch/csrc/conv3x3_gn.cu",
             "replaces": "sbgm_danra_tpu/ops/fused_conv_gn.py:66",
             "launches": launches[name],
-            "launches_by_path": {"full_domain": launches[name], "serving": serving[name],
+            "launches_by_path": {"full_domain": launches[name],
+                                 "train_data/full_domain": train_data[name],
+                                 "serving": serving[name],
                                  **{f"samplers/{k}": v for k, v in samplers.items()}},
             **_k1_summary(k1_rows, name, "bfloat16"),
         })

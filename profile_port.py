@@ -57,6 +57,16 @@ attention 'xla', and at 589x789 -> 608x800, batch 2, attention 'pallas',
 remat, in ``--dtype``: wall seconds of ``--repeats`` steps and the profiler's
 breakdown of one, as for the paths above.
 
+``--paths train_data`` measures the flagship's data path
+(``configs/flagship_synth.yaml`` through ``data_config``, ``--days``
+synthetic days at 589x789, default 32): the stores' generation, the resident
+GiB and the stacks' load and upload seconds, the card sampler at batch 128
+(device ms after an L2 flush, launches, the jump-flood SDF's share), and the
+flagship step in one pipeline on the device loader, the host loader with 1
+and 4 workers (``RepeatedDays`` fills batches of 128 from the short split)
+and random batches: the seconds of each of 20 steps and ``torch.profiler``
+over steps 5-8 (idle share, launches).
+
 ``--paths k2`` times K2 alone (``flash_attention_cuda`` on contiguous
 seeded inputs, which every version takes) in ``--dtype`` at the full-domain
 shape and at the card tests' shapes: mean device ms of 20 launches
@@ -166,6 +176,12 @@ def profile(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    return summarize(prof, wall_us)
+
+
+def summarize(prof, wall_us: float) -> dict:
+    """Device time by kernel class and name, busy time and idle share of a
+    finished ``torch.profiler`` session over ``wall_us`` of host time."""
     # device events, without the user annotations the profiler puts on the
     # device's timeline (e.g. "Optimizer.step#Adam.step"), which are no kernels
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"
@@ -409,6 +425,139 @@ def train_batches(torch, n: int, batch: int, domain, dev, seed: int) -> list:
     return out
 
 
+# the data path's phase: the flagship's grid and crop window
+DATA_DAYS = 32  # train 22, valid 4, test 6: a depth cut of configs/flagship_synth.yaml's 384
+
+
+def data_config(root: str, device_dataset: bool = True, num_workers: int = 1, **training):
+    """configs/flagship_synth.yaml's data, model and training sections (prcp
+    HR in log_zscore at 128x128 from the 589x789 grid inside [170, 350, 340,
+    520], LR temp and prcp, lsm, topo and the SDF loss, CFG 0.1, 4 seasons,
+    bf16 UNet, batch 128, Adam 5e-4 with EMA 0.999, fused_steps 25) with its
+    paths under ``root``, through the port's own reader (no YAML);
+    ``training`` overrides that section's keys."""
+    from sbgm_danra_tpu_torch.config import from_dict
+
+    data = os.path.join(root, "data")
+    return from_dict({
+        "experiment": {"config_name": "flagship_synth"},
+        "paths": {"data_dir": data, "checkpoint_dir": os.path.join(root, "ckpt"),
+                  "lsm_path": os.path.join(data, "data_lsm/truth_fullDomain/lsm_full.npz"),
+                  "topo_path": os.path.join(data, "data_topo/truth_fullDomain/topo_full.npz"),
+                  "stats_load_dir": os.path.join(data, "stats")},
+        "highres": {"model": "DANRA", "variable": "prcp", "data_size": [128, 128],
+                    "scaling_method": "log_zscore", "full_domain_dims": [589, 789],
+                    "cutout_domains": [170, 350, 340, 520], "buffer_frac": 0.5},
+        "lowres": {"model": "ERA5", "condition_variables": ["temp", "prcp"],
+                   "scaling_methods": ["zscore", "log_zscore"], "full_domain_dims": [589, 789],
+                   "buffer_frac": 0.5},
+        "sampler": {"sampler_type": "dpmpp_sampler", "n_timesteps": 25},
+        "model": {"compute_dtype": "bfloat16"},
+        "data_handling": {"device_dataset": device_dataset, "num_workers": num_workers,
+                          "n_gen_samples": 4},
+        "training": {"seed": 0, "batch_size": 128, "learning_rate": 5e-4,
+                     "lr_scheduler": "CosineAnnealing", "lr_scheduler_params": {"t_max": 150},
+                     "epochs": 150, "steps_per_epoch": 100, "with_ema": True,
+                     "ema_decay": 0.999, "weight_decay": 1e-6, "sdf_weighted_loss": True,
+                     "fused_steps": 25, "early_stopping": False, "verbose": False,
+                     **training},
+        "classifier_free_guidance": {"enabled": True, "drop_prob": 0.1,
+                                     "guidance_scale": 3.0},
+    })
+
+
+class RepeatedDays:
+    """A dataset that visits each day of ``dataset`` ``times`` times, each
+    visit a full host sample (zarr read, transforms, crop, EDT SDF, CFG
+    dropout): lets the host loader fill batches of 128 from a short split."""
+
+    def __init__(self, dataset, times: int):
+        self.dataset, self.times = dataset, times
+
+    def __len__(self) -> int:
+        return len(self.dataset) * self.times
+
+    def __getitem__(self, idx: int, rng=None):
+        return self.dataset.__getitem__(idx % len(self.dataset), rng=rng)
+
+
+class OnCard(list):
+    """A list of batches already on the card in model-kwargs form: the trainer
+    takes them as a device loader's."""
+
+    is_device_loader = True
+
+
+def step_seconds(torch, pipe, loader, steps: int, window=None) -> dict:
+    """``pipe.train_batches(steps)`` on ``loader``: the seconds of each step,
+    from a stamp after each step once the card has finished it, and the mean
+    loss. ``window=(a, b)``: ``torch.profiler`` records from the end of step a
+    to the end of step b (loading included), summarised as ``profile`` does."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    stamps, step = [], pipe._train_step
+    starts = []  # when the time of each step starts: the end of the one before
+    prof = tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if window else None
+    summary = {}
+
+    def timed(*args, **kw):
+        out = step(*args, **kw)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        starts.append(stamps[-1])
+        if prof is not None and len(stamps) == window[0]:
+            prof.start()
+            starts[-1] = time.perf_counter()
+        elif prof is not None and len(stamps) == window[1]:
+            prof.stop()
+            summary.update(summarize(prof, 1e6 * (stamps[-1] - starts[window[0] - 1])),
+                           steps=window[1] - window[0])
+            starts[-1] = time.perf_counter()  # the profiler's own work is no step's
+        return out
+
+    pipe.train_loader, pipe._train_step = loader, timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = pipe.train_batches(steps)
+    finally:
+        pipe._train_step = step
+    out = dict(step_s=[b - a for a, b in zip([t0] + starts, stamps)], mean_loss=loss)
+    if summary:
+        out["profile"] = summary
+    return out
+
+
+def sampler_profile(torch, loader, generator) -> dict:
+    """One card batch of ``loader`` (a ``DeviceDataLoader``) under the
+    profiler, after a warm-up and a flush of L2 (cold), and its jump-flood SDF
+    alone: device ms (the union of its kernels), launches, the SDF's share,
+    and the mean wall ms of 10 batches (draws included)."""
+    from sbgm_danra_tpu_torch.ops.sdf import generate_sdf_device
+
+    def flushed(fn):
+        torch.empty(4 * L2_BYTES, dtype=torch.uint8, device="cuda").sum()
+        return profile(torch, fn)
+
+    draws = loader.draws(generator)
+    batch = loader.sample_from(*draws)
+    masks = batch["lsm_hr"][..., 0].contiguous()
+    whole = flushed(lambda: loader.sample_from(*draws))
+    sdf = flushed(lambda: generate_sdf_device(masks))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        loader.sample(generator)
+    torch.cuda.synchronize()
+    return dict(
+        batch=int(draws[0].shape[0]), sampler_device_ms=whole["device_busy_ms"],
+        sampler_launches=whole["kernel_launches"], sdf_device_ms=sdf["device_busy_ms"],
+        sdf_launches=sdf["kernel_launches"],
+        sdf_share_of_device_ms=sdf["device_busy_ms"] / whole["device_busy_ms"],
+        sampler_wall_ms=100.0 * (time.perf_counter() - t0),
+        sampler_kernel_ms_by_class=whole["kernel_ms_by_class"])
+
+
 # Decoder chains (H, W, Cin, Cout) of one flagship UNet evaluation, blocks 0-3,
 # conv_up -> norm1 then conv -> norm2; block 3's two chains share a shape.
 # 128 px runs them at batch 16 (8 rows with CFG), 608x800 at batch 2.
@@ -594,18 +743,66 @@ def k1_rows(torch, dev, sweep: bool, dtype_name: str) -> list:
     return rows
 
 
+def train_data_rows(torch, dev, args, smi) -> list:
+    """The flagship's data path (``data_config``, ``--days`` synthetic days):
+    the stores' generation, the card-resident stacks, the card sampler at
+    batch 128 (``sampler_profile``), and the flagship step on the device
+    loader, the host loader with 1 and 4 workers and random batches, in one
+    pipeline: seconds of each of 20 steps, and the profiler over steps 5-8."""
+    import tempfile
+
+    from sbgm_danra_tpu_torch.cli.main_app import synthetic_data
+    from sbgm_danra_tpu_torch.data.factory import make_dataset, make_loaders
+    from sbgm_danra_tpu_torch.data.loader import DataLoader
+    from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
+
+    tmp = tempfile.mkdtemp()
+    cfg = data_config(tmp)
+    t0 = time.perf_counter()
+    synthetic_data(cfg, args.days, no_all_split=True)
+    gen_s = time.perf_counter() - t0
+    train, valid, _ = make_loaders(cfg, device=dev)
+    head = dict(label=args.label, root=args.root, card=smi, days=args.days)
+    rows = [dict(head, path="train_data/stacks", generate_s=gen_s,
+                 resident_gib=(train.stacks.nbytes() + valid.stacks.nbytes()) / 2**30,
+                 train_days=train.stacks.n_days, load_s=train.stacks.load_s,
+                 upload_s=train.stacks.upload_s,
+                 **sampler_profile(torch, train, torch.Generator(dev).manual_seed(0)))]
+    print(json.dumps(rows[-1]), flush=True)
+    pipe = TrainingPipeline(cfg, train, valid, device=dev)
+    days = make_dataset(cfg, "train")
+    loaders = [("device_loader", train)]
+    for workers in (1, 4):
+        loaders.append((f"host_loader_{workers}_workers",
+                        DataLoader(RepeatedDays(days, 128), batch_size=128, shuffle=True,
+                                   num_workers=workers, seed=0)))
+    loaders.append(("random_batches", OnCard(train_batches(torch, 20, 128, (128, 128), dev, 40))))
+    for name, loader in loaders:
+        step_seconds(torch, pipe, loader, 2)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        run = step_seconds(torch, pipe, loader, 20, window=(5, 8))
+        rows.append(dict(head, path=f"train_data/{name}", **run,
+                         step_s_median=float(sorted(run["step_s"])[10]),
+                         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9))
+        print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
                    help="checkout whose sbgm_danra_tpu_torch is measured")
     p.add_argument("--label", default="change")
     p.add_argument("--paths", default="full_domain,serving",
-                   help="comma-separated: full_domain, serving, k1, k2, k2bwd, train")
+                   help="comma-separated: full_domain, serving, k1, k2, k2bwd, train, "
+                        "train_data")
     p.add_argument("--k1-sweep", action="store_true",
                    help="with k1: also time every launch shape the plan could choose")
     p.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"),
                    help="the working dtype of full_domain, k1 and k2")
     p.add_argument("--repeats", type=int, default=3)
+    p.add_argument("--days", type=int, default=DATA_DAYS,
+                   help="synthetic days of train_data")
     p.add_argument("--out", default=None)
     args = p.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
@@ -696,6 +893,8 @@ def main() -> int:
                           f"attention {backend}, remat {remat}",
                           functools.partial(pipe._train_step, pipe.state, batch_list[0],
                                             torch.Generator(dev).manual_seed(0)))
+    if "train_data" in args.paths.split(","):
+        results += train_data_rows(torch, dev, args, smi)
     for path, (what, fn) in runs.items():
         torch.backends.cudnn.benchmark = False
         out = fn()  # warm-up

@@ -5,9 +5,9 @@ same section and field names, defaults, ``${env:VAR}`` interpolation, dot-key
 overrides and type coercion, and ``get_model_string`` from
 ``sbgm_danra_tpu/utils/naming.py``. Only the fields that ``serve.py``,
 ``models/unet.py``, ``transforms.py`` (the statistics files behind the
-back-transforms) and ``training/`` read are declared; every other section and
-key of a config is skipped, since the JAX package's reader is the one that
-checks them.
+transforms), ``data/``, ``training/`` and ``cli/`` read are declared, under the
+JAX reader's names and defaults; every other section and key of a config is
+skipped, since the JAX package's reader is the one that checks them.
 
 PyYAML is imported inside ``load_config`` and ``parse_override`` only, so that
 the serving path imports it only when it reads a file.
@@ -20,7 +20,7 @@ import os
 import re
 import typing
 from dataclasses import dataclass, field
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 _ENV_RE = re.compile(r"\$\{env:([A-Za-z_][A-Za-z0-9_]*)\}")
 
@@ -61,7 +61,10 @@ class ExperimentConfig:
 
 @dataclass
 class PathsConfig:
+    data_dir: str = "./data"
     checkpoint_dir: str = "./checkpoints"
+    lsm_path: str = ""
+    topo_path: str = ""
     stats_load_dir: str = "./stats"
 
 
@@ -74,6 +77,8 @@ class HighresConfig:
     full_domain_dims: Tuple[int, int] = (589, 789)
     cutout_domains: Optional[Tuple[int, int, int, int]] = (170, 350, 340, 520)
     buffer_frac: float = 0.5
+    # inline scaling parameters; the statistics files win where they exist
+    scaling_params: Optional[Dict[str, float]] = None
 
 
 @dataclass
@@ -81,10 +86,12 @@ class LowresConfig:
     model: str = "ERA5"
     condition_variables: Tuple[str, ...] = ("temp",)
     scaling_methods: Tuple[str, ...] = ("zscore",)
+    data_size: Optional[Tuple[int, int]] = None
     full_domain_dims: Tuple[int, int] = (589, 789)
     cutout_domains: Optional[Tuple[int, int, int, int]] = None
     resize_factor: int = 1
     buffer_frac: float = 0.5
+    scaling_params: Optional[List[Dict[str, float]]] = None
 
 
 @dataclass
@@ -112,9 +119,25 @@ class ModelConfig:
 
 
 @dataclass
+class DataHandlingConfig:
+    cache_size: int = 0
+    num_workers: int = 4
+    n_gen_samples: int = 3
+    prefetch_depth: int = 2  # batches copied to the card ahead of the step
+    # the whole split resident on the card, batches put together there
+    # (data/device_data.py); needs resize_factor 1 and LR on the HR grid
+    device_dataset: bool = False
+    # > 0: the rotating-window variant, not ported yet (make_loaders raises)
+    device_window_days: int = 0
+
+
+@dataclass
 class GeographicConfig:
     sample_w_geo: bool = True
+    sample_w_sdf: bool = True
     geo_variables: Tuple[str, ...] = ("lsm", "topo")
+    norm_min: float = 0.0
+    norm_max: float = 1.0
 
 
 @dataclass
@@ -131,7 +154,17 @@ class StationaryConditionsConfig:
 
 @dataclass
 class TransformsConfig:
+    scaling: bool = True
     sample_w_cutouts: bool = True
+
+
+@dataclass
+class VisualizationConfig:
+    """Read only to say that the port skips them (no plotting on the card machine)."""
+
+    plot_initial_sample: bool = False
+    plot_losses: bool = True
+    preview_every: int = 0
 
 
 @dataclass
@@ -155,11 +188,13 @@ class EarlyStoppingParams:
 @dataclass
 class TrainingConfig:
     """The fields of the JAX reader's training section that the port's trainer
-    and serving engine act on; the reader skips the others (fused steps, the
-    extreme sentinel, profiling, checkpoint cadence), which the port does not
-    do yet (ROADMAP)."""
+    and serving engine act on; the reader skips the others (the extreme
+    sentinel, profiling, checkpoint cadence), which the port does not do yet
+    (ROADMAP). ``fused_steps`` is checked as JAX checks it, then run one step
+    per dispatch."""
 
     seed: int = 42
+    batch_size: int = 16
     learning_rate: float = 5e-4
     lr_scheduler: str = "ReduceLROnPlateau"  # | StepLR | CosineAnnealing | none
     lr_scheduler_params: LRSchedulerParams = field(default_factory=LRSchedulerParams)
@@ -179,11 +214,15 @@ class TrainingConfig:
     detect_anomaly: bool = False
     remat: bool = False
     skip_nonfinite_updates: bool = False
+    fused_steps: int = 0
+    load_checkpoint: bool = False
+    verbose: bool = True
 
 
 @dataclass
 class CFGuidanceConfig:
     enabled: bool = True
+    drop_prob: float = 0.1
     guidance_scale: float = 3.0
     guidance_scale_max: Optional[float] = None
 
@@ -195,6 +234,11 @@ class EvaluationConfig:
 
 
 @dataclass
+class ParallelConfig:
+    mesh_shape: Optional[Dict[str, int]] = None
+
+
+@dataclass
 class Config:
     experiment: ExperimentConfig = field(default_factory=ExperimentConfig)
     paths: PathsConfig = field(default_factory=PathsConfig)
@@ -202,6 +246,7 @@ class Config:
     lowres: LowresConfig = field(default_factory=LowresConfig)
     sampler: SamplerConfig = field(default_factory=SamplerConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    data_handling: DataHandlingConfig = field(default_factory=DataHandlingConfig)
     transforms: TransformsConfig = field(default_factory=TransformsConfig)
     stationary_conditions: StationaryConditionsConfig = field(
         default_factory=StationaryConditionsConfig
@@ -209,6 +254,8 @@ class Config:
     training: TrainingConfig = field(default_factory=TrainingConfig)
     classifier_free_guidance: CFGuidanceConfig = field(default_factory=CFGuidanceConfig)
     evaluation: EvaluationConfig = field(default_factory=EvaluationConfig)
+    visualization: VisualizationConfig = field(default_factory=VisualizationConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
 
     def in_channels(self) -> int:
         """Conditioning channels: n_lr + 2 per geo variable."""

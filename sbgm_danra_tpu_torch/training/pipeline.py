@@ -12,17 +12,22 @@ steps, the scheduler, early stopping and the port's checkpoints:
 - ``save`` / ``load``: the port's checkpoints with an exact resume;
 - ``score_fn(use_ema)``: the sampling closure over the (EMA) weights.
 
-``train_loader`` and ``valid_loader`` are any iterables of batch dicts: model
-kwargs (``x``, ``y``, ``cond_img``, ``lsm_cond``, ``topo_cond``, ``sdf``) or
-the dataset's collated samples, which ``extract_batch`` maps onto them; numpy
-arrays or tensors, moved to the pipeline's device. A loader with
-``set_epoch`` is told the epoch. A float32 model's steps and score function
-run with TF32 off (``precision.exact_fp32``).
+``train_loader`` and ``valid_loader`` come from ``data/factory.py::make_loaders``
+or are any iterables of batch dicts. A device loader's batches
+(``is_device_loader``: ``data/device_data.py``) are model kwargs already on
+the card and are used as they come, less ``lsm_hr``. Any other loader's
+batches, model kwargs (``x``, ``y``, ``cond_img``, ``lsm_cond``, ``topo_cond``,
+``sdf``) or the dataset's collated samples, which ``extract_batch`` maps onto
+them, go through ``device_prefetch`` at ``data_handling.prefetch_depth``:
+pinned and copied to the card ahead of the step. A loader with ``set_epoch``
+is told the epoch. A float32 model's steps and score function run with TF32
+off (``precision.exact_fp32``).
 
-Not here yet (ROADMAP): the data loaders and the device data path, fused
-K-step dispatches (``training/fused.py``), per-epoch preview sampling, the
-extreme-precipitation sentinel, rate-limited and asynchronous checkpoint
-writes, and meshes.
+``training.fused_steps > 0`` is checked as JAX checks it (a device train
+loader, no mesh); the batches are then the same stream, one step per
+dispatch: K steps per dispatch (``training/fused.py``) wait for ROADMAP Queue
+1, as do per-epoch preview sampling, the extreme-precipitation sentinel,
+rate-limited and asynchronous checkpoint writes, and meshes.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import numpy as np
 import torch
 
 from sbgm_danra_tpu_torch.config import get_model_string
+from sbgm_danra_tpu_torch.data.loader import device_prefetch, extract_batch
 from sbgm_danra_tpu_torch.models.unet import build_score_model, model_spec_from_config
 from sbgm_danra_tpu_torch.precision import exact_fp32
 from sbgm_danra_tpu_torch.sde import VESDE
@@ -52,38 +58,6 @@ from sbgm_danra_tpu_torch.training.train_step import (
 logger = logging.getLogger(__name__)
 
 _MODEL_KEYS = ("x", "y", "cond_img", "lsm_cond", "topo_cond", "sdf")
-
-
-def extract_batch(batch: Dict, hr_var: str) -> Dict:
-    """A collated sample dict -> score-model kwargs (a copy of
-    ``sbgm_danra_tpu/data/loader.py::extract_batch``): the HR target -> x, the
-    sorted LR channels concatenated -> cond_img, the geo maps -> lsm_cond /
-    topo_cond, plus sdf and the class y."""
-    out: Dict = {}
-    hr_key = f"{hr_var}_hr"
-    if hr_key not in batch:
-        hr_keys = [k for k in batch if k.endswith("_hr") and k != "lsm_hr"]
-        if not hr_keys:
-            raise ValueError("No HR image found in batch")
-        hr_key = hr_keys[0]
-    out["x"] = batch[hr_key]
-    lr_keys = sorted(k for k in batch if k.endswith("_lr"))
-    if lr_keys:
-        parts = [batch[k] for k in lr_keys]
-        cat = torch.cat if isinstance(parts[0], torch.Tensor) else np.concatenate
-        out["cond_img"] = cat(parts, -1)
-    if "lsm" in batch:
-        out["lsm_cond"] = batch["lsm"]
-    if "topo" in batch:
-        out["topo_cond"] = batch["topo"]
-    if "classifier" in batch:
-        y = batch["classifier"]
-        out["y"] = y.to(torch.int32) if isinstance(y, torch.Tensor) else y.astype(np.int32)
-    if "sdf" in batch:
-        out["sdf"] = batch["sdf"]
-    if "lsm_hr" in batch:
-        out["lsm_hr"] = batch["lsm_hr"]
-    return out
 
 
 class TrainingPipeline:
@@ -114,6 +88,18 @@ class TrainingPipeline:
             skip_nonfinite_updates=t.skip_nonfinite_updates))
         self._eval_step = precision(make_eval_step(self.model, self.sde, t_eps=eps,
                                                    use_sdf_weights=t.sdf_weighted_loss))
+        if t.fused_steps > 0:
+            if not getattr(train_loader, "is_device_loader", False):
+                raise ValueError(
+                    "training.fused_steps requires a device-resident train "
+                    "loader (data_handling.device_dataset: true)")
+            if cfg.parallel.mesh_shape is not None:
+                raise ValueError(
+                    "training.fused_steps is a single-device path; mesh "
+                    "training already amortizes dispatch via parallel steps")
+            logger.info("training.fused_steps=%d: the port runs one step per dispatch; K steps "
+                        "per dispatch (training/fused.py) wait for ROADMAP Queue 1",
+                        t.fused_steps)
         self.scheduler = make_scheduler(cfg)
         es = t.early_stopping_params
         self.early_stopping = EarlyStopping(es.patience, es.min_delta) if t.early_stopping \
@@ -124,10 +110,17 @@ class TrainingPipeline:
         self.epoch = 0
 
     def _batches(self, loader: Iterable[Dict]) -> Iterable[Dict[str, torch.Tensor]]:
-        for raw in loader:
-            batch = raw if "x" in raw else extract_batch(raw, self.cfg.highres.variable)
-            yield {k: torch.as_tensor(batch[k]).to(self.device, non_blocking=True)
-                   for k in _MODEL_KEYS if batch.get(k) is not None}
+        if getattr(loader, "is_device_loader", False):
+            for batch in loader:
+                yield {k: batch[k] for k in _MODEL_KEYS if batch.get(k) is not None}
+            return
+        hr_var = self.cfg.highres.variable
+        kwargs = ({k: batch[k] for k in _MODEL_KEYS if batch.get(k) is not None}
+                  for batch in (raw if "x" in raw else extract_batch(raw, hr_var)
+                                for raw in loader))
+        for batch in device_prefetch(kwargs, self.cfg.data_handling.prefetch_depth,
+                                     self.device):
+            yield {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
 
     def train_batches(self, max_steps: Optional[int] = None) -> float:
         """One epoch of optimizer steps; the mean training loss."""
@@ -145,7 +138,7 @@ class TrainingPipeline:
             return float("nan")
         mean = float(torch.stack(losses).mean())
         dt = time.perf_counter() - t0
-        logger.info("epoch %d: %d steps in %.1fs (%.2f steps/s)", self.epoch, len(losses), dt,
+        logger.info("epoch %d: %d steps in %s s (%.2f steps/s)", self.epoch, len(losses), dt,
                     len(losses) / dt)
         return mean
 

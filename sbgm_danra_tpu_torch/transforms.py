@@ -1,10 +1,17 @@
-"""Back-transforms from normalised space to physical units (a copy of the parts
-of ``sbgm_danra_tpu/transforms.py`` that the port reads).
+"""Normalisation transforms and their inverses (a copy of the parts of
+``sbgm_danra_tpu/transforms.py`` that the port reads).
 
-The port's generation answers in the HR target's normalised space; these
-inverses turn a field back into physical units from the global-statistics
-JSONs that the JAX package's statistics pipeline writes. The arithmetic is the
-JAX module's, on numpy arrays or torch tensors alike (``_xp``):
+The data path normalises each variable with the forward transforms, built
+from the global-statistics JSONs (``transform_from_stats``,
+``load_global_stats``); generation answers in the HR target's normalised space,
+and the inverses turn a field back into physical units. The arithmetic is the
+JAX module's, on numpy arrays or torch tensors alike (``_xp``): numpy in gives
+numpy out, so that the dataset's worker threads never touch a device.
+
+- ``ZScore``: (x - mean) / (std + 1e-8); ``LinearScale``: the affine map from
+  [data_min, data_max] to [out_low, out_high]; ``LogTransform``: log(x + eps),
+  eps = 0.01, then optional scaling in log space, with [log_min, log_max]
+  expanded by buffer_frac x range per side; ``Compose``;
 
 - ``ZScoreBack``: x (std + 1e-8) + mean;
 - ``LinearScaleBack``: the affine map from [out_low, out_high] back to
@@ -17,8 +24,7 @@ JAX module's, on numpy arrays or torch tensors alike (``_xp``):
 ``build_back_transforms_from_stats`` gives the dict keyed ``{var}_hr``,
 ``{cond}_lr`` and ``generated``; ``back_transforms_for_config`` calls it as
 ``sbgm_danra_tpu/cli/entries.py:30-57`` does and returns ``{}``, with the same
-warning, when the statistics are missing. The forward transforms belong to
-the data path, which the port does not have yet.
+warning, when the statistics are missing.
 """
 
 from __future__ import annotations
@@ -57,12 +63,38 @@ class Identity(Transform):
 
 
 @dataclasses.dataclass(frozen=True)
+class ZScore(Transform):
+    """(x - mean) / (std + 1e-8)."""
+
+    mean: float
+    std: float
+
+    def __call__(self, x):
+        return (x - self.mean) / (self.std + _EPS)
+
+
+@dataclasses.dataclass(frozen=True)
 class ZScoreBack(Transform):
     mean: float
     std: float
 
     def __call__(self, x):
         return x * (self.std + _EPS) + self.mean
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearScale(Transform):
+    """Map [data_min, data_max] -> [out_low, out_high]."""
+
+    out_low: float
+    out_high: float
+    data_min: float = 0.0
+    data_max: float = 1.0
+
+    def __call__(self, x):
+        old_range = self.data_max - self.data_min
+        new_range = self.out_high - self.out_low
+        return ((x - self.data_min) * new_range) / old_range + self.out_low
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +112,63 @@ class LinearScaleBack(Transform):
         return ((x - self.out_low) * new_range) / old_range + self.data_min
 
 
+def _check_log_params(t) -> None:
+    if t.scale_type == "log_zscore":
+        if t.log_mean is None or t.log_std is None:
+            raise ValueError("log_zscore requires log_mean and log_std")
+    elif t.scale_type in ("log_01", "log_minus1_1"):
+        if t.log_min is None or t.log_max is None:
+            raise ValueError(f"{t.scale_type} requires log_min and log_max")
+    elif t.scale_type != "log":
+        raise ValueError(f"Unknown log scale_type: {t.scale_type}")
+
+
+def _expanded_log_range(log_min, log_max, frac):
+    if log_min is None or log_max is None:
+        return log_min, log_max
+    rng = log_max - log_min
+    return log_min - frac * rng, log_max + frac * rng
+
+
+@dataclasses.dataclass(frozen=True)
+class LogTransform(Transform):
+    """log(x + eps), then optional scaling in log space ('log' | 'log_01' |
+    'log_minus1_1' | 'log_zscore'); [log_min, log_max] expanded by
+    buffer_frac x range per side."""
+
+    scale_type: str = "log_zscore"
+    eps: float = 0.01
+    log_mean: Optional[float] = None
+    log_std: Optional[float] = None
+    log_min: Optional[float] = None
+    log_max: Optional[float] = None
+    buffer_frac: float = 0.5
+
+    def __post_init__(self):
+        _check_log_params(self)
+
+    def __call__(self, x):
+        logx = _xp(x).log(x + self.eps)
+        if self.scale_type == "log_zscore":
+            return (logx - self.log_mean) / (self.log_std + _EPS)
+        lo, hi = _expanded_log_range(self.log_min, self.log_max, self.buffer_frac)
+        if self.scale_type == "log_01":
+            return (logx - lo) / (hi - lo)
+        if self.scale_type == "log_minus1_1":
+            return 2.0 * (logx - lo) / (hi - lo) - 1.0
+        return logx  # 'log'
+
+
+@dataclasses.dataclass(frozen=True)
+class Compose(Transform):
+    transforms: tuple
+
+    def __call__(self, x):
+        for t in self.transforms:
+            x = t(x)
+        return x
+
+
 @dataclasses.dataclass(frozen=True)
 class LogBackTransform(Transform):
     """Invert log-space scaling, clamp, exponentiate (see the module's notes)."""
@@ -94,19 +183,10 @@ class LogBackTransform(Transform):
     clamp_log_max: Optional[float] = None
 
     def __post_init__(self):
-        if self.scale_type == "log_zscore":
-            if self.log_mean is None or self.log_std is None:
-                raise ValueError("log_zscore requires log_mean and log_std")
-        elif self.scale_type in ("log_01", "log_minus1_1"):
-            if self.log_min is None or self.log_max is None:
-                raise ValueError(f"{self.scale_type} requires log_min and log_max")
-        elif self.scale_type != "log":
-            raise ValueError(f"Unknown log scale_type: {self.scale_type}")
+        _check_log_params(self)
 
     def _range(self):
-        frac = self.buffer_frac / 2.0
-        rng = self.log_max - self.log_min
-        return self.log_min - frac * rng, self.log_max + frac * rng
+        return _expanded_log_range(self.log_min, self.log_max, self.buffer_frac / 2.0)
 
     def __call__(self, x):
         if self.scale_type == "log_01":
@@ -123,6 +203,25 @@ class LogBackTransform(Transform):
         chi = float("inf") if self.clamp_log_max is None else float(self.clamp_log_max)
         xp = _xp(logx)
         return xp.exp(xp.clip(logx, clo, chi))
+
+
+def transform_from_stats(transform_type: str, stats, buffer_frac: float = 0.5) -> Transform:
+    """The forward transform from a global-stats dict (mean/std/min/max and
+    log_mean/log_std/log_min/log_max)."""
+    if transform_type == "zscore":
+        return ZScore(mean=stats["mean"], std=stats["std"])
+    if transform_type in ("scale01", "01"):
+        return LinearScale(0.0, 1.0, data_min=stats["min"], data_max=stats["max"])
+    if transform_type == "scale_minus1_1":
+        return LinearScale(-1.0, 1.0, data_min=stats["min"], data_max=stats["max"])
+    if transform_type in _LOG_TYPES:
+        return LogTransform(
+            scale_type=transform_type, log_mean=stats["log_mean"], log_std=stats["log_std"],
+            log_min=stats["log_min"], log_max=stats["log_max"], buffer_frac=buffer_frac,
+        )
+    if transform_type in (None, "none"):
+        return Identity()
+    raise ValueError(f"Unknown transform type: {transform_type}")
 
 
 def back_transform_from_stats(transform_type: str, stats, buffer_frac: float = 0.5) -> Transform:
@@ -153,13 +252,23 @@ def stats_path(root: str, model: str, variable: str, domain_str: str, crop_regio
     return os.path.join(root, model, variable, split, fname)
 
 
-def _load_required_stats(root, model, variable, domain_str, crop_region_str, split):
+def load_global_stats(root: str, model: str, variable: str, domain_str: str,
+                      crop_region_str: str, split: str) -> Optional[Dict[str, float]]:
+    """A variable's global-stats dict, or None where the file is missing."""
     path = stats_path(root, model, variable, domain_str, crop_region_str, split)
     if not os.path.exists(path):
-        raise FileNotFoundError(f"Global stats not found: {path} — run the statistics "
-                                "pipeline first (sbgm_danra_tpu.pipelines.stats_pipeline).")
+        return None
     with open(path, "r") as f:
         return json.load(f)
+
+
+def _load_required_stats(root, model, variable, domain_str, crop_region_str, split):
+    stats = load_global_stats(root, model, variable, domain_str, crop_region_str, split)
+    if stats is None:
+        path = stats_path(root, model, variable, domain_str, crop_region_str, split)
+        raise FileNotFoundError(f"Global stats not found: {path} — run the statistics "
+                                "pipeline first (sbgm_danra_tpu.pipelines.stats_pipeline).")
+    return stats
 
 
 def build_back_transforms_from_stats(

@@ -98,6 +98,10 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package():
     files = glob.glob(os.path.join(ROOT, "sbgm_danra_tpu_torch", "**", "*.py"), recursive=True)
     files += [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "profile_port.py")]
     assert len(files) >= 20
+    scanned = {os.path.relpath(f, ROOT) for f in files}
+    for part in ("cli/main_app.py", "cli/entries.py", "data/device_data.py", "data/loader.py",
+                 "data/dataset.py", "data/synthetic.py", "data/factory.py", "ops/sdf.py"):
+        assert os.path.join("sbgm_danra_tpu_torch", part) in scanned, part
     bad = [(os.path.relpath(f, ROOT), name) for f in files for name in _imported_names(f)
            if name.split(".")[0] in JAX_SIDE]
     assert not bad, bad
@@ -126,3 +130,58 @@ def test_config_reader_and_serve_main_run_without_the_jax_package():
         """,
     )
     assert out.strip().startswith("full_scale_demo__HR_prcp_DANRA__SIZE_128x128")
+
+
+def test_data_path_and_train_main_run_without_the_jax_package(tmp_path):
+    """With JAX, the JAX package and PyYAML refused: the port's synthetic
+    generator writes a tiny dataset, ``make_loaders`` builds the host and the
+    card-resident loaders (on the CPU here) and gives one batch each, and
+    ``train_main`` takes one CPU step from a ``from_dict`` config."""
+    out = _run(
+        (*JAX_SIDE, "yaml"),
+        f"""
+        import os
+        import numpy as np
+        import torch
+        from sbgm_danra_tpu_torch.cli.entries import train_main
+        from sbgm_danra_tpu_torch.config import from_dict
+        from sbgm_danra_tpu_torch.data.factory import make_loaders
+        from sbgm_danra_tpu_torch.data.paths import lsm_path, topo_path
+        from sbgm_danra_tpu_torch.data.synthetic import SyntheticSpec, generate
+
+        root = {str(tmp_path)!r}
+        generate(SyntheticSpec(root=root, full_domain=(40, 48), n_days=8,
+                               variables=("temp", "prcp"), crop_region=(4, 36, 8, 40)))
+
+        def cfg(device_dataset):
+            return from_dict({{
+                "paths": {{"data_dir": root, "checkpoint_dir": os.path.join(root, "ckpt"),
+                          "lsm_path": lsm_path(root), "topo_path": topo_path(root),
+                          "stats_load_dir": os.path.join(root, "stats")}},
+                "highres": {{"variable": "prcp", "data_size": [32, 32],
+                            "scaling_method": "log_zscore", "full_domain_dims": [40, 48],
+                            "cutout_domains": [4, 36, 8, 40]}},
+                "lowres": {{"condition_variables": ["temp", "prcp"],
+                           "scaling_methods": ["zscore", "log_zscore"],
+                           "full_domain_dims": [40, 48]}},
+                "sampler": {{"time_embedding": 16, "last_fmap_channels": 32, "num_heads": 2,
+                            "block_layers": [1, 1, 1, 1]}},
+                "data_handling": {{"device_dataset": device_dataset, "num_workers": 1}},
+                "training": {{"batch_size": 2, "epochs": 1, "steps_per_epoch": 1,
+                             "lr_scheduler": "none", "early_stopping": False,
+                             "verbose": False}},
+            }})
+
+        for device_dataset in (False, True):
+            train, valid, gen = make_loaders(cfg(device_dataset), device="cpu")
+            for loader in (train, valid, gen):
+                batch = next(iter(loader))
+                assert all(np.isfinite(np.asarray(v)).all() for v in batch.values())
+        with torch.backends.mkldnn.flags(enabled=False):
+            pipe = train_main(cfg(True), device="cpu")
+        assert pipe.state.step == 1 and np.isfinite(pipe.history["train_loss"][0])
+        assert not [m for m in sys.modules if _blocked(m)]
+        print(pipe.history["train_loss"][0])
+        """,
+    )
+    assert float(out.strip().splitlines()[-1]) > 0
