@@ -50,50 +50,81 @@ Phases, one JSON line each on stdout:
    launches), and flagship bf16 forwards at 128 px (batch 16) and 608x800
    (batch 2) against the same forward with the plain chain in place of K1 and,
    at 608x800, the plain attention in place of K2 (max |err| <= 5e-2 max |ref|);
+Each path from 5 on runs on its CUDA graphs, the route the port's entry
+points take on the card (``sbgm_danra_tpu_torch/capture.py``,
+``sampling/graphs.py``, the captured train step, ``training/fused.py``): a
+first call captures (two eager warm-up calls on a side stream, then the
+capture), and the measured run is a replay. A graph records K1's and K2's
+launches at capture and adds them to the wrappers' counts at each replay; each
+phase prints its graphs (launches per replay, replays, capture and
+instantiate seconds, pool bytes), the graph's and the eager route's wall
+times, and the graph's output against the eager route's on the same draws
+(max |diff|, whether bit-identical, the tolerance ``GRAPH_TOL`` of max |eager|:
+1e-3 bf16, 1e-5 fp32).
+
 5. full_domain: ``sample_full_domain`` 589x789 -> 608x800, EDM-18, CFG w=3,
-   flagship bf16 UNet with attention backend 'pallas', seeded weights, two
-   samples; each must be finite of shape (1, 589, 789) with exactly 34 K2
-   launches, all of the tensor-core variant, and 272 K1 launches (8 per UNet
-   evaluation, 2 x 17 evaluations);
+   flagship bf16 UNet with attention backend 'pallas', seeded weights: the
+   capture, two replays, each finite of shape (1, 589, 789) with exactly 34
+   K2 launches, all of the tensor-core variant, and 272 K1 launches (8 per
+   UNet evaluation, 2 x 17 evaluations); then the eager loop
+   (``capture=False``) on the first replay's draws: the same counts;
 5b. fp32_full_width: the flagship in fp32 (the 3xTF32 kernels) at 608x800:
    one forward at batch 2 against the plain attention and the plain chain
    (TF32 off: max |err| <= 1e-4 max |ref|, 1 ``fp32`` K2 and 8 + 8 K1
    launches), the same forward under PyTorch's default flags
    (``cudnn.allow_tf32`` True) and TF32 off against the CPU (reported, ROADMAP
    F7), and one EDM-18 sample through ``sample_full_domain(compute_dtype=
-   "float32")``, which turns TF32 off inside its call (checked at every UNet
-   evaluation) and restores the flags after it: 34 ``fp32`` and no ``tc_bf16`` K2
-   launches, 272 + 272 K1, finite (1, 589, 789), its wall time beside the bf16
-   samples'; then F7's cost: the same sample with TF32 on and off (wall time,
-   two each, and cuDNN's conv device time under the profiler, one each);
+   "float32")`` on its graph, captured with TF32 off (checked at every UNet
+   evaluation of the capture) and the flags restored after the call: 34
+   ``fp32`` and no ``tc_bf16`` K2 launches, 272 + 272 K1, finite (1, 589,
+   789), its wall time beside the bf16 samples', then the eager loop on the
+   same draws; then F7's cost on the eager loop: the same sample with TF32
+   on and off (wall time, two each, and cuDNN's conv device time under the
+   profiler, one each);
 5c. train_128: ``TrainingPipeline.train_batches`` on the flagship bf16 UNet at
-   128x128, batch 128, Adam lr 5e-4 with EMA, 5 steps: no K1 or K2 launch in
-   the steps, loss finite, EMA and BatchNorm statistics moved, step time,
-   samples/s, peak memory; then one EMA eval step (8 K1 launches);
+   128x128, batch 128, Adam lr 5e-4 with EMA, on the step's graph and then on
+   the eager step from the same seed: a first step (the capture), 5 timed
+   steps with no K1 or K2 launch, loss finite, EMA and BatchNorm statistics
+   moved, step time, samples/s, peak memory, the two routes' per-step losses
+   (within ``GRAPH_TOL``) and trained states (parameters, BatchNorm
+   statistics, EMA within ``STATE_DRIFT_TOL`` of what training moved them);
+   then one EMA eval step on each route (8 K1 launches a replay);
 5d. train_data: the flagship's data path (``configs/flagship_synth.yaml``
    through ``profile_port.data_config``): 32 synthetic days at 589x789 (no
    'all' split), the card-resident stacks, the card sampler at batch 128
    against the same sampler on the CPU with the same draws (every key equal,
    the SDF within 1e-6), its SDF against the host EDT on all 128 masks
-   (1e-4), the sampler's device ms and launches, 20 flagship steps each on
-   the device loader, the host loader (1 worker) and random batches,
-   ``train_main`` for one epoch of 10 steps with its checkpoint read back,
-   and one EDM-18 full-domain sample conditioned on the first test day with
-   the trained EMA weights, back-transformed: 272 K1 and 34 K2 launches;
+   (1e-4), the sampler's device ms and launches, 20 flagship steps on the
+   one-step graph each on the device loader, the host loader (1 worker) and
+   random batches; ``training.fused_steps`` = 25 (K steps per dispatch,
+   each batch drawn inside the graph) against the one-step graph over two
+   epochs of 25 steps on the same draws with cuDNN deterministic: per-step
+   losses within ``FUSED_TOL`` (1e-6 relative), seconds a step, both routes'
+   graphs; ``train_main`` for one epoch of 25 steps as configured (one
+   dispatch of 25 steps) with its checkpoint read back; and one EDM-18
+   full-domain sample conditioned on the first test day with the trained EMA
+   weights, back-transformed, on its graph: 272 K1 and 34 K2 launches a
+   replay;
 5e. train_full_domain: 5c's step at 589x789 -> 608x800, batch 2, attention
-   'pallas', remat: bf16, 3 steps with 2 K2 forward and 1 K2 backward launch
-   a step (decoder block 1 at [2, 7600, 4, 32]), then one step from a saved
-   state with K2 swapped for the plain attention: loss within 1e-2 and each
-   parameter's gradient (a fused qkv projection's q, k and v parts apart)
-   within ``GRAD_REL_TOL`` of its max |ref|; fp32, one
+   'pallas', remat, on the step's graph: bf16, a capture and 3 replays with
+   2 K2 forward and 1 K2 backward launch each (decoder block 1 at [2, 7600,
+   4, 32]); then, from one saved state, the graph's step against the eager
+   step (loss within ``GRAPH_TOL``, gradients reported) and the eager step
+   against the same step with K2 swapped for the plain attention: loss
+   within 1e-2 and each parameter's gradient (a fused qkv projection's q, k
+   and v parts apart) within ``GRAD_REL_TOL`` of its max |ref|; fp32, one
    step (the fp32 variants);
-6. serving: the engine with the flagship_synth settings behind the HTTP
-   handler on a localhost port: /healthz, three concurrent /generate requests
-   (1, 2 and 4 members), then each again alone, which must come back
-   bit-identical; K1 launches = 8 x the UNet evaluations the dispatches ran;
+6. serving: the engine with the flagship_synth settings (one graph replay per
+   dispatch at the member capacity 8) behind the HTTP handler on a
+   localhost port: /healthz, three concurrent /generate requests (1, 2 and 4
+   members), then each again alone, which must come back bit-identical; K1
+   launches = the graph's per replay x dispatches; then the same requests on
+   an engine with ``capture=False`` against the graph engine's, both called
+   directly;
 7. samplers: at 128 px, flagship bf16 UNet, CFG w=3, batch 13 (the bench's
-   contract batch), 10 steps: pc, em, ode rk4 and ode heun, each finite of the
-   right shape with K1 launches = 8 x its score evaluations.
+   contract batch), 10 steps: pc, em, ode rk4 and ode heun, each on its graph
+   (a capture, then a replay with K1 launches = 8 x its score evaluations)
+   and on the eager loop from the same seed, finite of the right shape.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Then the kernels' summary line, the ``nvidia-smi`` name and power limit
@@ -107,6 +138,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -614,7 +646,42 @@ def phase_model(dev):
     return model, serve_model, tiny_k2
 
 
+def graph_stats(prefix: str) -> list:
+    """The live CUDA graphs whose name starts with ``prefix`` (``capture.stats``)."""
+    import gc
+
+    from sbgm_danra_tpu_torch import capture
+
+    gc.collect()
+    return [g for g in capture.stats() if g["name"].startswith(prefix)]
+
+
+def compare(graph_out, eager_out, tolerance: float) -> dict:
+    """Graph output against the eager route's on the same draws: max |diff|,
+    whether bit-identical, and ``tolerance`` (of max |eager|) it is held to."""
+    a = np.asarray(torch.as_tensor(graph_out).float().cpu())
+    b = np.asarray(torch.as_tensor(eager_out).float().cpu())
+    diff = float(np.abs(a - b).max())
+    return dict(max_abs_diff=diff, bit_identical=bool(np.array_equal(a, b)),
+                max_abs_eager=float(np.abs(b).max()), tolerance_of_max_abs=tolerance,
+                within=bool(diff <= tolerance * float(np.abs(b).max())))
+
+
+def timed(fn):
+    """``fn()`` and its wall seconds, the card synchronised at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def phase_full_domain(dev, model):
+    """The bf16 full-domain sample on its graph (the entry point's route on
+    the card): the first call captures it (two eager warm-up samples on a side
+    stream, then the capture), then two replays, each with 272 K1 and 34 K2
+    launches counted; then the eager loop (``capture=False``) on the second
+    replay's draws, which the graph must reproduce."""
     from sbgm_danra_tpu_torch.evaluate.full_domain import sample_full_domain
     from sbgm_danra_tpu_torch.ops import cuda_attention
     from sbgm_danra_tpu_torch.sampling.samplers import SamplerConfig
@@ -622,40 +689,53 @@ def phase_full_domain(dev, model):
     cond = make_cond(1, FULL_DOMAIN, dev, 8)
     config = SamplerConfig(num_steps=EDM_NODES, guidance_scale=3.0, s_churn=0.0)
 
-    def run(seed):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = sample_full_domain(
-            lambda x, t, **c: model(x, t, **c), torch.Generator(dev).manual_seed(seed), cond,
-            domain_hw=FULL_DOMAIN, batch=1, config=config, sampler="edm_sampler",
-        )
-        return out, time.perf_counter() - t0
+    def run(seed, capture=None):
+        return timed(lambda: sample_full_domain(
+            model, torch.Generator(dev).manual_seed(seed), cond, domain_hw=FULL_DOMAIN, batch=1,
+            config=config, sampler="edm_sampler", capture=capture))
 
-    reset_counts()  # the main path's run starts here
-    out, first_s = run(0)
+    _, capture_call_s = run(0)  # warm-up, capture and one replay
+    reset_counts()  # the main path's run starts here: a replay of the graph
+    out, first_s = run(1)
     launches, k2_first, k1_first = cuda_attention.launches, k2_counts(), k1_counts()
     reset_counts()
-    out2, second_s = run(1)
+    out2, second_s = run(2)
     launches2, k2_second, k1_second = cuda_attention.launches, k2_counts(), k1_counts()
+    reset_counts()
+    eager, eager_s = run(1, capture=False)
+    k2_eager, k1_eager = k2_counts(), k1_counts()
     evaluations = 2 * (EDM_NODES - 1)
     finite = bool(np.isfinite(out).all() and np.isfinite(out2).all())
+    vs_eager = compare(out, eager, GRAPH_TOL["bfloat16"])
+    stats = graph_stats("edm_sampler 1x608x800")
     emit(phase="full_domain", domain="589x789->608x800", sampler=f"edm-{EDM_NODES}", cfg=3.0,
+         route="CUDA graph (sampling/graphs.py), then the eager loop",
          shape=list(out.shape), finite=finite, kernel_launches=launches,
          kernel_launches_second_run=launches2, expected_launches=evaluations,
          k2_launches_by_variant=k2_first, k2_launches_by_variant_second_run=k2_second,
          k1_launches=list(k1_first), k1_launches_second_run=list(k1_second),
-         k1_expected=K1_PER_EVAL * evaluations,
-         wall_s_first=first_s, wall_s_second=second_s, field_std=float(out.std()))
+         k1_expected=K1_PER_EVAL * evaluations, graph=stats,
+         capture_call_s=capture_call_s, wall_s_first=first_s, wall_s_second=second_s,
+         eager_wall_s=eager_s, eager_k1_launches=list(k1_eager),
+         eager_k2_launches_by_variant=k2_eager, graph_vs_eager=vs_eager,
+         field_std=float(out.std()))
     check(out.shape == (1, *FULL_DOMAIN) and finite, f"bad full-domain output {out.shape}")
     check(launches == evaluations and launches2 == evaluations,
           f"kernel launched {launches}/{launches2} times, expected {evaluations}")
     tc_only = {"tc_bf16": evaluations, "fp32": 0}
-    check(k2_first == tc_only and k2_second == tc_only,
-          f"K2 launches by variant {k2_first} / {k2_second}, expected {tc_only}")
-    check_k1(k1_first, evaluations, "full-domain sample")
-    check_k1(k1_second, evaluations, "second full-domain sample")
+    check(k2_first == tc_only and k2_second == tc_only and k2_eager == tc_only,
+          f"K2 launches by variant {k2_first} / {k2_second} / eager {k2_eager}, "
+          f"expected {tc_only}")
+    check_k1(k1_first, evaluations, "full-domain sample (graph replay)")
+    check_k1(k1_second, evaluations, "second full-domain sample (graph replay)")
+    check_k1(k1_eager, evaluations, "full-domain sample (eager loop)")
+    check(len(stats) == 1 and stats[0]["launches_per_replay"] == {
+        "conv3x3_stats": K1_PER_EVAL * evaluations, "gn_apply": K1_PER_EVAL * evaluations,
+        "flash_attention_fwd_tc_bf16": evaluations}, f"full-domain graph launches {stats}")
+    check(vs_eager["within"], f"full-domain graph vs eager: {vs_eager}")
     return {"k2": k2_first, "conv3x3_stats": k1_first[0], "gn_apply": k1_first[1],
-            "wall_s": [first_s, second_s]}
+            "eager": {"k2": k2_eager, "conv3x3_stats": k1_eager[0], "gn_apply": k1_eager[1]},
+            "wall_s": [first_s, second_s], "eager_wall_s": eager_s}
 
 
 def phase_fp32_full_width(dev, bf16_wall_s):
@@ -722,67 +802,84 @@ def phase_fp32_full_width(dev, bf16_wall_s):
         tf32_seen.append(torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32)
         return model(x, t, **c)
 
-    def sample(tf32: bool):
+    def sample(tf32: bool, capture=None):
         """One EDM-18 sample with TF32 on for cuDNN and cuBLAS around the call
         (PyTorch's default for cuDNN): through the entry point's rule for an
         fp32 model (``compute_dtype="float32"``: TF32 off inside the call), or
-        without it, for ROADMAP F7's cost."""
+        without it, for ROADMAP F7's cost; on the graph, or the eager loop."""
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
         return sample_full_domain(
             score, torch.Generator(dev).manual_seed(0), sample_cond,
             domain_hw=FULL_DOMAIN, batch=1, config=config, sampler="edm_sampler",
-            compute_dtype=None if tf32 else "float32",
+            compute_dtype=None if tf32 else "float32", capture=capture,
         )
 
-    sample(False)  # warm-up: cuDNN picks its exact-fp32 algorithms
-    torch.cuda.synchronize()
-    tf32_seen.clear()
-    reset_counts()  # the fp32 full-domain sample's run starts here
-    t0 = time.perf_counter()
-    out = sample(False)
-    wall = time.perf_counter() - t0
+    _, capture_call_s = timed(lambda: sample(False))  # warm-up, capture, one replay
+    tf32_inside = any(tf32_seen)  # the flags the graph was captured under
+    evaluations_seen = len(tf32_seen)
+    reset_counts()  # the fp32 full-domain sample's run starts here: a replay
+    out, wall = timed(lambda: sample(False))
     k2, k1c = k2_counts(), k1_counts()
-    tf32_inside = any(tf32_seen)
     tf32_restored = torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    reset_counts()
+    eager, eager_wall = timed(lambda: sample(False, capture=False))
+    k2_eager, k1_eager = k2_counts(), k1_counts()
+    vs_eager = compare(out, eager, GRAPH_TOL["float32"])
+    stats = graph_stats("edm_sampler 1x608x800")
     evaluations = 2 * (EDM_NODES - 1)
     finite = bool(np.isfinite(out).all())
-    # F7: the same sample with TF32 on and off, wall time (2 each, alternating)
-    # and the device time of cuDNN's convs under the profiler (one each)
+    # F7 on the eager loop: the same sample with TF32 on and off, wall time
+    # (2 each, alternating) and the device time of cuDNN's convs under the
+    # profiler (one each)
     walls = {"tf32_on": [], "tf32_off": []}
     for tf32 in (True, False, False, True):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        sample(tf32)
-        torch.cuda.synchronize()
-        walls["tf32_on" if tf32 else "tf32_off"].append(time.perf_counter() - t1)
+        _, wall_f7 = timed(lambda: sample(tf32, capture=False))
+        walls["tf32_on" if tf32 else "tf32_off"].append(wall_f7)
     conv_ms, busy_ms = {}, {}
     for tf32 in (True, False):
-        prof = profile(torch, lambda: sample(tf32))
+        prof = profile(torch, lambda: sample(tf32, capture=False))
         key = "tf32_on" if tf32 else "tf32_off"
         conv_ms[key] = prof["kernel_ms_by_class"].get("conv (cuDNN)", 0.0)
         busy_ms[key] = prof["device_busy_ms"]
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved_flags
     emit(phase="fp32_full_width", domain="589x789->608x800", sampler=f"edm-{EDM_NODES}", cfg=3.0,
-         dtype="float32", tf32_inside_sample=tf32_inside, tf32_restored_after=tf32_restored,
+         dtype="float32", route="CUDA graph (sampling/graphs.py), then the eager loop",
+         tf32_inside_sample=tf32_inside, unet_evaluations_at_capture=evaluations_seen,
+         tf32_restored_after=tf32_restored,
          shape=list(out.shape), finite=finite, k2_launches_by_variant=k2, k1_launches=list(k1c),
-         k1_expected=K1_PER_EVAL * evaluations, wall_s=wall, bf16_wall_s=bf16_wall_s,
-         field_std=float(out.std()), f7_wall_s=walls, f7_cudnn_conv_device_ms=conv_ms,
-         f7_device_busy_ms=busy_ms)
+         k1_expected=K1_PER_EVAL * evaluations, graph=stats, capture_call_s=capture_call_s,
+         wall_s=wall, eager_wall_s=eager_wall, eager_k1_launches=list(k1_eager),
+         eager_k2_launches_by_variant=k2_eager, graph_vs_eager=vs_eager,
+         bf16_wall_s=bf16_wall_s, field_std=float(out.std()), f7_route="eager loop",
+         f7_wall_s=walls, f7_cudnn_conv_device_ms=conv_ms, f7_device_busy_ms=busy_ms)
     check(out.shape == (1, *FULL_DOMAIN) and finite, f"bad fp32 full-domain output {out.shape}")
-    check(not tf32_inside, "sample_full_domain ran an fp32 model with TF32 on (ROADMAP F7)")
+    check(evaluations_seen > 0 and not tf32_inside,
+          "sample_full_domain captured an fp32 model with TF32 on (ROADMAP F7)")
     check(tf32_restored, "sample_full_domain did not restore the TF32 flags after its call")
     expected = {"tc_bf16": 0, "fp32": evaluations}
-    check(k2 == expected, f"fp32 sample: K2 launches by variant {k2}, expected {expected}")
-    check_k1(k1c, evaluations, "fp32 full-domain sample")
-    return {"k2": k2, "conv3x3_stats": k1c[0], "gn_apply": k1c[1]}
+    check(k2 == expected and k2_eager == expected,
+          f"fp32 sample: K2 launches by variant {k2} / eager {k2_eager}, expected {expected}")
+    check_k1(k1c, evaluations, "fp32 full-domain sample (graph replay)")
+    check_k1(k1_eager, evaluations, "fp32 full-domain sample (eager loop)")
+    check(vs_eager["within"], f"fp32 full-domain graph vs eager: {vs_eager}")
+    return {"k2": k2, "conv3x3_stats": k1c[0], "gn_apply": k1c[1],
+            "eager": {"k2": k2_eager, "conv3x3_stats": k1_eager[0], "gn_apply": k1_eager[1]}}
 
 
+# graph against eager on the same draws: max |diff| within this share of max
+# |eager output| (a sample), or of the loss (a train step); bf16 and fp32
+GRAPH_TOL = {"bfloat16": 1e-3, "float32": 1e-5}
 TRAIN_128 = dict(hw=(128, 128), batch=128, steps=5)  # configs/flagship_synth.yaml:67
 TRAIN_FULL = dict(hw=FULL_DOMAIN, batch=2, steps=3)  # scripts/full_domain_train_bench.py
 # each parameter's gradient (``_grad_parts``), K2 step against plain-attention
 # step: max |diff| / max |ref|; on an H100 bf16 rounding alone reads 6.6e-3 to
 # 7.6e-3, a 10% fault in dq, dk or dv 0.09 or more (PERF.md)
 GRAD_REL_TOL = 2.5e-2
+# train-128, graph route against eager route on the same draws: each part's
+# ||graph - eager|| / ||eager - before|| (``state_drift``); on an H100 sound
+# runs read 0.030 (parameters), 0.0075 (BatchNorm statistics), 0.025 (EMA),
+# a dropped or repeated optimizer or EMA write about 1 (PERF.md)
+STATE_DRIFT_TOL = 0.1
 
 
 class TimedBatches:
@@ -813,58 +910,192 @@ def _snapshot(state):
             {k: v.detach().clone() for k, v in state.ema_params.items()})
 
 
+def recorded_losses(pipe) -> list:
+    """Wrap the pipeline's train step (and fused call) so that each step's
+    loss is appended to the returned list."""
+    losses = []
+    step, fused = pipe._train_step, pipe._fused
+
+    def train_step(*args, **kw):
+        metrics = step(*args, **kw)
+        losses.append(metrics["loss"])
+        return metrics
+
+    def fused_call(*args):
+        state, traces = fused(*args)
+        losses.extend(traces["loss"])
+        return state, traces
+
+    pipe._train_step = train_step
+    if fused is not None:
+        pipe._fused = fused_call
+    return losses
+
+
+def state_drift(before: dict, graph: dict, eager: dict) -> dict:
+    """How far the graph route's trained state lies from the eager route's,
+    against how far training moved it: per part (parameters, BatchNorm
+    statistics, EMA), ||graph - eager|| / ||eager - before|| over all of the
+    part's float tensors, and the tensor where that ratio is largest. A
+    dropped, repeated or misdirected write of the optimizer or the EMA reads
+    about 1 or more."""
+    parts = {"params": (graph["after"], eager["after"], lambda k: not is_bn_stat(k)),
+             "bn_stats": (graph["after"], eager["after"], is_bn_stat),
+             "ema": (graph["ema"], eager["ema"], lambda k: True)}
+    out = {}
+    for part, (g, e, keep) in parts.items():
+        keys = [k for k in e if keep(k) and e[k].is_floating_point()]
+        diff = {k: (g[k].double() - e[k].double()).norm().item() for k in keys}
+        moved = {k: (e[k].double() - before[k].double()).norm().item() for k in keys}
+        worst = max(keys, key=lambda k: diff[k] / max(moved[k], 1e-300))
+        out[part] = dict(ratio=math.hypot(*diff.values()) / math.hypot(*moved.values()),
+                         tensors=len(keys), worst=worst,
+                         worst_ratio=diff[worst] / max(moved[worst], 1e-300))
+    return out
+
+
+def is_bn_stat(key: str) -> bool:
+    return key.endswith(("running_mean", "running_var"))
+
+
+def losses_vs(graph: list, eager: list, tolerance: float) -> dict:
+    """Per-step losses of two runs on the same draws: the largest relative
+    difference, whether bit-identical, and ``tolerance`` it is held to."""
+    a = torch.stack([torch.as_tensor(v).float().cpu() for v in graph])
+    b = torch.stack([torch.as_tensor(v).float().cpu() for v in eager])
+    rel = ((a - b).abs() / b.abs()).max().item()
+    return dict(steps=len(graph), max_rel_diff=rel, bit_identical=bool(torch.equal(a, b)),
+                tolerance=tolerance, within=bool(rel <= tolerance))
+
+
 def phase_train_128(dev):
     """The flagship trained at 128 px, batch 128, bf16, through
-    ``TrainingPipeline.train_batches``: 5 steps with no K1 or K2 launch
-    (training takes the plain chain, and 256-token maps take SDPA), the loss
-    finite, the EMA and the BatchNorm statistics moved; then one EMA eval step,
-    which runs K1 (8 chains)."""
+    ``TrainingPipeline.train_batches``, on the step's CUDA graph and then on
+    the eager step from the same seed: a first step (the capture), then 5
+    timed steps with no K1 or K2 launch (training takes the plain chain, and
+    256-token maps take SDPA), the loss finite, the EMA and the BatchNorm
+    statistics moved, the two routes' losses and trained states on the same
+    draws; then one EMA eval step on each route, which runs K1 (8 chains)."""
     import tempfile
 
     from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
     from sbgm_danra_tpu_torch.training.train_step import make_eval_step
 
     spec = TRAIN_128
-    with tempfile.TemporaryDirectory() as tmp:
-        pipe = TrainingPipeline(train_config(tmp, "bfloat16", "xla", False), [], device=dev)
-        n_params = sum(p.numel() for p in pipe.model.parameters())
-        batches = train_batches(torch, spec["steps"], spec["batch"], spec["hw"], dev, seed=30)
-        before_params, _ = _snapshot(pipe.state)
-        loader = TimedBatches(batches)
-        pipe.train_loader = loader
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()  # the 128-px training path's run starts here
-        loss = pipe.train_batches(spec["steps"])
-        k1c, k2f, k2b = k1_counts(), k2_counts(), k2_bwd_counts()
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        steps = loader.step_s()
-        after, ema = _snapshot(pipe.state)
-        ema_moved = max((ema[k] - before_params[k]).abs().max().item() for k in ema)
-        bn_keys = [k for k in after if k.endswith(("running_mean", "running_var"))]
-        bn_moved = max((after[k] - before_params[k]).abs().max().item() for k in bn_keys)
-        reset_counts()
-        eval_loss = make_eval_step(pipe.model, pipe.sde, use_ema=True)(
-            pipe.state, batches[0], torch.Generator(dev).manual_seed(1))["loss"].item()
-        eval_k1 = k1_counts()
-    median = float(np.median(steps))
+    batches = train_batches(torch, spec["steps"] + 1, spec["batch"], spec["hw"], dev, seed=30)
+    runs = {}
+    for capture in (True, False):
+        with tempfile.TemporaryDirectory() as tmp:
+            pipe = TrainingPipeline(train_config(tmp, "bfloat16", "xla", False), [], device=dev,
+                                    capture=capture)
+            n_params = sum(p.numel() for p in pipe.model.parameters())
+            before_params, _ = _snapshot(pipe.state)
+            losses = recorded_losses(pipe)
+            pipe.train_loader = OnCard(batches[:1])
+            _, first_s = timed(lambda: pipe.train_batches(1))  # the graph's capture
+            loader = TimedBatches(batches[1:])
+            pipe.train_loader = loader
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()  # the 128-px training path's run starts here
+            loss = pipe.train_batches(spec["steps"])
+            k1c, k2f, k2b = k1_counts(), k2_counts(), k2_bwd_counts()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            steps = loader.step_s()
+            after, ema = _snapshot(pipe.state)
+            ema_moved = max((ema[k] - before_params[k]).abs().max().item() for k in ema)
+            bn_keys = [k for k in after if is_bn_stat(k)]
+            bn_moved = max((after[k] - before_params[k]).abs().max().item() for k in bn_keys)
+            eval_step = make_eval_step(pipe.model, pipe.sde, use_ema=True, capture=capture)
+            gen = lambda: torch.Generator(dev).manual_seed(1)  # noqa: E731
+            eval_step(pipe.state, batches[0], gen())  # the eval graph's capture
+            reset_counts()
+            eval_loss = eval_step(pipe.state, batches[0], gen())["loss"].item()
+            eval_k1 = k1_counts()
+            stats = graph_stats("train step") + graph_stats("eval step")
+            runs[capture] = dict(loss=loss, losses=losses, first_step_s=first_s, steps=steps,
+                                 peak=peak, k1c=k1c, k2f=k2f, k2b=k2b, ema_moved=ema_moved,
+                                 bn_moved=bn_moved, eval_loss=eval_loss, eval_k1=eval_k1,
+                                 after=after, ema=ema, graphs=stats)
+            del pipe, eval_step
+            torch.cuda.empty_cache()
+    graph, eager = runs[True], runs[False]
+    median = float(np.median(graph["steps"]))
+    eager_median = float(np.median(eager["steps"]))
+    vs_eager = losses_vs(graph["losses"], eager["losses"], GRAPH_TOL["bfloat16"])
+    drift = state_drift(before_params, graph, eager)
+    eval_vs = abs(graph["eval_loss"] - eager["eval_loss"]) / abs(eager["eval_loss"])
     emit(phase="train_128", settings="flagship UNet (19.08M), bf16, 128x128, batch 128, Adam "
-         "lr 5e-4, EMA 0.999, attention 'xla'", n_params=n_params, steps=spec["steps"],
-         mean_loss=loss, finite=bool(np.isfinite(loss)), step_s=steps, step_s_median=median,
-         samples_per_s=spec["batch"] / median, peak_memory_gb=peak,
-         k1_launches=list(k1c), k2_launches_by_variant=k2f, k2_bwd_launches_by_variant=k2b,
-         ema_max_change=ema_moved, bn_running_stats_max_change=bn_moved,
-         ema_eval_loss=eval_loss, ema_eval_k1_launches=list(eval_k1))
-    check(np.isfinite(loss) and np.isfinite(eval_loss), f"train-128 loss {loss} / {eval_loss}")
-    check(k1c == (0, 0) and sum(k2f.values()) == 0 and sum(k2b.values()) == 0,
-          f"train-128 steps launched K1 {k1c} / K2 {k2f} {k2b}; training takes plain ops")
-    check(ema_moved > 0 and bn_moved > 0, f"EMA moved {ema_moved}, BN statistics {bn_moved}")
-    check_k1(eval_k1, 1, "EMA eval step at 128 px")
-    return {"step_s_median": median}
+         "lr 5e-4, EMA 0.999, attention 'xla'", route="CUDA graph of the step, then eager",
+         n_params=n_params, steps=spec["steps"], mean_loss=graph["loss"],
+         finite=bool(np.isfinite(graph["loss"])), capture_step_s=graph["first_step_s"],
+         step_s=graph["steps"], step_s_median=median, samples_per_s=spec["batch"] / median,
+         peak_memory_gb=graph["peak"], k1_launches=list(graph["k1c"]),
+         k2_launches_by_variant=graph["k2f"], k2_bwd_launches_by_variant=graph["k2b"],
+         ema_max_change=graph["ema_moved"], bn_running_stats_max_change=graph["bn_moved"],
+         ema_eval_loss=graph["eval_loss"], ema_eval_k1_launches=list(graph["eval_k1"]),
+         graph=graph["graphs"], eager_step_s=eager["steps"], eager_step_s_median=eager_median,
+         eager_peak_memory_gb=eager["peak"], eager_ema_eval_k1_launches=list(eager["eval_k1"]),
+         graph_vs_eager_losses=vs_eager, graph_vs_eager_state=drift,
+         graph_vs_eager_eval_loss_rel_diff=eval_vs)
+    for name, run in (("graph", graph), ("eager", eager)):
+        check(np.isfinite(run["loss"]) and np.isfinite(run["eval_loss"]),
+              f"train-128 ({name}) loss {run['loss']} / {run['eval_loss']}")
+        check(run["k1c"] == (0, 0) and sum(run["k2f"].values()) == 0
+              and sum(run["k2b"].values()) == 0,
+              f"train-128 ({name}) steps launched K1 {run['k1c']} / K2 {run['k2f']} "
+              f"{run['k2b']}; training takes plain ops")
+        check(run["ema_moved"] > 0 and run["bn_moved"] > 0,
+              f"{name}: EMA moved {run['ema_moved']}, BN statistics {run['bn_moved']}")
+        check_k1(run["eval_k1"], 1, f"EMA eval step at 128 px ({name})")
+    check(vs_eager["within"] and eval_vs <= GRAPH_TOL["bfloat16"],
+          f"train-128 graph vs eager: {vs_eager}, eval loss {eval_vs}")
+    check(all(d["ratio"] <= STATE_DRIFT_TOL for d in drift.values()),
+          f"train-128 graph vs eager state: {drift}, above {STATE_DRIFT_TOL}")
+    return {"step_s_median": median, "eval_k1": graph["eval_k1"]}
 
 
 DATA_STEPS = 20  # timed flagship steps per loader
+FUSED_K = 25  # configs/flagship_synth.yaml: training.fused_steps
+FUSED_TOL = 1e-6  # fused vs one-step graph, cuDNN deterministic: per-step loss, relative
 SAMPLE_KEYS = ("x", "cond_img", "lsm_cond", "topo_cond", "y", "lsm_hr")
+
+
+def fused_vs_one_step(dev, tmp, train) -> dict:
+    """``training.fused_steps`` = 25 (``training/fused.py``: its one-step
+    graph, card sampler inside, replayed 25 times) against the one-step
+    train-step graph on the same draws, through the pipeline on the device
+    loader: two epochs of 25 steps each, cuDNN deterministic so that
+    both routes take the same algorithms; the per-step losses, the seconds per
+    step of the second epoch (the first holds the captures), each route's
+    graphs (capture and instantiate seconds, pool bytes)."""
+    from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for k in (FUSED_K, 0):
+            pipe = TrainingPipeline(data_config(tmp, fused_steps=k, steps_per_epoch=FUSED_K),
+                                    train, device=dev)
+            losses = recorded_losses(pipe)
+            walls = []
+            for epoch in range(2):
+                train.set_epoch(epoch)
+                walls.append(timed(lambda: pipe.train_batches(FUSED_K))[1])
+            runs[k] = dict(losses=losses, walls=walls,
+                           graphs=graph_stats("fused" if k else "train step"))
+            del pipe
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    fused, one = runs[FUSED_K], runs[0]
+    return dict(k=FUSED_K, epochs_of_k_steps=2,
+                losses_vs_one_step=losses_vs(fused["losses"], one["losses"], FUSED_TOL),
+                finite=bool(all(np.isfinite(float(v)) for v in fused["losses"])),
+                step_s=fused["walls"][1] / FUSED_K, one_step_graph_step_s=one["walls"][1] / FUSED_K,
+                first_epoch_s=fused["walls"][0], one_step_graph_first_epoch_s=one["walls"][0],
+                graphs=fused["graphs"], one_step_graphs=one["graphs"])
 
 
 def phase_train_data(dev):
@@ -919,29 +1150,35 @@ def phase_train_data(dev):
         no_land_zero = all(not sdf[i].any() for i in no_land)
         sampler = sampler_profile(torch, train, g)
 
-        pipe = TrainingPipeline(cfg, train, valid, device=dev)
+        # the one-step graph (fused_steps 0) on each loader, timed step by step
+        pipe = TrainingPipeline(data_config(tmp, fused_steps=0), train, valid, device=dev)
         host = DataLoader(RepeatedDays(make_dataset(cfg, "train"), 128), batch_size=128,
                           shuffle=True, num_workers=cfg.data_handling.num_workers, seed=0)
         random = OnCard(train_batches(torch, DATA_STEPS, 128, (128, 128), dev, seed=40))
         steps = {}
         for name, loader in (("device_loader", train), ("host_loader_1_worker", host),
                              ("random_batches", random)):
-            step_seconds(torch, pipe, loader, 2)  # warm-up
+            step_seconds(torch, pipe, loader, 2)  # warm-up (the first step captures)
             steps[name] = step_seconds(torch, pipe, loader, DATA_STEPS)
         losses_finite = all(np.isfinite(r["mean_loss"]) for r in steps.values())
         del pipe, random
         torch.cuda.empty_cache()
 
-        epoch_cfg = data_config(tmp, epochs=1, steps_per_epoch=10)
+        fused = fused_vs_one_step(dev, tmp, train)
+        torch.cuda.empty_cache()
+
+        # configs/flagship_synth.yaml's training section: 25 steps per dispatch
+        epoch_cfg = data_config(tmp, epochs=1, steps_per_epoch=FUSED_K)
         t0 = time.perf_counter()
         trained = train_main(epoch_cfg, device=dev)
         train_main_s = time.perf_counter() - t0
+        train_main_graph = graph_stats("fused")
         # a pipeline that only reads the checkpoint trains nothing: no fused
         # steps to check against its (empty) loader
-        reread = TrainingPipeline(data_config(tmp, epochs=1, steps_per_epoch=10, fused_steps=0),
-                                  [], device=dev)
+        reread = TrainingPipeline(data_config(tmp, epochs=1, steps_per_epoch=FUSED_K,
+                                              fused_steps=0), [], device=dev)
         reread.load()
-        read_back = (reread.state.step == trained.state.step == 10 and reread.epoch == 1
+        read_back = (reread.state.step == trained.state.step == FUSED_K and reread.epoch == 1
                      and all(torch.equal(a, b) for a, b in zip(
                          reread.model.state_dict().values(),
                          trained.model.state_dict().values()))
@@ -962,15 +1199,16 @@ def phase_train_data(dev):
         model.load_state_dict(weights)
         del trained, reread
         config = SamplerConfig(num_steps=EDM_NODES, guidance_scale=3.0, s_churn=0.0)
+
+        def sample():
+            return sample_full_domain(model, torch.Generator(dev).manual_seed(3), cond,
+                                      domain_hw=FULL_DOMAIN, batch=1, config=config,
+                                      sampler="edm_sampler")
+
         with torch.inference_mode():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            reset_counts()  # the conditioned full-domain sample's run starts here
-            out = sample_full_domain(lambda x, t, **c: model(x, t, **c),
-                                     torch.Generator(dev).manual_seed(3), cond,
-                                     domain_hw=FULL_DOMAIN, batch=1, config=config,
-                                     sampler="edm_sampler")
-            sample_s = time.perf_counter() - t0
+            _, capture_call_s = timed(sample)  # warm-up, capture, one replay
+            reset_counts()  # the conditioned full-domain sample's run starts here: a replay
+            out, sample_s = timed(sample)
             k1c, k2c = k1_counts(), k2_counts()
         mm = np.asarray(back_transforms_for_config(cfg)["generated"](out))
         test_date = day.date_of(0)
@@ -990,13 +1228,17 @@ def phase_train_data(dev):
          full_domain_test_date=test_date, full_domain_shape=list(out.shape),
          full_domain_finite=bool(np.isfinite(out).all() and np.isfinite(mm).all()),
          full_domain_mm_mean=float(mm.mean()), full_domain_mm_max=float(mm.max()),
-         full_domain_wall_s=sample_s, k1_launches=list(k1c), k2_launches_by_variant=k2c)
+         full_domain_capture_call_s=capture_call_s, full_domain_wall_s=sample_s,
+         k1_launches=list(k1c), k2_launches_by_variant=k2c, fused=fused,
+         train_main_fused_steps=FUSED_K, train_main_graph=train_main_graph)
     check(not unequal and sdf_vs_cpu <= 1e-6,
           f"card sampler differs from the CPU's: {unequal}, SDF {sdf_vs_cpu}")
     check(sdf_vs_edt <= 1e-4 and no_land_zero, f"card SDF vs host EDT {sdf_vs_edt}")
     check(losses_finite and all(np.isfinite(history["train_loss"] + history["val_loss"])),
           f"train losses {history}")
     check(read_back, "train_main's checkpoint did not read back to the same state")
+    check(fused["losses_vs_one_step"]["within"] and fused["finite"],
+          f"fused steps against the one-step graph: {fused['losses_vs_one_step']}")
     check(out.shape == (1, *FULL_DOMAIN) and np.isfinite(out).all() and np.isfinite(mm).all(),
           f"bad conditioned full-domain sample {out.shape}")
     check(k2c == {"tc_bf16": evaluations, "fp32": 0},
@@ -1014,15 +1256,15 @@ def _plain_k2():
     return lambda: setattr(fa, "flash_attention_cuda", cuda_attention.flash_attention_cuda)
 
 
-def _step_grads(pipe, batch, t, z):
-    """One train step from the pipeline's current state; returns the loss, the
-    gradients it applied, and the state as it was before (restore with
-    ``_restore``)."""
+def _step_grads(pipe, batch, t, z, step=None):
+    """One train step (``step``, by default the pipeline's eager step) from
+    the pipeline's current state; returns the loss, the gradients it applied,
+    and the state as it was before (restore with ``_restore``)."""
     import copy
 
     saved = (_snapshot(pipe.state), copy.deepcopy(pipe.state.optimizer.state_dict()),
              pipe.state.step)
-    loss = pipe._train_step(pipe.state, batch, t=t, z=z)["loss"].item()
+    loss = (step or pipe.eager_train_step)(pipe.state, batch, t=t, z=z)["loss"].item()
     grads = {n: p.grad.detach().float().clone() for n, p in pipe.model.named_parameters()}
     return loss, grads, saved
 
@@ -1055,10 +1297,12 @@ def _restore(pipe, saved):
 
 def phase_train_full_domain(dev, dtype: str, steps: int, compare: bool):
     """The flagship trained at the padded full domain (589x789 -> 608x800),
-    batch 2, attention 'pallas', remat, through ``TrainingPipeline``: per step
-    2 K2 forward launches (forward and the remat recompute, decoder block 1 at
-    [2, 7600, 4, 32]) and 1 K2 backward; the loss finite. With ``compare``, one
-    more step from a saved state with K2 swapped for the plain attention
+    batch 2, attention 'pallas', remat, through ``TrainingPipeline`` on the
+    step's CUDA graph: a first step (the capture), then ``steps`` replays, each
+    with 2 K2 forward launches (forward and the remat recompute, decoder block
+    1 at [2, 7600, 4, 32]) and 1 K2 backward; the loss finite. With
+    ``compare``, from one saved state: the graph's step against the eager step
+    (same t and z), and the eager step with K2 swapped for the plain attention
     (forward and backward): the loss and every parameter's gradient against
     the kernel step's."""
     import tempfile
@@ -1069,23 +1313,43 @@ def phase_train_full_domain(dev, dtype: str, steps: int, compare: bool):
     variant = K2_VARIANT[getattr(torch, dtype)]
     with tempfile.TemporaryDirectory() as tmp:
         pipe = TrainingPipeline(train_config(tmp, dtype, "pallas", True), [], device=dev)
-        batches = train_batches(torch, steps, spec["batch"], spec["hw"], dev, seed=40)
-        loader = TimedBatches(batches)
+        batches = train_batches(torch, steps + 1, spec["batch"], spec["hw"], dev, seed=40)
+        pipe.train_loader = OnCard(batches[:1])
+        _, capture_step_s = timed(lambda: pipe.train_batches(1))  # the step graph's capture
+        loader = TimedBatches(batches[1:])
         pipe.train_loader = loader
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_counts()  # the full-domain training path's run starts here
+        reset_counts()  # the full-domain training path's run starts here: graph replays
         loss = pipe.train_batches(steps)
         k1c, k2f, k2b = k1_counts(), k2_counts(), k2_bwd_counts()
         peak = torch.cuda.max_memory_allocated() / 1e9
         step_s = loader.step_s()
-        cmp = {}
+        stats = graph_stats("train step")
+        cmp, vs_eager = {}, {}
         if compare:
             g = torch.Generator(dev).manual_seed(50)
             t = torch.rand(spec["batch"], generator=g, device=dev) * (1 - 1e-3) + 1e-3
             z = torch.randn(batches[0]["x"].shape, generator=g, device=dev)
-            loss_k, grads_k, saved = _step_grads(pipe, batches[0], t, z)
+            # the graph's step against the eager step from one state, same t and z
+            loss_g, grads_g, saved = _step_grads(pipe, batches[0], t, z, step=pipe._train_step)
             _restore(pipe, saved)
+            reset_counts()
+            _, eager_s = timed(lambda: _step_grads(pipe, batches[0], t, z))
+            eager_k2 = (k2_counts()[variant], k2_bwd_counts()[variant])
+            _restore(pipe, saved)
+            loss_k, grads_k, _ = _step_grads(pipe, batches[0], t, z)
+            _restore(pipe, saved)
+            grad_diff = max((grads_g[n] - grads_k[n]).abs().max().item() for n in grads_k)
+            vs_eager = dict(loss_graph=loss_g, loss_eager=loss_k,
+                            loss_rel_diff=abs(loss_g - loss_k) / abs(loss_k),
+                            bit_identical=bool(loss_g == loss_k and all(
+                                torch.equal(grads_g[n], grads_k[n]) for n in grads_k)),
+                            grad_max_abs_diff=grad_diff,
+                            grad_max_abs=max(v.abs().max().item() for v in grads_k.values()),
+                            tolerance=f"loss within {GRAPH_TOL[dtype]} relative",
+                            eager_step_s=eager_s, eager_k2_fwd_bwd=list(eager_k2))
+            # the eager step with K2 against the same step with the plain attention
             restore = _plain_k2()
             try:
                 loss_p, grads_p, _ = _step_grads(pipe, batches[0], t, z)
@@ -1107,7 +1371,9 @@ def phase_train_full_domain(dev, dtype: str, steps: int, compare: bool):
     per_step = {"k2_fwd": k2f[variant] / steps, "k2_bwd": k2b[variant] / steps}
     emit(phase="train_full_domain", settings=f"flagship UNet, {dtype}, 589x789 -> 608x800, "
          "batch 2, attention 'pallas', remat, Adam lr 5e-4, EMA 0.999", steps=steps,
-         mean_loss=loss, finite=bool(np.isfinite(loss)), step_s=step_s, step_s_median=median,
+         route="CUDA graph of the step (the comparisons on the eager step)",
+         mean_loss=loss, finite=bool(np.isfinite(loss)), capture_step_s=capture_step_s,
+         graph=stats, graph_vs_eager=vs_eager, step_s=step_s, step_s_median=median,
          samples_per_s=spec["batch"] / median, peak_memory_gb=peak, k1_launches=list(k1c),
          k2_launches_by_variant=k2f, k2_bwd_launches_by_variant=k2b,
          k2_launches_per_step=per_step, kernel_vs_plain_attention=cmp,
@@ -1117,9 +1383,14 @@ def phase_train_full_domain(dev, dtype: str, steps: int, compare: bool):
     check(np.isfinite(loss), f"full-domain train loss {loss}")
     check(per_step == {"k2_fwd": 2, "k2_bwd": 1} and k1c == (0, 0),
           f"full-domain train: K2 per step {per_step}, K1 {k1c}; expected 2 + 1 and no K1")
+    check(stats and all(g["launches_per_replay"] == {
+        f"flash_attention_fwd_{variant}": 2, f"flash_attention_bwd_{variant}": 1}
+        for g in stats), f"full-domain train step graph launches {stats}")
     if compare:
         check(cmp["loss_rel_err"] <= 1e-2 and cmp["grad_rel_err_max"] <= GRAD_REL_TOL,
               f"full-domain train step, kernel vs plain attention: {cmp}")
+        check(vs_eager["loss_rel_diff"] <= GRAPH_TOL[dtype] and vs_eager["eager_k2_fwd_bwd"]
+              == [2, 1], f"full-domain train step, graph vs eager: {vs_eager}")
     return {"k2_bwd": k2b[variant], "k2_fwd": k2f[variant], "step_s_median": median}
 
 
@@ -1133,36 +1404,42 @@ def _post(url: str, body: dict):
 
 
 def phase_serving(dev):
+    """The serving engine with the flagship_synth settings on its graph (one
+    replay per dispatch at the member capacity 8): behind the HTTP handler,
+    /healthz, three concurrent /generate requests (1, 2 and 4 members), then
+    each again alone, which must come back bit-identical; K1 launches = the
+    graph's per replay x dispatches. Then the same three requests on the
+    engine's eager loop (``capture=False``) against the graph engine's, both
+    called directly: latency and max |diff|."""
     from sbgm_danra_tpu_torch.models.unet import build_score_model
     from sbgm_danra_tpu_torch.serve import FLAGSHIP_SYNTH, InferenceEngine, make_handler
 
     weights = build_score_model(FLAGSHIP_SYNTH.spec, generator=torch.Generator().manual_seed(1))
     engine = InferenceEngine(FLAGSHIP_SYNTH, weights.state_dict(), dev, max_members=8)
-    warm_s = engine.warmup()
-    evaluations = [0]
-    engine.model.register_forward_hook(lambda *_: evaluations.__setitem__(0, evaluations[0] + 1))
-    reset_counts()  # the serving path's run starts here
+    warm_s = engine.warmup()  # the dispatch graph's capture
+    stats = graph_stats("dpmpp_sampler 8x128x128")
+    per_replay = stats[0]["launches_per_replay"] if stats else {}
+    reset_counts()  # the serving path's run starts here: one replay per dispatch
     server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(engine))
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
+    rng = np.random.default_rng(0)
+    hw = FLAGSHIP_SYNTH.sample_hw
+    mask = np.ones((*hw, 1), np.float32)
+    conditions = {
+        "y": 2,
+        "cond_img": rng.normal(size=(*hw, 2)).astype(np.float32).tolist(),
+        "lsm_cond": np.concatenate([(rng.random((*hw, 1)) > 0.5), mask], -1)
+        .astype(np.float32).tolist(),
+        "topo_cond": np.concatenate([rng.normal(size=(*hw, 1)), mask], -1)
+        .astype(np.float32).tolist(),
+    }
+    requests = [(1, 11), (2, 12), (4, 13)]
     try:
         with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
             health = json.loads(resp.read())
         check(health["status"] == "ok" and health["platform"] == "cuda", f"healthz {health}")
-
-        rng = np.random.default_rng(0)
-        hw = FLAGSHIP_SYNTH.sample_hw
-        mask = np.ones((*hw, 1), np.float32)
-        conditions = {
-            "y": 2,
-            "cond_img": rng.normal(size=(*hw, 2)).astype(np.float32).tolist(),
-            "lsm_cond": np.concatenate([(rng.random((*hw, 1)) > 0.5), mask], -1)
-            .astype(np.float32).tolist(),
-            "topo_cond": np.concatenate([rng.normal(size=(*hw, 1)), mask], -1)
-            .astype(np.float32).tolist(),
-        }
-        requests = [(1, 11), (2, 12), (4, 13)]
         results = {}
 
         def client(n, seed):
@@ -1181,35 +1458,64 @@ def phase_serving(dev):
         alone = {n: _post(base + "/generate",
                           {"conditions": conditions, "n_members": n, "seed": seed})
                  for n, seed in requests}
+        dispatches = engine.n_dispatches
+        counts = k1_counts()
+        direct = {n: timed(lambda n=n, seed=seed: engine.generate(conditions, n, seed))
+                  for n, seed in requests}
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
         engine.close()
-    counts = k1_counts()
+    eager_engine = InferenceEngine(FLAGSHIP_SYNTH, weights.state_dict(), dev, max_members=8,
+                                   capture=False)
+    try:
+        eager_warm_s = eager_engine.warmup()
+        reset_counts()
+        eager = {n: timed(lambda n=n, seed=seed: eager_engine.generate(conditions, n, seed))
+                 for n, seed in requests}
+        eager_counts = k1_counts()
+    finally:
+        eager_engine.close()
 
     arrays = {n: np.asarray(results[n][0]["generated"], np.float32) for n, _ in requests}
     shapes_ok = all(arrays[n].shape == (n, *hw) for n, _ in requests)
     finite = all(np.isfinite(a).all() for a in arrays.values())
     repeats = {n: np.asarray(alone[n][0]["generated"], np.float32) for n, _ in requests}
     identical = all(np.array_equal(repeats[n], arrays[n]) for n, _ in requests)
+    vs_eager = {str(n): compare(direct[n][0], eager[n][0], GRAPH_TOL["bfloat16"])
+                for n, _ in requests}
+    evaluations = dispatches * per_replay.get("conv3x3_stats", 0) // K1_PER_EVAL
     emit(phase="serving", settings="flagship_synth: 128x128, dpmpp-25, CFG w=3, bf16",
-         max_members=8, warmup_s=warm_s,
+         route="CUDA graph per dispatch (sampling/graphs.py), then the eager loop",
+         max_members=8, warmup_s=warm_s, graph=stats,
          latency_s={str(n): results[n][1] for n, _ in requests},
          latency_alone_s={str(n): alone[n][1] for n, _ in requests},
          shapes_ok=shapes_ok, finite=finite, repeat_bit_identical=identical,
          repeat_max_abs_diff=max(float(np.abs(repeats[n] - arrays[n]).max()) for n, _ in requests),
          n_dispatches_concurrent=health["n_dispatches"],
          mean_rows_per_dispatch=health["mean_rows_per_dispatch"],
-         unet_evaluations=evaluations[0], k1_launches=list(counts))
+         dispatches=dispatches, unet_evaluations=evaluations, k1_launches=list(counts),
+         direct_latency_s={str(n): direct[n][1] for n, _ in requests},
+         eager_warmup_s=eager_warm_s,
+         eager_direct_latency_s={str(n): eager[n][1] for n, _ in requests},
+         eager_k1_launches=list(eager_counts), graph_vs_eager=vs_eager)
     check(shapes_ok and finite, "serving returned bad shapes or non-finite values")
     check(identical, "requests repeated alone did not reproduce their concurrent results")
-    check_k1(counts, evaluations[0], "serving")
-    return {"conv3x3_stats": counts[0], "gn_apply": counts[1]}
+    check(dispatches > 0 and len(stats) == 1, f"serving: {dispatches} dispatches, graphs {stats}")
+    check_k1(counts, evaluations, "serving (graph replays)")
+    check_k1(eager_counts, 3 * (FLAGSHIP_SYNTH.sampler.num_steps - 1), "serving (eager loop)")
+    check(all(v["within"] for v in vs_eager.values()), f"serving graph vs eager: {vs_eager}")
+    return {"conv3x3_stats": counts[0], "gn_apply": counts[1],
+            "eager": {"conv3x3_stats": eager_counts[0], "gn_apply": eager_counts[1]}}
 
 
 def phase_samplers(dev, model):
-    """pc (the bench headline), em and the probability-flow ODE at 128 px."""
+    """pc (the bench headline), em and the probability-flow ODE at 128 px, each
+    on its graph (``sampling/graphs.py``: the first call captures, the second
+    replays with K1 launches = 8 x its score evaluations) and on the eager
+    loop from the same generator seed, which counts the evaluations."""
+    from sbgm_danra_tpu_torch.sampling import graphs
     from sbgm_danra_tpu_torch.sampling.samplers import SamplerConfig, get_sampler
 
     cond = make_cond(CONTRACT_BATCH, SERVE_HW, dev, 11)
@@ -1225,23 +1531,36 @@ def phase_samplers(dev, model):
             return model(x, t, **c)
 
         label = name if name != "ode_sampler" else f"ode_sampler/{method}"
-        torch.cuda.synchronize()
-        reset_counts()  # this sampler's run starts here
-        t0 = time.perf_counter()
+
+        def graph_call():
+            return graphs.sample(name, model, torch.Generator(dev).manual_seed(12), shape,
+                                 config=config, cond=cond)
+
         with torch.inference_mode():
-            out = get_sampler(name)(score_fn, torch.Generator(dev).manual_seed(12), shape,
-                                    config=config, cond=cond)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = k1_counts()
+            _, capture_call_s = timed(graph_call)  # warm-up, capture, one replay
+            reset_counts()  # this sampler's run starts here: a replay of its graph
+            out, wall = timed(graph_call)
+            counts = k1_counts()
+            reset_counts()
+            eager, eager_wall = timed(lambda: get_sampler(name)(
+                score_fn, torch.Generator(dev).manual_seed(12), shape, config=config, cond=cond))
+            eager_counts = k1_counts()
         finite = bool(torch.isfinite(out).all())
+        vs_eager = compare(out, eager, GRAPH_TOL["bfloat16"])
+        stats = graph_stats(f"{name}{'/' + method if name == 'ode_sampler' else ''} "
+                            f"{CONTRACT_BATCH}x")
         emit(phase="samplers", sampler=label, batch=CONTRACT_BATCH, steps=SAMPLER_STEPS,
-             cfg=3.0, shape=list(out.shape), finite=finite, wall_s=wall,
-             unet_evaluations=evaluations[0], k1_launches=list(counts),
+             cfg=3.0, route="CUDA graph (sampling/graphs.py), then the eager loop",
+             shape=list(out.shape), finite=finite, capture_call_s=capture_call_s, wall_s=wall,
+             eager_wall_s=eager_wall, unet_evaluations=evaluations[0], k1_launches=list(counts),
+             eager_k1_launches=list(eager_counts), graph=stats, graph_vs_eager=vs_eager,
              field_std=float(out.float().std()))
         check(tuple(out.shape) == shape and finite, f"{label}: bad output {tuple(out.shape)}")
-        check_k1(counts, evaluations[0], label)
+        check_k1(counts, evaluations[0], f"{label} (graph replay)")
+        check_k1(eager_counts, evaluations[0], f"{label} (eager loop)")
+        check(vs_eager["within"], f"{label} graph vs eager: {vs_eager}")
         launches[label] = counts[0]
+    graphs.clear()
     return launches
 
 
@@ -1320,7 +1639,7 @@ def main() -> int:
     fp32 = phase_fp32_full_width(dev, launches["wall_s"])
     torch.cuda.empty_cache()
     # training before serving: the serving engine sets cudnn.deterministic
-    phase_train_128(dev)
+    train_128 = phase_train_128(dev)
     torch.cuda.empty_cache()
     train_data = phase_train_data(dev)
     torch.cuda.empty_cache()
@@ -1338,12 +1657,14 @@ def main() -> int:
     kernels = [
         _k2_summary(attention_rows, "tc_bf16", "mma.sync bf16", launches=k2["tc_bf16"],
                     launches_by_path={"full_domain": k2["tc_bf16"],
+                                      "full_domain/eager": launches["eager"]["k2"]["tc_bf16"],
                                       "train_data/full_domain": train_data["k2"]["tc_bf16"],
                                       "fp32_full_domain": fp32["k2"]["tc_bf16"],
                                       "train_full_domain_tc_bf16": train_bf16["k2_fwd"]}),
         _k2_summary(attention_rows, "fp32", "tf32x3 (mma.sync)", launches=fp32["k2"]["fp32"],
                     launches_by_path={"full_domain": k2["fp32"],
                                       "fp32_full_domain": fp32["k2"]["fp32"],
+                                      "fp32_full_domain/eager": fp32["eager"]["k2"]["fp32"],
                                       "train_full_domain_fp32": train_fp32["k2_fwd"]},
                     launches_outside_main_path={"model/tiny_fp32_unet": tiny_k2["fp32"]}),
     ]
@@ -1377,8 +1698,12 @@ def main() -> int:
             "replaces": "sbgm_danra_tpu/ops/fused_conv_gn.py:66",
             "launches": launches[name],
             "launches_by_path": {"full_domain": launches[name],
+                                 "full_domain/eager": launches["eager"][name],
                                  "train_data/full_domain": train_data[name],
                                  "serving": serving[name],
+                                 "serving/eager": serving["eager"][name],
+                                 "train_128/ema_eval_step": train_128["eval_k1"][
+                                     name == "gn_apply"],
                                  **{f"samplers/{k}": v for k, v in samplers.items()}},
             **_k1_summary(k1_rows, name, "bfloat16"),
         })
@@ -1389,7 +1714,8 @@ def main() -> int:
             "source": "sbgm_danra_tpu_torch/csrc/conv3x3_gn.cu",
             "replaces": "sbgm_danra_tpu/ops/fused_conv_gn.py:66",
             "launches": fp32[name],
-            "launches_by_path": {"fp32_full_domain": fp32[name]},
+            "launches_by_path": {"fp32_full_domain": fp32[name],
+                                 "fp32_full_domain/eager": fp32["eager"][name]},
             **_k1_summary(k1_rows, name, "float32"),
         })
     check(all(k["launches"] > 0 for k in kernels),

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time and profile the torch port's two generation paths on one CUDA card.
+"""Time and profile the torch port's generation and training paths on one CUDA card.
 
     python3 profile_port.py                       # the port of this checkout
     python3 profile_port.py --root DIR --label parent --out chiprun_out/parent.json
@@ -21,9 +21,20 @@ idle share of the profiled window. One JSON object per path on stdout, all of
 them in ``--out``. Without a CUDA card it exits 1.
 
 ``--dtype float32`` runs ``full_domain``, ``k1`` and ``k2`` in fp32 (the
-3xTF32 kernels; the model then computes in fp32 with PyTorch's default flags,
-so its other cuDNN convs take TF32; the kernel timings set TF32 off for their
-library calls); the default is bfloat16.
+3xTF32 kernels; ``full_domain`` passes ``compute_dtype``, so the sample runs
+with TF32 off as the entry point runs an fp32 model; the kernel timings set
+TF32 off for their library calls); the default is bfloat16.
+
+``--capture {eager,graph,both}`` picks the route of ``full_domain``,
+``serving``, ``train`` and ``train_data``: the eager loop, the CUDA graphs
+(``sbgm_danra_tpu_torch/capture.py``: the first call of a path captures, the
+timed and profiled calls replay), or both in turn; each row's path ends in
+``/eager`` or ``/graph``, and a graph row lists the live graphs (launches per
+replay, replays, capture and instantiate seconds, pool bytes). A checkout
+without graphs (an older commit under ``--root``) runs the eager loop only.
+The profile's ``host_launch_calls`` count the host's launch calls (one a
+kernel eagerly, one a graph replayed) beside ``kernel_launches``, the kernels
+the card ran.
 
 ``--paths k1`` times K1's two kernels alone (``conv3x3_stats`` and
 ``gn_apply`` on seeded inputs, in ``--dtype``) at the decoder chains of the 608x800 path
@@ -62,10 +73,12 @@ breakdown of one, as for the paths above.
 synthetic days at 589x789, default 32): the stores' generation, the resident
 GiB and the stacks' load and upload seconds, the card sampler at batch 128
 (device ms after an L2 flush, launches, the jump-flood SDF's share), and the
-flagship step in one pipeline on the device loader, the host loader with 1
-and 4 workers (``RepeatedDays`` fills batches of 128 from the short split)
-and random batches: the seconds of each of 20 steps and ``torch.profiler``
-over steps 5-8 (idle share, launches).
+flagship step with one step per dispatch, per route, on the device loader and
+random batches (eager also on the host loader with 1 and 4 workers:
+``RepeatedDays`` fills batches of 128 from the short split): the seconds of
+each of 20 steps and ``torch.profiler`` over steps 5-8 (idle share,
+launches); with graphs, ``training.fused_steps`` = 25 through
+``training/fused.py`` (``train_data_rows``).
 
 ``--paths k2`` times K2 alone (``flash_attention_cuda`` on contiguous
 seeded inputs, which every version takes) in ``--dtype`` at the full-domain
@@ -179,6 +192,9 @@ def profile(torch, fn) -> dict:
     return summarize(prof, wall_us)
 
 
+HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cudaMemcpy", "cudaMemset")
+
+
 def summarize(prof, wall_us: float) -> dict:
     """Device time by kernel class and name, busy time and idle share of a
     finished ``torch.profiler`` session over ``wall_us`` of host time."""
@@ -196,11 +212,16 @@ def summarize(prof, wall_us: float) -> dict:
     busy = busy_us(intervals)
     kernel_total = sum(by_class.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    host_calls = {}  # the host's launch calls: one per kernel eagerly, one per graph replayed
+    for e in prof.events():
+        if e.device_type.name == "CPU" and e.name.startswith(HOST_LAUNCH_CALLS):
+            host_calls[e.name] = host_calls.get(e.name, 0) + 1
     return dict(
         profiled_wall_ms=wall_us / 1e3,
         device_busy_ms=busy / 1e3,
         idle_share=1.0 - busy / wall_us if wall_us else None,
         kernel_launches=len(kernels),
+        host_launch_calls=host_calls,
         kernel_ms_by_class={k: v / 1e3 for k, v in sorted(by_class.items(), key=lambda kv: -kv[1])},
         kernel_share_by_class={k: v / kernel_total for k, v in by_class.items()},
         top_kernels=[dict(name=n[:120], calls=c, ms=t / 1e3) for n, (c, t) in top],
@@ -743,12 +764,21 @@ def k1_rows(torch, dev, sweep: bool, dtype_name: str) -> list:
     return rows
 
 
-def train_data_rows(torch, dev, args, smi) -> list:
+FUSED_K = 25  # configs/flagship_synth.yaml: training.fused_steps
+
+
+def train_data_rows(torch, dev, args, smi, modes=("eager",), has_graphs=False) -> list:
     """The flagship's data path (``data_config``, ``--days`` synthetic days):
     the stores' generation, the card-resident stacks, the card sampler at
-    batch 128 (``sampler_profile``), and the flagship step on the device
-    loader, the host loader with 1 and 4 workers and random batches, in one
-    pipeline: seconds of each of 20 steps, and the profiler over steps 5-8."""
+    batch 128 (``sampler_profile``), and the flagship step in one pipeline per
+    route (``modes``: the eager step, the step's CUDA graph) with one step per
+    dispatch: on the device loader and random batches (and, on the eager
+    route, the host loader with 1 and 4 workers), the seconds of each of 20
+    steps and the profiler over steps 5-8. With graphs, ``training.fused_steps``
+    = 25 through the pipeline's own fused step (one chunk to capture, two
+    timed, one profiled): seconds per step, and each graph's capture and
+    instantiate seconds and pool bytes."""
+    import gc
     import tempfile
 
     from sbgm_danra_tpu_torch.cli.main_app import synthetic_data
@@ -769,22 +799,63 @@ def train_data_rows(torch, dev, args, smi) -> list:
                  upload_s=train.stacks.upload_s,
                  **sampler_profile(torch, train, torch.Generator(dev).manual_seed(0)))]
     print(json.dumps(rows[-1]), flush=True)
-    pipe = TrainingPipeline(cfg, train, valid, device=dev)
     days = make_dataset(cfg, "train")
-    loaders = [("device_loader", train)]
-    for workers in (1, 4):
-        loaders.append((f"host_loader_{workers}_workers",
-                        DataLoader(RepeatedDays(days, 128), batch_size=128, shuffle=True,
-                                   num_workers=workers, seed=0)))
-    loaders.append(("random_batches", OnCard(train_batches(torch, 20, 128, (128, 128), dev, 40))))
-    for name, loader in loaders:
-        step_seconds(torch, pipe, loader, 2)  # warm-up
-        torch.cuda.reset_peak_memory_stats()
-        run = step_seconds(torch, pipe, loader, 20, window=(5, 8))
-        rows.append(dict(head, path=f"train_data/{name}", **run,
-                         step_s_median=float(sorted(run["step_s"])[10]),
-                         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9))
-        print(json.dumps(rows[-1]), flush=True)
+    one_step = data_config(tmp, fused_steps=0)
+    for mode in modes:
+        route = {"capture": mode == "graph"} if has_graphs else {}
+        pipe = TrainingPipeline(one_step, train, valid, device=dev, **route)
+        loaders = [("device_loader", train)]
+        if mode == "eager":
+            for workers in (1, 4):
+                loaders.append((f"host_loader_{workers}_workers",
+                                DataLoader(RepeatedDays(days, 128), batch_size=128,
+                                           shuffle=True, num_workers=workers, seed=0)))
+        loaders.append(("random_batches",
+                        OnCard(train_batches(torch, 20, 128, (128, 128), dev, 40))))
+        for name, loader in loaders:
+            step_seconds(torch, pipe, loader, 2)  # warm-up (on the graph route: the capture)
+            torch.cuda.reset_peak_memory_stats()
+            run = step_seconds(torch, pipe, loader, 20, window=(5, 8))
+            rows.append(dict(head, path=f"train_data/{name}/{mode}", **run,
+                             step_s_median=float(sorted(run["step_s"])[10]),
+                             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9))
+            print(json.dumps(rows[-1]), flush=True)
+        del pipe, loaders
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "graph" not in modes or not has_graphs:
+        return rows
+    from sbgm_danra_tpu_torch import capture
+
+    pipe = TrainingPipeline(data_config(tmp, fused_steps=FUSED_K), train, device=dev)
+    train.set_epoch(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.train_batches(FUSED_K)  # the capture, then one chunk
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for epoch in (1, 2):
+        train.set_epoch(epoch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = pipe.train_batches(FUSED_K)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    train.set_epoch(3)
+    prof = profile(torch, lambda: pipe.train_batches(FUSED_K))
+    gc.collect()
+    graphs = [g for g in capture.stats() if g["name"].startswith("fused")]
+    rows.append(dict(head, path="train_data/fused_step", k=FUSED_K,
+                     first_chunk_s=first_s, chunk_s=walls,
+                     step_s=[w / FUSED_K for w in walls], mean_loss=loss,
+                     peak_memory_gb=peak, graphs=graphs, **prof))
+    print(json.dumps(rows[-1]), flush=True)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -803,6 +874,9 @@ def main() -> int:
     p.add_argument("--repeats", type=int, default=3)
     p.add_argument("--days", type=int, default=DATA_DAYS,
                    help="synthetic days of train_data")
+    p.add_argument("--capture", default="eager", choices=("eager", "graph", "both"),
+                   help="full_domain, serving, train, train_data: the eager loop, the CUDA "
+                        "graphs, or both in turn (a checkout without graphs runs eager only)")
     p.add_argument("--out", default=None)
     args = p.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
@@ -832,6 +906,16 @@ def main() -> int:
             "topo_cond": torch.randn(batch, *hw, 2, generator=g, device=dev),
         }
 
+    import inspect
+
+    has_graphs = "capture" in inspect.signature(sample_full_domain).parameters
+    modes = {"eager": ["eager"], "graph": ["graph"], "both": ["eager", "graph"]}[args.capture]
+    if not has_graphs:
+        modes = ["eager"]  # this checkout has one route
+
+    def route(mode):
+        return {"capture": mode == "graph"} if has_graphs else {}
+
     runs = {}
     if "full_domain" in args.paths:
         domain = (589, 789)
@@ -840,26 +924,37 @@ def main() -> int:
         model = build_score_model(spec, generator=torch.Generator().manual_seed(0)).to(dev)
         cond = cond_for(1, domain, 8)
         config = SamplerConfig(num_steps=18, guidance_scale=3.0, s_churn=0.0)
-        runs["full_domain"] = (f"EDM-18 sample, 589x789 -> 608x800, CFG w=3, batch 1, "
-                               f"{args.dtype}", lambda: (
-            sample_full_domain(lambda x, t, **c: model(x, t, **c),
-                               torch.Generator(dev).manual_seed(0), cond, domain_hw=domain,
-                               batch=1, config=config, sampler="edm_sampler")))
+        for mode in modes:
+            runs[f"full_domain/{mode}"] = (
+                f"EDM-18 sample, 589x789 -> 608x800, CFG w=3, batch 1, {args.dtype}, {mode}",
+                functools.partial(functools.partial, sample_full_domain, model,
+                                  torch.Generator(dev).manual_seed(0), cond, domain_hw=domain,
+                                  batch=1, config=config, sampler="edm_sampler",
+                                  compute_dtype=args.dtype, **route(mode)))
     if "serving" in args.paths:
         settings = FLAGSHIP_SYNTH
         serve_model = build_score_model(settings.spec, VESDE(),
                                         generator=torch.Generator().manual_seed(1)).to(dev)
         scond = cond_for(8, settings.sample_hw, 9)
-        sampler = get_sampler(settings.sampler_type)
         gens = lambda: [torch.Generator(dev).manual_seed(s) for s in range(8)]  # noqa: E731
 
-        def dispatch():
+        def dispatch(mode):
             with torch.inference_mode():
-                out = sampler(lambda x, t, **c: serve_model(x, t, **c), gens(),
-                              (8, *settings.sample_hw, 1), VESDE(), settings.sampler, cond=scond)
+                if mode == "graph":
+                    from sbgm_danra_tpu_torch.sampling import graphs
+
+                    out = graphs.sample(settings.sampler_type, serve_model, gens(),
+                                        (8, *settings.sample_hw, 1), VESDE(), settings.sampler,
+                                        cond=scond)
+                else:
+                    out = get_sampler(settings.sampler_type)(
+                        serve_model, gens(), (8, *settings.sample_hw, 1), VESDE(),
+                        settings.sampler, cond=scond)
                 return out.float().cpu().numpy()
 
-        runs["serving"] = ("one 8-row dpmpp-25 dispatch at 128 px, CFG w=3", dispatch)
+        for mode in modes:
+            runs[f"serving/{mode}"] = (f"one 8-row dpmpp-25 dispatch at 128 px, CFG w=3, {mode}",
+                                       functools.partial(functools.partial, dispatch, mode))
 
     results = []
     if "k1" in args.paths.split(","):
@@ -886,18 +981,25 @@ def main() -> int:
         for name, hw, batch, backend, remat in (
                 ("train_128", (128, 128), 128, "xla", False),  # configs/flagship_synth.yaml:67
                 ("train_full_domain", FULL_DOMAIN, 2, "pallas", True)):
-            pipe = TrainingPipeline(train_config(tmp, args.dtype, backend, remat), [],
-                                    device=dev)
-            batch_list = train_batches(torch, 1, batch, hw, dev, seed=60)
-            runs[name] = (f"one train step, {hw[0]}x{hw[1]}, batch {batch}, {args.dtype}, "
-                          f"attention {backend}, remat {remat}",
-                          functools.partial(pipe._train_step, pipe.state, batch_list[0],
-                                            torch.Generator(dev).manual_seed(0)))
+            for mode in modes:
+                def make(hw=hw, batch=batch, backend=backend, remat=remat, mode=mode):
+                    pipe = TrainingPipeline(train_config(tmp, args.dtype, backend, remat), [],
+                                            device=dev, **route(mode))
+                    batch_list = train_batches(torch, 1, batch, hw, dev, seed=60)
+                    return functools.partial(pipe._train_step, pipe.state, batch_list[0],
+                                             torch.Generator(dev).manual_seed(0))
+
+                runs[f"{name}/{mode}"] = (
+                    f"one train step, {hw[0]}x{hw[1]}, batch {batch}, {args.dtype}, attention "
+                    f"{backend}, remat {remat}, {mode}", make)
     if "train_data" in args.paths.split(","):
-        results += train_data_rows(torch, dev, args, smi)
-    for path, (what, fn) in runs.items():
+        results += train_data_rows(torch, dev, args, smi, modes, has_graphs)
+    for path, (what, make) in runs.items():  # make() builds the path's call
+        import gc
+
+        fn = make()
         torch.backends.cudnn.benchmark = False
-        out = fn()  # warm-up
+        out = fn()  # warm-up (on a graph route: the capture)
         walls = []
         for _ in range(args.repeats):
             torch.cuda.synchronize()
@@ -912,8 +1014,15 @@ def main() -> int:
         row = dict(label=args.label, root=args.root, path=path, what=what, card=smi,
                    wall_s=walls, finite=bool(finite),
                    peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **prof)
+        if path.endswith("/graph"):
+            from sbgm_danra_tpu_torch import capture
+
+            row["graphs"] = capture.stats()
         print(json.dumps(row), flush=True)
         results.append(row)
+        del fn, out
+        gc.collect()
+        torch.cuda.empty_cache()
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

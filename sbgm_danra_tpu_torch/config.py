@@ -190,8 +190,8 @@ class TrainingConfig:
     """The fields of the JAX reader's training section that the port's trainer
     and serving engine act on; the reader skips the others (the extreme
     sentinel, profiling, checkpoint cadence), which the port does not do yet
-    (ROADMAP). ``fused_steps`` is checked as JAX checks it, then run one step
-    per dispatch."""
+    (ROADMAP). ``fused_steps`` runs K steps per dispatch, as JAX runs it
+    (``training/fused.py``)."""
 
     seed: int = 42
     batch_size: int = 16

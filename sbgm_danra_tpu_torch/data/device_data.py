@@ -20,7 +20,9 @@ one ``[D, H, W, 1 + C]`` tensor) and one of the static maps (lsm and topo as
 ``torch.Generator`` on the stacks' device; tests hand JAX's draws to the
 batch function instead (the two packages' random streams never agree).
 ``DeviceDataLoader`` draws each step's batch from a generator seeded by
-(seed, epoch, step), so an epoch repeats.
+(seed, epoch, step), so an epoch repeats; ``iter_chunks(k)`` hands out the
+same steps' draws K at a time, stacked, with the stacks, for the fused train
+step (``training/fused.py``), which draws each batch inside its graph.
 
 Restrictions (checked at build, as JAX checks them): resize_factor 1, the LR
 conditions on the HR grid with the HR crop window, and lsm + topo present.
@@ -277,6 +279,39 @@ class DeviceDataLoader:
 
     def sample(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         return self.sample_from(*self.draws(generator))
+
+    @property
+    def sample_fn(self):
+        """The batch function ``(day, ox, oy, keep, fields, statics,
+        classifier) -> batch`` (``make_sample_fn``'s)."""
+        return self._sample
+
+    def buffers(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The resident stacks, in ``sample_fn``'s argument order."""
+        s = self.stacks
+        return s.fields, s.statics, s.classifier
+
+    def chunk_draws(self, epoch: int, start: int, k: int) -> Tuple[torch.Tensor, ...]:
+        """The draws of steps [start, start + k) of ``epoch``, each from its
+        ``step_generator``, as the iterator makes them: (day, ox, oy, keep),
+        each [k, batch]."""
+        steps = [self.draws(step_generator(self.device, self.seed, epoch, start + i))
+                 for i in range(k)]
+        return tuple(torch.stack(parts) for parts in zip(*steps))
+
+    def iter_chunks(self, chunk_steps: int, n_chunks: Optional[int] = None):
+        """Chunks of ``chunk_steps`` steps (counterpart of JAX's ``iter_chunks``):
+        yields ``(buffers, draws)``, the stacks and the chunk's draws
+        (``chunk_draws``), the same steps' streams as ``__iter__``; ``n_chunks``
+        defaults to ``len(self) // chunk_steps`` (at least 1). Ends the epoch."""
+        if chunk_steps <= 0:
+            raise ValueError("chunk_steps must be positive")
+        epoch = self.epoch
+        if n_chunks is None:
+            n_chunks = max(1, len(self) // chunk_steps)
+        for c in range(n_chunks):
+            yield self.buffers(), self.chunk_draws(epoch, c * chunk_steps, chunk_steps)
+        self.epoch += 1
 
     def __len__(self) -> int:
         if self.steps_per_epoch:

@@ -7,7 +7,9 @@ zero-padded, so that padding does not claim conditioning outside the domain.
 At 608x800 decoder block 1 attends over 76x100 = 7,600 tokens, which sends
 that layer to the CUDA flash kernel when the model's attention backend is
 'pallas'. A float32 model (``compute_dtype="float32"``) samples with TF32 off
-(``precision.exact_fp32``).
+(``precision.exact_fp32``). On the card the sampler runs as one replay of its
+captured CUDA graph (``sampling/graphs.py``), unless the caller asks for the
+eager loop (``capture=False``); on the CPU it runs the eager loop.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sbgm_danra_tpu_torch.capture import use_graphs
 from sbgm_danra_tpu_torch.precision import exact_fp32
+from sbgm_danra_tpu_torch.sampling import graphs
 from sbgm_danra_tpu_torch.sampling.samplers import Rng, SamplerConfig, get_sampler
 from sbgm_danra_tpu_torch.sde import VESDE
 
@@ -71,17 +75,24 @@ def sample_full_domain(
     config: SamplerConfig = SamplerConfig(),
     sampler: str = "pc_sampler",
     compute_dtype: Optional[str] = None,
+    capture: Optional[bool] = None,
 ) -> np.ndarray:
     """Generate full-domain HR fields; returns (batch, H, W) cropped to the domain.
 
     Noise is drawn on ``rng``'s device, which must be the device of ``cond``
     and of the model behind ``score_fn``. ``compute_dtype`` is the model's
     (``ModelSpec.compute_dtype``): "float32" turns TF32 off for the sampler's call.
+    ``capture``: None takes the sampler's CUDA graph on the card and the eager
+    loop on the CPU; False the eager loop (``capture.use_graphs``). A graph is
+    kept per ``score_fn``: pass the same callable to replay it.
     """
     target = padded_dims(*domain_hw)
     padded = pad_conditioning(cond, target)
     sampler_fn = get_sampler(sampler)
     shape = (batch, target[0], target[1], 1)
+    device = rng.device if isinstance(rng, torch.Generator) else rng[0].device
+    run = graphs.sample if use_graphs(capture, device) else (
+        lambda fn, *args, **kw: fn(*args, **kw))
     with exact_fp32(compute_dtype), torch.inference_mode():
-        out = sampler_fn(score_fn, rng, shape, sde, config, cond=padded)
+        out = run(sampler_fn, score_fn, rng, shape, sde, config, cond=padded)
     return out[:, : domain_hw[0], : domain_hw[1], 0].float().cpu().numpy()

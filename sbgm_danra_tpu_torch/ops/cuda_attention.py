@@ -28,7 +28,11 @@ first use, and loads it with ``ctypes``.
   ``jax.grad`` of the Pallas kernel and the card holds the kernels against.
 - ``launches`` / ``launches_by_variant``: forward launches in this process;
   ``bwd_launches`` / ``bwd_launches_by_variant`` backward calls (each one
-  launches the three backward kernels of its dtype's variant).
+  launches the three backward kernels of its dtype's variant). A call made
+  while its stream is being captured into a CUDA graph launches nothing: it
+  adds to ``recorded`` instead, and each replay of the graph adds its
+  kernels to the counts (``count_replay``, called by
+  ``capture.Graph.replay``).
 
 q, k and v may be strided views, as the chunks of a packed QKV projection
 are: the kernels take each one's batch and row strides. They need a unit
@@ -40,6 +44,7 @@ there. The output and the gradients are fresh contiguous [B, S, H, D].
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -60,6 +65,31 @@ launches = 0
 launches_by_variant = {name: 0 for name in VARIANTS.values()}
 bwd_launches = 0
 bwd_launches_by_variant = {name: 0 for name in VARIANTS.values()}
+recorded = collections.Counter()  # calls recorded into CUDA graphs: "fwd/<variant>", "bwd/<variant>"
+
+
+def _count(kind: str, variant: str) -> None:
+    """One forward (``kind`` "fwd") or backward ("bwd") call of ``variant`` on
+    the current stream: launches, or, during a capture, a record that the
+    graph's replays count."""
+    if torch.cuda.is_current_stream_capturing():
+        recorded[f"{kind}/{variant}"] += 1
+    else:
+        count_replay({f"{kind}/{variant}": 1})
+
+
+def count_replay(per_replay: dict) -> None:
+    """Add one replay of a graph that holds ``per_replay`` calls (keys as
+    ``recorded``'s) to the launch counts."""
+    global launches, bwd_launches
+    for key, n in per_replay.items():
+        kind, variant = key.split("/")
+        if kind == "fwd":
+            launches += n
+            launches_by_variant[variant] += n
+        else:
+            bwd_launches += n
+            bwd_launches_by_variant[variant] += n
 
 
 class KernelLayout(NamedTuple):
@@ -149,7 +179,6 @@ def _pad_d(tensors, dp: int):
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool = False):
     """The forward kernel: (output, lse [B, H, S] fp32 or None)."""
-    global launches
     layout = _checked_layout(q, k, v)
     b, s, h, d = q.shape
     dp = layout.head_dim
@@ -166,15 +195,13 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool = 
             None if lse is None else lse.data_ptr(),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
-    _nvcc.check_launch(built, rc, "flash attention")
-    launches += 1
-    launches_by_variant[layout.variant] += 1
+        _nvcc.check_launch(built, rc, "flash attention")
+        _count("fwd", layout.variant)
     return (out[..., :d].contiguous() if layout.padded else out), lse
 
 
 def _launch_bwd(q, k, v, out, dout, lse):
     """The backward kernels: (dq, dk, dv), contiguous [B, S, H, D] in q's dtype."""
-    global bwd_launches
     layout = _checked_layout(q, k, v)
     b, s, h, d = q.shape
     for name, x, dtype in (("out", out, q.dtype), ("dout", dout, q.dtype),
@@ -199,9 +226,8 @@ def _launch_bwd(q, k, v, out, dout, lse):
             b, s, h, dp, _DTYPE_CODES[q.dtype], ctypes.c_float(1.0 / math.sqrt(d)),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
-    _nvcc.check_launch(built, rc, "flash attention backward")
-    bwd_launches += 1
-    bwd_launches_by_variant[layout.variant] += 1
+        _nvcc.check_launch(built, rc, "flash attention backward")
+        _count("bwd", layout.variant)
     if layout.padded:
         return tuple(g[..., :d].contiguous() for g in grads)
     return tuple(grads)

@@ -35,7 +35,18 @@ rounded to x's dtype, an optional ReLU, and the result in x's dtype.
   an in-place update, a move to another device). A write through ``.data``
   bumps no version counter and is not seen.
 - ``conv3x3_stats_launches`` / ``gn_apply_launches``: how many times each
-  kernel was launched in this process.
+  kernel was launched in this process. A call made while its stream is being
+  captured into a CUDA graph launches nothing: it adds to ``recorded``
+  instead, and each replay of the graph adds its kernels to the counts
+  (``count_replay``, called by ``capture.Graph.replay``).
+- ``capture_scope``: what a CUDA graph's capture needs of the wrapper. The
+  kernel's ticket counters (one int32 per sample, which the kernel's last
+  block of a sample resets) are kept per graph, made during the warm-up on
+  the capture stream, so that no two graphs share one; and the packed
+  weights a capture reads from the per-parameter cache are listed with the
+  parameter's version, so that the graph can tell when they went stale
+  (``packs_current``). A pack the cache misses during a capture is made
+  inside the graph and not kept.
 
 Gradient: none. The JAX kernel has no VJP either; the training port decides
 how the decoder's chains run under autograd, and until then a backward
@@ -44,9 +55,12 @@ through the kernels raises.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import functools
 import math
+import threading
 import weakref
 from typing import NamedTuple, Optional
 
@@ -77,6 +91,48 @@ _MAX_CHANNELS = MAX_SHARED_BYTES // 8  # gn_apply keeps 8 bytes per channel in s
 
 conv3x3_stats_launches = 0
 gn_apply_launches = 0
+recorded = collections.Counter()  # launches recorded into CUDA graphs, by kernel
+_local = threading.local()  # .scope: (ticket counters, pack hits) of the capture in progress
+
+
+def _count(name: str) -> None:
+    """One call of kernel ``name`` on the current stream: a launch, or, during
+    a capture, a record that the graph's replays count."""
+    global conv3x3_stats_launches, gn_apply_launches
+    if torch.cuda.is_current_stream_capturing():
+        recorded[name] += 1
+    elif name == "conv3x3_stats":
+        conv3x3_stats_launches += 1
+    else:
+        gn_apply_launches += 1
+
+
+def count_replay(per_replay: dict) -> None:
+    """Add one replay of a graph that holds ``per_replay`` launches of each
+    kernel (by name) to the launch counts."""
+    global conv3x3_stats_launches, gn_apply_launches
+    conv3x3_stats_launches += per_replay.get("conv3x3_stats", 0)
+    gn_apply_launches += per_replay.get("gn_apply", 0)
+
+
+@contextlib.contextmanager
+def capture_scope(tickets: dict, hits: Optional[list]):
+    """Inside the block, this thread's kernel calls take their ticket counters
+    from ``tickets`` and append the cached packs they read to ``hits`` (when
+    not None): see the module's notes."""
+    saved = getattr(_local, "scope", None)
+    _local.scope = (tickets, hits)
+    try:
+        yield
+    finally:
+        _local.scope = saved
+
+
+def packs_current(hits: list) -> bool:
+    """True while every parameter behind the packs in ``hits`` is alive and
+    unchanged (same version counter and storage) since the pack was read."""
+    return all(ref() is not None and ref()._version == version and ref().data_ptr() == ptr
+               for ref, version, ptr, _ in hits)
 
 
 @functools.lru_cache(maxsize=1)
@@ -282,8 +338,15 @@ def _cached(t: torch.Tensor, tag, make):
     key = (id(root), tag)
     signature = (root._version, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.device)
     hit = _packed.get(key)
+    capturing = t.is_cuda and torch.cuda.is_current_stream_capturing()
     if hit is not None and hit[0]() is root and hit[1] == signature:
+        scope = getattr(_local, "scope", None)
+        if capturing and scope is not None and scope[1] is not None:
+            # the graph holds the pack itself, so that it outlives the cache entry
+            scope[1].append((weakref.ref(root), root._version, root.data_ptr(), hit[2]))
         return hit[2]
+    if capturing:  # made inside the graph, on every replay; the cache keeps no pool memory
+        return make()
     made = make()
     _packed[key] = (weakref.ref(root, lambda _: _packed.pop(key, None)), signature, made)
     return made
@@ -353,11 +416,14 @@ _counters = {}  # (device, stream) -> int32 ticket counters, zero between launch
 
 def _ticket_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
     """One ticket per sample; the kernel's last block of a sample resets it, so
-    the buffer is zeroed only when it is made."""
+    the buffer is zeroed only when it is made (in a capture scope: the graph's
+    own buffers)."""
+    scope = getattr(_local, "scope", None)
+    counters = _counters if scope is None else scope[0]
     key = (dev, stream)
-    buf = _counters.get(key)
+    buf = counters.get(key)
     if buf is None or buf.numel() < n:
-        buf = _counters[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        buf = counters[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
     return buf
 
 
@@ -372,7 +438,6 @@ def conv3x3_stats(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     """The conv kernel: x [N, H, W, Cin], HWIO kernel -> (conv [N, H, W, Cout] in
     x's dtype, stats [N, groups, 2] fp32 sum and sum of squares). ``force`` is
     ``plan``'s, for measurements and tests of each launch shape."""
-    global conv3x3_stats_launches
     dev = _require_cuda("conv3x3_stats", x=x, kernel=kernel, bias=bias)
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"x: dtype {x.dtype} not supported (float32 or bfloat16)")
@@ -380,16 +445,16 @@ def conv3x3_stats(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     x = x.contiguous()
     n, h, w, _ = x.shape
     p = plan(n, h, w, cin, cout, x.dtype, force=force)
-    wk = tiled_weights(kernel, x.dtype) if p.mma == "wgmma" else split_tiled_weights(kernel)
-    bias_t = _as(bias, x.dtype)
     slots = p.grid[0]
-    conv = torch.empty((n, h, w, cout), dtype=x.dtype, device=dev)
-    # partials [n, slots, cout, 2] and stats [n, groups, 2] in one allocation
-    scratch = torch.empty((n * slots * cout * 2 + n * groups * 2,), dtype=torch.float32,
-                          device=dev)
-    stats = scratch[n * slots * cout * 2:].view(n, groups, 2)
     built = build_library()
     with torch.cuda.device(dev):
+        wk = tiled_weights(kernel, x.dtype) if p.mma == "wgmma" else split_tiled_weights(kernel)
+        bias_t = _as(bias, x.dtype)
+        conv = torch.empty((n, h, w, cout), dtype=x.dtype, device=dev)
+        # partials [n, slots, cout, 2] and stats [n, groups, 2] in one allocation
+        scratch = torch.empty((n * slots * cout * 2 + n * groups * 2,), dtype=torch.float32,
+                              device=dev)
+        stats = scratch[n * slots * cout * 2:].view(n, groups, 2)
         stream = _current_stream(dev)
         rc = built.lib.sbgm_conv3x3_stats(
             x.data_ptr(), wk.data_ptr(), bias_t.data_ptr(), conv.data_ptr(),
@@ -397,9 +462,9 @@ def conv3x3_stats(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
             n, h, w, cin, cout, groups, slots, _DTYPE_CODES[x.dtype], p.tile[0], p.tile[1],
             p.chunk, int(p.variant == "ws"), p.shared_bytes, stream,
         )
-    if rc != 0:
-        _nvcc.check_launch(built, rc, f"conv3x3_stats ({p})")
-    conv3x3_stats_launches += 1
+        if rc != 0:
+            _nvcc.check_launch(built, rc, f"conv3x3_stats ({p})")
+        _count("conv3x3_stats")
     return conv, stats
 
 
@@ -419,7 +484,6 @@ def gn_apply(conv: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor, beta:
              groups: int, eps: float = 1e-5, activation: bool = True) -> torch.Tensor:
     """The normalise kernel: conv [N, H, W, C] and its stats -> the GroupNorm
     (+ ReLU) of conv in conv's dtype."""
-    global gn_apply_launches
     _require_cuda("gn_apply", conv=conv, stats=stats, gamma=gamma, beta=beta)
     n, h, w, c = conv.shape
     if conv.dtype not in _DTYPE_CODES or not conv.is_contiguous():
@@ -432,19 +496,19 @@ def gn_apply(conv: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor, beta:
     if c > _MAX_CHANNELS or n > 65535:
         raise ValueError(f"gn_apply: {c} channels (at most {_MAX_CHANNELS}) or batch {n} (at "
                          "most 65535) not supported")
-    gamma_f, beta_f = _as(gamma, torch.float32), _as(beta, torch.float32)
     stats = stats.contiguous()
     out = torch.empty_like(conv)
     built = build_library()
     with torch.cuda.device(conv.device):
+        gamma_f, beta_f = _as(gamma, torch.float32), _as(beta, torch.float32)
         stream = _current_stream(conv.device)
         rc = built.lib.sbgm_gn_apply(
             conv.data_ptr(), stats.data_ptr(), gamma_f.data_ptr(), beta_f.data_ptr(),
             out.data_ptr(), n, h * w, c, groups, eps, int(activation),
             _DTYPE_CODES[conv.dtype], apply_blocks(n, h * w, c, conv.element_size()), stream,
         )
-    _nvcc.check_launch(built, rc, "gn_apply")
-    gn_apply_launches += 1
+        _nvcc.check_launch(built, rc, "gn_apply")
+        _count("gn_apply")
     return out
 
 

@@ -1,21 +1,33 @@
 """Reverse-SDE samplers (counterpart of ``sbgm_danra_tpu/sampling/samplers.py``).
 
 ``em_sampler``, ``pc_sampler``, ``ode_sampler`` (rk4, heun, adaptive rk45),
-``edm_sampler`` and ``dpmpp_sampler`` with the JAX package's semantics; each
-step is a Python loop iteration (the JAX ``lax.scan`` / ``while_loop``), and
-times and schedules are computed in float32 as in JAX.
+``edm_sampler`` and ``dpmpp_sampler`` with the JAX package's semantics, each
+written as its loop of score evaluations, with times and schedules in float32
+as in JAX. The schedules are host constants made once per (SDE, config)
+(``_schedule``), and nothing inside a loop reads a device value on the host,
+so one function serves two routes: the loop runs eagerly (the CPU's route,
+and the card's when the caller asks for it), or it is captured whole into one
+CUDA graph and replayed (``sampling/graphs.py``, the card's default): the
+counterpart of the JAX sampler's single XLA program (``lax.scan`` /
+``lax.while_loop``). rk45 is the exception: its host loop reads the step's
+outcome after every Dormand-Prince attempt, and one attempt
+(``dp_attempt``, accept or reject selected on the device) is the graph.
 
 Noise comes from ``rng``: one ``torch.Generator`` for the whole batch, or a
 sequence of generators, one per batch row, so that a row's draws depend only
 on its own generator (what the serving engine needs to co-batch requests).
-Noise is drawn on the generator's device. ``torch.Generator`` and
-``jax.random`` never give the same numbers (ROADMAP F4): the parity tests
-hand both sides the same latent ``z``.
+Noise is drawn on the generator's device. Or it comes from ``draws``, a
+buffer ``[n_draws(sampler, config), *shape]`` of the same draws made
+beforehand in the loop's order (``draw_noise``): given the same generator
+the two routes take the same numbers, and a graph takes its noise so.
+``torch.Generator`` and ``jax.random`` never give the same numbers (ROADMAP
+F4): the parity tests hand both sides the same latent ``z``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import math
 from typing import Callable, Dict, Optional, Sequence, Union
@@ -58,6 +70,45 @@ def randn(rng: Rng, shape: Sequence[int]) -> torch.Tensor:
     return torch.cat([torch.randn(row, generator=g, device=g.device) for g in gens])
 
 
+def draw_noise(rng: Rng, shape: Sequence[int], n: int,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``n`` successive ``randn(rng, shape)`` draws as one ``[n, *shape]``
+    float32 buffer (``out`` when given): per-row generators draw each row of
+    each draw in turn, as ``randn`` does."""
+    shape = tuple(shape)
+    gens = [rng] if isinstance(rng, torch.Generator) else list(rng)
+    if len(gens) > 1 and len(gens) != shape[0]:
+        raise ValueError(f"{len(gens)} generators for a batch of {shape[0]}")
+    if out is None:
+        out = torch.empty((n, *shape), dtype=torch.float32, device=gens[0].device)
+    for i in range(n):
+        if isinstance(rng, torch.Generator):
+            torch.randn(shape, generator=rng, out=out[i])
+        else:
+            for r, g in enumerate(gens):
+                torch.randn((1, *shape[1:]), generator=g, out=out[i, r:r + 1])
+    return out
+
+
+class _Noise:
+    """The sampler's next standard normal draw of its shape: from ``rng``, or
+    the next entry of ``draws``."""
+
+    def __init__(self, rng: Optional[Rng], shape: Sequence[int],
+                 draws: Optional[torch.Tensor]):
+        if rng is None and draws is None:
+            raise ValueError("a sampler needs rng or draws")
+        self.rng, self.shape, self.draws, self.used = rng, tuple(shape), draws, 0
+
+    def __call__(self) -> torch.Tensor:
+        if self.draws is None:
+            return randn(self.rng, self.shape)
+        if self.used >= self.draws.shape[0]:
+            raise ValueError(f"draws hold {self.draws.shape[0]} draws; the sampler needs more")
+        self.used += 1
+        return self.draws[self.used - 1]
+
+
 def _bcast(v: torch.Tensor, ndim: int) -> torch.Tensor:
     return v.reshape((-1,) + (1,) * (ndim - 1))
 
@@ -77,23 +128,23 @@ def em_sampler(
     sde=VESDE(),
     config: SamplerConfig = SamplerConfig(),
     cond: Optional[Dict[str, torch.Tensor]] = None,
+    draws: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Euler-Maruyama reverse-SDE sampler; one NFE per step. Returns the last
     step's noiseless mean, and carries the SDE's drift (VP), as the JAX
     sampler does (samplers.py:69-102)."""
     cond = cond or {}
     guided = _prepare(score_fn, config)
-    x = randn(rng, shape)
-    x = x * _to(sde.prior_std(), x)
+    noise = _Noise(rng, shape, draws)
+    time_steps, dt, prior_std = _schedule("em", sde, config)
+    x = noise() * prior_std
     b = shape[0]
-    time_steps = torch.linspace(1.0, config.eps, config.num_steps, dtype=torch.float32).tolist()
-    dt = (1.0 - config.eps) / max(config.num_steps - 1, 1)
     mean_x = x
     for t in time_steps:
         bt = torch.full((b,), t, dtype=torch.float32, device=x.device)
         g = _bcast(_to(sde.diffusion_coeff(bt), x), x.dim())
         mean_x = x + (g**2 * guided(x, bt, **cond) - sde.drift(x, bt)) * dt
-        x = mean_x + math.sqrt(dt) * g * randn(rng, shape)
+        x = mean_x + math.sqrt(dt) * g * noise()
     return mean_x
 
 
@@ -105,6 +156,7 @@ def pc_sampler(
     config: SamplerConfig = SamplerConfig(),
     cond: Optional[Dict[str, torch.Tensor]] = None,
     per_member_step: bool = False,
+    draws: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Predictor-corrector sampler (Langevin + Euler-Maruyama); two NFE per step.
 
@@ -115,12 +167,11 @@ def pc_sampler(
     """
     cond = cond or {}
     guided = _prepare(score_fn, config)
-    x = randn(rng, shape)
-    x = x * _to(sde.prior_std(), x)
+    noise = _Noise(rng, shape, draws)
+    time_steps, dt, prior_std = _schedule("em", sde, config)
+    x = noise() * prior_std
     b = shape[0]
     noise_norm = math.sqrt(float(math.prod(shape[1:])))
-    time_steps = torch.linspace(1.0, config.eps, config.num_steps, dtype=torch.float32).tolist()
-    dt = (1.0 - config.eps) / max(config.num_steps - 1, 1)
     x_mean = x
     for t in time_steps:
         bt = torch.full((b,), t, dtype=torch.float32, device=x.device)
@@ -128,18 +179,22 @@ def pc_sampler(
         norms = torch.linalg.vector_norm(grad.reshape(b, -1), dim=-1)
         grad_norm = norms if per_member_step else norms.mean()
         step = _bcast(2.0 * (config.snr * noise_norm / grad_norm) ** 2, x.dim())
-        x = x + step * grad + torch.sqrt(2.0 * step) * randn(rng, shape)
+        x = x + step * grad + torch.sqrt(2.0 * step) * noise()
 
         g = _to(sde.diffusion_coeff(bt), x)
         score = guided(x, bt, **cond)
         x_mean = x + (_bcast(g**2, x.dim()) * score - sde.drift(x, bt)) * dt
-        x = x_mean + _bcast(torch.sqrt(g**2 * dt), x.dim()) * randn(rng, shape)
+        x = x_mean + _bcast(torch.sqrt(g**2 * dt), x.dim()) * noise()
     return x_mean
 
 
-def _ode_drift(guided, sde, cond, x: torch.Tensor, t: float) -> torch.Tensor:
-    """Probability-flow drift f(x, t) - 1/2 g(t)^2 s(x, t) at the float32 time ``t``."""
-    bt = torch.full((x.shape[0],), t, dtype=torch.float32, device=x.device)
+def _ode_drift(guided, sde, cond, x: torch.Tensor, t) -> torch.Tensor:
+    """Probability-flow drift f(x, t) - 1/2 g(t)^2 s(x, t) at the float32 time
+    ``t`` (a host float, or a 0-d float32 tensor on x's device)."""
+    if isinstance(t, torch.Tensor):
+        bt = t.reshape(1).expand(x.shape[0]).contiguous()
+    else:
+        bt = torch.full((x.shape[0],), t, dtype=torch.float32, device=x.device)
     g2 = _bcast(_to(sde.diffusion_coeff(bt), x), x.dim()) ** 2
     return sde.drift(x, bt) - 0.5 * g2 * guided(x, bt, **cond)
 
@@ -152,6 +207,7 @@ def ode_sampler(
     config: SamplerConfig = SamplerConfig(),
     cond: Optional[Dict[str, torch.Tensor]] = None,
     z: Optional[torch.Tensor] = None,
+    draws: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Probability-flow ODE from t=1 to eps with conditioning on every
     evaluation, deterministic given the latent ``z`` (JAX samplers.py:158-295).
@@ -160,11 +216,7 @@ def ode_sampler(
     'rk45' (7 NFE per attempted step)."""
     cond = cond or {}
     guided = _prepare(score_fn, config)
-    if z is None:
-        x = randn(rng, shape)
-        x = x * _to(sde.prior_std(), x)
-    else:
-        x = z
+    x = _Noise(rng, shape, draws)() * _schedule("prior", sde, config) if z is None else z
 
     def drift(x, t):
         return _ode_drift(guided, sde, cond, x, t)
@@ -178,10 +230,7 @@ def ode_sampler(
     if config.ode_method not in ("rk4", "heun"):
         raise ValueError(f"Unknown ode_method: {config.ode_method}")
 
-    ts = torch.linspace(1.0, config.eps, config.num_steps, dtype=torch.float32)[:-1]
-    dt = -(1.0 - config.eps) / max(config.num_steps - 1, 1)
-    # node times as the JAX scan forms them: float32 t plus a float32 offset
-    t0s, t_half, t_end = ts.tolist(), (ts + 0.5 * dt).tolist(), (ts + dt).tolist()
+    t0s, t_half, t_end, dt = _schedule("ode", sde, config)
     for i in range(len(t0s)):
         k1 = drift(x, t0s[i])
         if config.ode_method == "heun":
@@ -211,40 +260,56 @@ _DP_B4 = (5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200, 187 / 210
 _RK45_MAX_ITERS = 10_000
 
 
-def _rk45_adaptive(drift, x: torch.Tensor, t0: float, t1: float, rtol: float, atol: float):
+def rk45_start(x: torch.Tensor, t0: float, t1: float) -> tuple:
+    """The adaptive loop's float32 state on x's device: (t, h, t_stop, t_end, h_max)."""
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=x.device)
+
+    return f32(t0), f32((t1 - t0) / 100.0), f32(t1 + 1e-9), f32(t1), f32(-1e-5)
+
+
+def dp_attempt(drift, x: torch.Tensor, t: torch.Tensor, h: torch.Tensor, t_end: torch.Tensor,
+               h_max: torch.Tensor, rtol: float, atol: float) -> tuple:
+    """One Dormand-Prince attempt from (x, t) with step h, integrating down to
+    ``t_end``, all on x's device: the step is clamped (|h| at least 1e-5, no
+    overshoot), taken, accepted where its error norm is at most 1 (x and t
+    move) and rejected elsewhere, and h rescaled; returns (x, t, h)."""
+    # integrating downward: h stays negative; clamp its magnitude only
+    h = torch.minimum(h, h_max)
+    h = torch.where(t + h < t_end, t_end - t, h)  # don't overshoot t1
+    ks = []
+    for i in range(7):
+        xi = x
+        for j, a in enumerate(_DP_A[i]):
+            xi = xi + h * a * ks[j]
+        ks.append(drift(xi, t + _DP_C[i] * h))
+    x5, x4 = x, x
+    for k, b5, b4 in zip(ks, _DP_B5, _DP_B4):
+        x5 = x5 + h * b5 * k
+        x4 = x4 + h * b4 * k
+    scale = atol + rtol * torch.maximum(x.abs(), x5.abs())
+    err = ((x5 - x4).abs() / scale).max()
+    accept = err <= 1.0
+    x, t = torch.where(accept, x5, x), torch.where(accept, t + h, t)
+    return x, t, h * torch.clamp(0.9 * err ** (-0.2), 0.2, 5.0)
+
+
+def _rk45_adaptive(drift, x: torch.Tensor, t0: float, t1: float, rtol: float, atol: float,
+                   attempt=None):
     """Adaptive Dormand-Prince from t0 down to t1 < t0, as the JAX
     ``lax.while_loop`` runs it (samplers.py:253-295): t, h and the error
     control are float32 tensors with the JAX arithmetic, so the two accept the
     same steps until an error norm made mostly of float32 rounding parts their
-    step sizes by an ulp. The host reads the error norm once per attempted
-    step. Returns (x, converged)."""
-    f32 = torch.float32
-    t = torch.tensor(t0, dtype=f32)
-    h = torch.tensor((t1 - t0) / 100.0, dtype=f32)
-    t_stop = torch.tensor(t1 + 1e-9, dtype=f32)
-    t_end = torch.tensor(t1, dtype=f32)
-    h_max = torch.tensor(-1e-5, dtype=f32)
+    step sizes by an ulp. Each attempt is ``dp_attempt`` (or ``attempt(x, t,
+    h)``, the captured one); the host reads t once per attempt to stop the
+    loop. Returns (x, converged)."""
+    t, h, t_stop, t_end, h_max = rk45_start(x, t0, t1)
+    if attempt is None:
+        def attempt(x, t, h):
+            return dp_attempt(drift, x, t, h, t_end, h_max, rtol, atol)
     n = 0
     while bool(t > t_stop) and n < _RK45_MAX_ITERS:
-        # integrating downward: h stays negative; clamp its magnitude only
-        h = torch.minimum(h, h_max)
-        if bool(t + h < t_end):  # don't overshoot t1
-            h = t_end - t
-        ks = []
-        for i in range(7):
-            xi = x
-            for j, a in enumerate(_DP_A[i]):
-                xi = xi + h * a * ks[j]
-            ks.append(drift(xi, (t + _DP_C[i] * h).item()))
-        x5, x4 = x, x
-        for k, b5, b4 in zip(ks, _DP_B5, _DP_B4):
-            x5 = x5 + h * b5 * k
-            x4 = x4 + h * b4 * k
-        scale = atol + rtol * torch.maximum(x.abs(), x5.abs())
-        err = ((x5 - x4).abs() / scale).max().cpu()
-        if bool(err <= 1.0):
-            x, t = x5, t + h
-        h = h * torch.clamp(0.9 * err ** (-0.2), 0.2, 5.0)
+        x, t, h = attempt(x, t, h)
         n += 1
     return x, bool(t <= t_stop)
 
@@ -260,6 +325,55 @@ def _hat_schedule(sde, config: SamplerConfig):
     return shat_max, shats, m_of
 
 
+def _churn_gamma(config: SamplerConfig) -> float:
+    return min(config.s_churn / max(config.num_steps - 1, 1), 2.0**0.5 - 1.0)
+
+
+@functools.lru_cache(maxsize=128)
+def _schedule(kind: str, sde, config: SamplerConfig):
+    """A sampler's host constants for (``sde``, ``config``), made once on the
+    CPU in float32 as the JAX samplers make them:
+
+    - "prior": the prior's std as a float;
+    - "em" (em and pc): (the times t, dt, the prior's std);
+    - "ode" (rk4, heun): (the node times t, t + dt/2, t + dt, dt);
+    - "edm": (shat, churned shat, t at each, m at each, Heun steps, churn
+      noise scales, shat_max, m(1));
+    - "dpmpp": (shat, t, m, the step ratios, r_i = h_{i-1} / h_i, shat_max, m(1)).
+    """
+    if kind == "prior":
+        return float(sde.prior_std())
+    if kind == "em":
+        times = torch.linspace(1.0, config.eps, config.num_steps, dtype=torch.float32).tolist()
+        return times, (1.0 - config.eps) / max(config.num_steps - 1, 1), float(sde.prior_std())
+    if kind == "ode":
+        ts = torch.linspace(1.0, config.eps, config.num_steps, dtype=torch.float32)[:-1]
+        dt = -(1.0 - config.eps) / max(config.num_steps - 1, 1)
+        # node times as the JAX scan forms them: float32 t plus a float32 offset
+        return ts.tolist(), (ts + 0.5 * dt).tolist(), (ts + dt).tolist(), dt
+    shat_max, shats, m_of = _hat_schedule(sde, config)
+    m1 = float(m_of(1.0))
+    if kind == "edm":
+        gamma = _churn_gamma(config)
+        shats_churn = torch.minimum(shats * (1.0 + gamma), shat_max) if gamma > 0 else shats
+        ts, ts_churn = sde.inverse_hat_std(shats), sde.inverse_hat_std(shats_churn)
+        ms, ms_churn = m_of(ts), m_of(ts_churn)
+        ds = (shats[1:] - shats_churn[:-1]).tolist()
+        extra = torch.sqrt(torch.clamp(shats_churn**2 - shats**2, min=0.0)).tolist()
+        lists = tuple(a.tolist() for a in (shats, shats_churn, ts, ts_churn, ms, ms_churn))
+        return (*lists, ds, extra, float(shat_max), m1)
+    if kind == "dpmpp":
+        ts = sde.inverse_hat_std(shats)
+        ms = m_of(ts)
+        lams = -torch.log(shats)
+        # guarded as in JAX: a degenerate grid gives a finite no-op step, not 0/0
+        hs = torch.clamp(lams[1:] - lams[:-1], min=1e-12)
+        ratios = (shats[1:] / shats[:-1]).tolist()
+        rs = (hs[:-1] / hs[1:]).tolist()  # r_i = h_{i-1} / h_i
+        return shats.tolist(), ts.tolist(), ms.tolist(), ratios, rs, float(shat_max), m1
+    raise ValueError(f"unknown schedule {kind}")
+
+
 def edm_sampler(
     score_fn: ScoreFn,
     rng: Rng,
@@ -268,6 +382,7 @@ def edm_sampler(
     config: SamplerConfig = SamplerConfig(num_steps=35),
     cond: Optional[Dict[str, torch.Tensor]] = None,
     z: Optional[torch.Tensor] = None,
+    draws: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """EDM (Karras et al. 2022): probability-flow Heun over the rho-spaced shat
     grid, optional churn; 2(num_steps - 1) score evaluations. Works in the hat
@@ -275,28 +390,18 @@ def edm_sampler(
     cond = cond or {}
     guided = _prepare(score_fn, config)
     b = shape[0]
-    shat_max, shats, m_of = _hat_schedule(sde, config)
-    gamma = min(config.s_churn / max(config.num_steps - 1, 1), 2.0**0.5 - 1.0)
-    shats_churn = torch.minimum(shats * (1.0 + gamma), shat_max) if gamma > 0 else shats
-    ts, ts_churn = sde.inverse_hat_std(shats), sde.inverse_hat_std(shats_churn)
-    ms, ms_churn = m_of(ts), m_of(ts_churn)
-    ds = (shats[1:] - shats_churn[:-1]).tolist()
-    extra = torch.sqrt(torch.clamp(shats_churn**2 - shats**2, min=0.0)).tolist()
-
-    if z is None:
-        xhat = randn(rng, shape)
-        xhat = xhat * _to(shat_max, xhat)
-    else:
-        xhat = z / _to(m_of(1.0), z)
+    sh, shc, tn, tc, mn, mc, ds, extra, shat_max, m1 = _schedule("edm", sde, config)
+    churn = _churn_gamma(config) > 0.0
+    noise = _Noise(rng, shape, draws) if z is None or churn else None
+    xhat = noise() * shat_max if z is None else z / m1
 
     def shat_drift(xhat, t, m, shat):
         bt = torch.full((b,), t, dtype=torch.float32, device=xhat.device)
         return -shat * m * guided((m * xhat).to(xhat.dtype), bt, **cond)
 
-    sh, shc, tn, tc, mn, mc = (a.tolist() for a in (shats, shats_churn, ts, ts_churn, ms, ms_churn))
     for i in range(config.num_steps - 1):
-        if gamma > 0.0:
-            xhat = xhat + extra[i] * randn(rng, shape)
+        if churn:
+            xhat = xhat + extra[i] * noise()
         k1 = shat_drift(xhat, tc[i], mc[i], shc[i])
         xhat_pred = xhat + ds[i] * k1
         k2 = shat_drift(xhat_pred, tn[i + 1], mn[i + 1], sh[i + 1])
@@ -312,34 +417,21 @@ def dpmpp_sampler(
     config: SamplerConfig = SamplerConfig(num_steps=25),
     cond: Optional[Dict[str, torch.Tensor]] = None,
     z: Optional[torch.Tensor] = None,
+    draws: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """DPM-Solver++(2M) over the Karras grid in hat coordinates; num_steps - 1
     score evaluations, deterministic given the latent (JAX samplers.py:384-473)."""
     cond = cond or {}
     guided = _prepare(score_fn, config)
     b = shape[0]
-    shat_max, shats, m_of = _hat_schedule(sde, config)
-    ts = sde.inverse_hat_std(shats)
-    ms = m_of(ts)
-
-    if z is None:
-        xhat = randn(rng, shape)
-        xhat = xhat * _to(shat_max, xhat)
-    else:
-        xhat = z / _to(m_of(1.0), z)
+    sh, tn, mn, ratios, rs, shat_max, m1 = _schedule("dpmpp", sde, config)
+    xhat = _Noise(rng, shape, draws)() * shat_max if z is None else z / m1
     if config.num_steps < 2:
-        return ms[-1].item() * xhat
+        return mn[-1] * xhat
 
     def denoise(xhat, t, m, shat):
         bt = torch.full((b,), t, dtype=torch.float32, device=xhat.device)
         return xhat + shat**2 * m * guided((m * xhat).to(xhat.dtype), bt, **cond)
-
-    lams = -torch.log(shats)
-    # guarded as in JAX: a degenerate grid gives a finite no-op step, not 0/0
-    hs = torch.clamp(lams[1:] - lams[:-1], min=1e-12)
-    ratios = (shats[1:] / shats[:-1]).tolist()
-    rs = (hs[:-1] / hs[1:]).tolist()  # r_i = h_{i-1} / h_i
-    sh, tn, mn = shats.tolist(), ts.tolist(), ms.tolist()
 
     d_prev = denoise(xhat, tn[0], mn[0], sh[0])  # first interval: first order
     xhat = ratios[0] * xhat + (1.0 - ratios[0]) * d_prev
@@ -369,3 +461,17 @@ def get_sampler(name: str):
     if name not in _SAMPLERS:
         raise ValueError(f"Unknown sampler '{name}'; options: {sorted(_SAMPLERS)}")
     return _SAMPLERS[name]
+
+
+def n_draws(sampler, config: SamplerConfig) -> int:
+    """How many draws of the sample's shape the sampler (a function or a
+    registry name) takes from its noise: the latent, then one per em step,
+    two per pc step, one per edm step with churn."""
+    fn = get_sampler(sampler) if isinstance(sampler, str) else sampler
+    if fn is em_sampler:
+        return 1 + config.num_steps
+    if fn is pc_sampler:
+        return 1 + 2 * config.num_steps
+    if fn is edm_sampler and _churn_gamma(config) > 0.0:
+        return config.num_steps
+    return 1

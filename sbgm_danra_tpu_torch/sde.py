@@ -126,6 +126,20 @@ def sdf_weights(sdf: Optional[torch.Tensor], like: torch.Tensor, max_land_weight
     return torch.sigmoid(sdf) * (max_land_weight - min_sea_weight) + min_sea_weight
 
 
+def dsm_draws(x: torch.Tensor, generator: Optional[torch.Generator] = None,
+              t_eps: float = 1e-3, t: Optional[torch.Tensor] = None,
+              z: Optional[torch.Tensor] = None):
+    """The DSM loss's draws for the clean target ``x``: ``t`` [B] ~ U(t_eps, 1)
+    and ``z`` ~ N(0, 1) of x's shape and dtype, each drawn on ``generator``
+    (t first) where it is not given."""
+    if t is None:
+        t = torch.rand((x.shape[0],), generator=generator, device=x.device, dtype=torch.float32)
+        t = t * (1.0 - t_eps) + t_eps
+    if z is None:
+        z = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    return t, z
+
+
 def dsm_loss(
     score_fn: Callable[..., torch.Tensor],
     x: torch.Tensor,
@@ -142,17 +156,13 @@ def dsm_loss(
     """Denoising score-matching loss on the clean NHWC target ``x``.
 
     ``t`` [B] (U(t_eps, 1)) and ``z`` (N(0, 1), x's shape and dtype) are drawn
-    on ``generator`` where they are not given; the tests hand both packages the
-    same draws. x_t = m(t) x + std(t) z; the loss is the mean over the batch of
+    on ``generator`` where they are not given (``dsm_draws``); the tests hand
+    both packages the same draws. x_t = m(t) x + std(t) z; the loss is the mean over the batch of
     the sum over H, W and C of w (score std + z)^2, with w = ``sdf_weights``.
     ``cond`` goes to ``score_fn(x_t, t, **cond)``.
     """
     b = x.shape[0]
-    if t is None:
-        t = torch.rand((b,), generator=generator, device=x.device, dtype=torch.float32)
-        t = t * (1.0 - t_eps) + t_eps
-    if z is None:
-        z = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    t, z = dsm_draws(x, generator, t_eps, t, z)
     std = sde.marginal_prob_std(t)
     mean_coeff = sde.marginal_prob_mean_coeff(t)
     bshape = (b,) + (1,) * (x.dim() - 1)

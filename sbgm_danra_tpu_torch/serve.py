@@ -15,7 +15,12 @@ Each member row draws its noise from its own ``torch.Generator``, seeded from
 per member, so a request's rows are computed the same way alone or co-batched
 (the JAX engine vmaps a batch-of-one sampler for the same property). The
 dispatch shape never changes, and on CUDA the engine sets
-``cudnn.deterministic=True`` and ``cudnn.benchmark=False``.
+``cudnn.deterministic=True`` and ``cudnn.benchmark=False``. On the card a
+dispatch is one replay of the sampler's CUDA graph at the engine's member
+capacity (``sampling/graphs.py``): each row's noise is drawn from its own
+generator into the graph's draws buffer, the packed conditioning copied into
+its static buffers. ``capture=False`` keeps the eager loop (the card check's
+reference and the A/B); on the CPU the eager loop runs.
 
 The engine's settings are a plain dataclass (``ServeSettings``), so the serving
 path imports nothing of the JAX package; ``settings_from_config`` and
@@ -34,6 +39,7 @@ An fp32 model serves with TF32 off (``precision.exact_fp32``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import logging
 import threading
@@ -45,9 +51,11 @@ from typing import Dict, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from sbgm_danra_tpu_torch.capture import use_graphs
 from sbgm_danra_tpu_torch.config import get_model_string, load_config, parse_override
 from sbgm_danra_tpu_torch.models.unet import ModelSpec, build_score_model, model_spec_from_config
 from sbgm_danra_tpu_torch.precision import exact_fp32
+from sbgm_danra_tpu_torch.sampling import graphs
 from sbgm_danra_tpu_torch.sampling.samplers import SamplerConfig, get_sampler, pc_sampler
 from sbgm_danra_tpu_torch.sde import VESDE
 from sbgm_danra_tpu_torch.transforms import Transform, back_transforms_for_config
@@ -147,9 +155,11 @@ class InferenceEngine:
     """Model weights on ``device`` -> conditional sampler at a fixed member capacity."""
 
     def __init__(self, settings: ServeSettings, state_dict: Union[str, Mapping],
-                 device: Union[str, torch.device], max_members: int = 8):
+                 device: Union[str, torch.device], max_members: int = 8,
+                 capture: Optional[bool] = None):
         self.settings = settings
         self.device = torch.device(device)
+        self.capture = use_graphs(capture, self.device)
         self.max_members = max_members
         self.hw = tuple(settings.sample_hw)
         self.model_string = settings.model_string
@@ -249,9 +259,11 @@ class InferenceEngine:
         gens = [torch.Generator(self.device).manual_seed(s) for s in seeds]
         cond_t = {k: torch.from_numpy(v).to(self.device) for k, v in cond.items()}
         extra = {"per_member_step": True} if self._sampler is pc_sampler else {}
+        run = (functools.partial(graphs.sample, self._sampler) if self.capture
+               else self._sampler)
         with exact_fp32(self.settings.spec.compute_dtype), torch.inference_mode():
-            out = self._sampler(self.score_fn, gens, (m, *self.hw, 1), self.sde,
-                                self.settings.sampler, cond=cond_t, **extra)
+            out = run(self.score_fn, gens, (m, *self.hw, 1), self.sde, self.settings.sampler,
+                      cond=cond_t, **extra)
             out = out[..., 0].float().cpu().numpy()
         self.n_dispatches += 1
         self.n_rows += i

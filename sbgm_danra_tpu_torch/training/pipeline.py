@@ -23,11 +23,21 @@ pinned and copied to the card ahead of the step. A loader with ``set_epoch``
 is told the epoch. A float32 model's steps and score function run with TF32
 off (``precision.exact_fp32``).
 
-``training.fused_steps > 0`` is checked as JAX checks it (a device train
-loader, no mesh); the batches are then the same stream, one step per
-dispatch: K steps per dispatch (``training/fused.py``) wait for ROADMAP Queue
-1, as do per-epoch preview sampling, the extreme-precipitation sentinel,
-rate-limited and asynchronous checkpoint writes, and meshes.
+On a CUDA device the train and eval steps replay their CUDA graphs
+(``train_step.CapturedStep``; the optimizer made capturable, the learning
+rate a tensor on the card) unless ``capture=False`` asks for the eager steps;
+on the CPU they run eagerly.
+
+``training.fused_steps = K > 0`` (a device train loader, no mesh: JAX's
+guards) runs K steps per dispatch (``training/fused.py``), as JAX's
+``_run_train_fused``: per chunk of ``DeviceDataLoader.iter_chunks``, the K
+steps' DSM draws from the trainer's generator in the eager order, one
+``fused`` call (each step's batch drawn on the card), one read of the K
+losses (and, with ``detect_anomaly``, of the K finite flags, naming the
+step offsets that failed). An epoch of ``steps_per_epoch`` steps runs
+ceil(steps / K) chunks. Per-epoch preview sampling, the
+extreme-precipitation sentinel, rate-limited and asynchronous checkpoint
+writes, and meshes wait for ROADMAP Queue 1.
 """
 
 from __future__ import annotations
@@ -41,15 +51,18 @@ from typing import Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from sbgm_danra_tpu_torch.capture import use_graphs
 from sbgm_danra_tpu_torch.config import get_model_string
 from sbgm_danra_tpu_torch.data.loader import device_prefetch, extract_batch
 from sbgm_danra_tpu_torch.models.unet import build_score_model, model_spec_from_config
 from sbgm_danra_tpu_torch.precision import exact_fp32
 from sbgm_danra_tpu_torch.sde import VESDE
 from sbgm_danra_tpu_torch.training.checkpointing import CheckpointManager
+from sbgm_danra_tpu_torch.training.fused import make_fused_train_step, step_draws
 from sbgm_danra_tpu_torch.training.schedulers import EarlyStopping, make_scheduler
 from sbgm_danra_tpu_torch.training.state import create_train_state
 from sbgm_danra_tpu_torch.training.train_step import (
+    CapturedStep,
     make_eval_step,
     make_score_fn,
     make_train_step,
@@ -64,7 +77,8 @@ class TrainingPipeline:
     """Owns the model, state and steps, and runs the epoch loop."""
 
     def __init__(self, cfg, train_loader: Iterable[Dict],
-                 valid_loader: Optional[Iterable[Dict]] = None, device: str = "cuda"):
+                 valid_loader: Optional[Iterable[Dict]] = None, device: str = "cuda",
+                 capture: Optional[bool] = None):
         self.cfg = cfg
         self.train_loader = train_loader
         self.valid_loader = valid_loader
@@ -77,17 +91,26 @@ class TrainingPipeline:
         self.state = create_train_state(cfg, self.model, init)
         self.model.to(self.device)
         # the optimizer was built on the CPU tensors: .to moved them in place
-        self.state.ema_params = {k: v.to(self.device) for k, v in self.state.ema_params.items()}
+        self.state.to(self.device)
+        self.capture = use_graphs(capture, self.device)
+        if self.capture:
+            self.state.make_capturable()
         self.model_string = get_model_string(cfg)
         self.generator = torch.Generator(self.device).manual_seed(t.seed)
         eps = cfg.sampler.t_eps
         precision = exact_fp32(self.spec.compute_dtype)
-        self._train_step = precision(make_train_step(
+        step = make_train_step(
             self.model, self.sde, t_eps=eps, use_sdf_weights=t.sdf_weighted_loss,
             detect_anomaly=t.detect_anomaly, remat=t.remat,
-            skip_nonfinite_updates=t.skip_nonfinite_updates))
+            skip_nonfinite_updates=t.skip_nonfinite_updates)
+        # the eager step stays at hand: the card check's reference and the A/B
+        self.eager_train_step = precision(step)
+        self._train_step = (precision(CapturedStep(step, eps, "train step")) if self.capture
+                            else self.eager_train_step)
         self._eval_step = precision(make_eval_step(self.model, self.sde, t_eps=eps,
-                                                   use_sdf_weights=t.sdf_weighted_loss))
+                                                   use_sdf_weights=t.sdf_weighted_loss,
+                                                   capture=self.capture))
+        self._fused = None
         if t.fused_steps > 0:
             if not getattr(train_loader, "is_device_loader", False):
                 raise ValueError(
@@ -97,9 +120,11 @@ class TrainingPipeline:
                 raise ValueError(
                     "training.fused_steps is a single-device path; mesh "
                     "training already amortizes dispatch via parallel steps")
-            logger.info("training.fused_steps=%d: the port runs one step per dispatch; K steps "
-                        "per dispatch (training/fused.py) wait for ROADMAP Queue 1",
-                        t.fused_steps)
+            self._fused = precision(make_fused_train_step(
+                self.model, self.sde, train_loader.sample_fn, t_eps=eps,
+                use_sdf_weights=t.sdf_weighted_loss, remat=t.remat,
+                skip_nonfinite_updates=t.skip_nonfinite_updates, track_finite=t.detect_anomaly,
+                capture=self.capture))
         self.scheduler = make_scheduler(cfg)
         es = t.early_stopping_params
         self.early_stopping = EarlyStopping(es.patience, es.min_delta) if t.early_stopping \
@@ -126,6 +151,19 @@ class TrainingPipeline:
         """One epoch of optimizer steps; the mean training loss."""
         losses = []
         t0 = time.perf_counter()
+        if self._fused is not None:
+            self._run_fused(max_steps, losses)
+        else:
+            self._run_steps(max_steps, losses)
+        if not losses:
+            return float("nan")
+        mean = float(torch.stack(losses).mean())
+        dt = time.perf_counter() - t0
+        logger.info("epoch %d: %d steps in %s s (%.2f steps/s)", self.epoch, len(losses), dt,
+                    len(losses) / dt)
+        return mean
+
+    def _run_steps(self, max_steps: Optional[int], losses: List[torch.Tensor]) -> None:
         for i, batch in enumerate(self._batches(self.train_loader)):
             if max_steps is not None and i >= max_steps:
                 break
@@ -134,13 +172,26 @@ class TrainingPipeline:
                 raise FloatingPointError(
                     f"Non-finite loss/gradients at step {self.state.step}")
             losses.append(metrics["loss"])
-        if not losses:
-            return float("nan")
-        mean = float(torch.stack(losses).mean())
-        dt = time.perf_counter() - t0
-        logger.info("epoch %d: %d steps in %s s (%.2f steps/s)", self.epoch, len(losses), dt,
-                    len(losses) / dt)
-        return mean
+
+    def _run_fused(self, max_steps: Optional[int], losses: List[torch.Tensor]) -> None:
+        """K steps per ``fused`` call over ``iter_chunks``; one read of each
+        chunk's losses (and finite flags) on the host."""
+        k = self.cfg.training.fused_steps
+        loader = self.train_loader
+        n_chunks = -(-max_steps // k) if max_steps else None
+        x_shape = (loader.batch_size, *loader.crop_hw, 1)
+        for ci, (stacks, draws) in enumerate(loader.iter_chunks(k, n_chunks)):
+            sdraws = step_draws(self.generator, x_shape, k, stacks[0].dtype, self.device,
+                                self.cfg.sampler.t_eps)
+            _, traces = self._fused(self.state, draws, sdraws, stacks)
+            trace = traces["loss"].cpu()
+            if self.cfg.training.detect_anomaly:
+                finite = traces["finite"].cpu()
+                if not bool(finite.all()):
+                    raise FloatingPointError(
+                        f"Non-finite loss/gradients in fused chunk {ci} (step offsets "
+                        f"{torch.nonzero(~finite).flatten().tolist()})")
+            losses.extend(trace)
 
     def validate_batches(self, max_steps: Optional[int] = None) -> float:
         if self.valid_loader is None:
@@ -166,6 +217,10 @@ class TrainingPipeline:
                                         early_stop=self.early_stopping)
         self.epoch = meta.get("epoch", 0)
         self.history = meta.get("history", self.history)
+        if self.capture:
+            self.state.make_capturable()
+        else:
+            self.state.make_eager()
         self.state.with_learning_rate(self.scheduler.lr)
 
     def train(self, epochs: Optional[int] = None, steps_per_epoch: Optional[int] = None,

@@ -687,3 +687,257 @@ def test_card_sampler_matches_the_cpu_sampler(cuda, tmp_path):
     for k in ("x", "cond_img", "lsm_cond", "topo_cond", "y", "lsm_hr"):
         assert torch.equal(card[k].cpu(), ref[k]), k
     assert (card["sdf"].cpu() - ref["sdf"]).abs().max().item() <= 1e-6
+
+
+# CUDA graphs (sbgm_danra_tpu_torch/capture.py, sampling/graphs.py, the
+# captured train step and training/fused.py): replays against the eager
+# calls, a capture that cannot be made, and the launch counts of a graph.
+
+def _tiny_unet(cuda, backend="xla", seed=3):
+    from sbgm_danra_tpu_torch.models.unet import ModelSpec, build_score_model
+
+    spec = ModelSpec(in_channels=6, num_classes=4, last_fmap_channels=64, time_embedding=32,
+                     num_heads=2, block_layers=(1, 1, 1, 1), attention_backend=backend)
+    return build_score_model(spec, generator=torch.Generator().manual_seed(seed)).to(cuda)
+
+
+def _card_cond(batch, hw, cuda, seed):
+    g = torch.Generator(cuda).manual_seed(seed)
+    return {"y": torch.randint(1, 5, (batch,), generator=g, device=cuda),
+            "cond_img": torch.randn(batch, *hw, 2, generator=g, device=cuda),
+            "lsm_cond": (torch.rand(batch, *hw, 2, generator=g, device=cuda) > 0.5).float(),
+            "topo_cond": torch.randn(batch, *hw, 2, generator=g, device=cuda)}
+
+
+GRAPH_SAMPLERS = {  # name: (sampler, config options, keyword options, per-row generators)
+    "dpmpp": ("dpmpp_sampler", dict(num_steps=6, guidance_scale=3.0), {}, False),
+    "edm_churn": ("edm_sampler", dict(num_steps=5, s_churn=2.0), {}, False),
+    "pc_per_row": ("pc_sampler", dict(num_steps=3, guidance_scale=3.0),
+                   {"per_member_step": True}, True),
+    "em": ("em_sampler", dict(num_steps=4), {}, False),
+    "ode_heun": ("ode_sampler", dict(num_steps=4, ode_method="heun"), {}, False),
+    "ode_rk45": ("ode_sampler", dict(ode_method="rk45", rtol=1e-2, atol=1e-2, eps=0.5), {},
+                 False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_SAMPLERS))
+def test_sampler_graph_replay_equals_the_eager_loop(cuda, monkeypatch, case):
+    """A sampler's graph (captured at the first call, replayed at the second)
+    gives the eager loop's sample bit for bit, given the same generators
+    (cuDNN deterministic, so that both runs take the same algorithms)."""
+    from sbgm_danra_tpu_torch.sampling import graphs
+    from sbgm_danra_tpu_torch.sampling.samplers import SamplerConfig, get_sampler
+    from sbgm_danra_tpu_torch.sde import VESDE
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    name, options, kw, per_row = GRAPH_SAMPLERS[case]
+    config = SamplerConfig(**options)
+    model = _tiny_unet(cuda).eval()
+    shape = (2, 64, 64, 1)
+    cond = _card_cond(2, shape[1:3], cuda, 4)
+
+    def rng(seed):
+        if per_row:
+            return [torch.Generator(cuda).manual_seed(seed + r) for r in range(shape[0])]
+        return torch.Generator(cuda).manual_seed(seed)
+
+    with torch.inference_mode():
+        first = graphs.sample(name, model, rng(1), shape, VESDE(), config, cond=cond, **kw)
+        second = graphs.sample(name, model, rng(2), shape, VESDE(), config, cond=cond, **kw)
+        want = [get_sampler(name)(model, rng(s), shape, VESDE(), config, cond=cond, **kw)
+                for s in (1, 2)]
+    assert torch.isfinite(second).all()
+    assert torch.equal(first, want[0]) and torch.equal(second, want[1])
+
+
+def test_graph_launch_counts_per_replay(cuda, monkeypatch):
+    """A graph records K1's and K2's launches at capture and adds them to the
+    wrappers' counts at every replay: one replay counts what one eager call
+    launches (8 K1 chains and one K2 per attention layer per evaluation)."""
+    from sbgm_danra_tpu_torch import capture
+    from sbgm_danra_tpu_torch.sampling import graphs
+    from sbgm_danra_tpu_torch.sampling.samplers import SamplerConfig, dpmpp_sampler
+    from sbgm_danra_tpu_torch.sde import VESDE
+
+    monkeypatch.setattr(fa, "_FORCE_KERNEL", True)
+    model = _tiny_unet(cuda, backend="pallas").eval()
+    shape, config = (2, 64, 64, 1), SamplerConfig(num_steps=4)
+    cond = _card_cond(2, shape[1:3], cuda, 5)
+
+    def counts():
+        return (k1.conv3x3_stats_launches, k1.gn_apply_launches, cuda_attention.launches,
+                dict(cuda_attention.launches_by_variant))
+
+    with torch.inference_mode():
+        before = counts()
+        dpmpp_sampler(model, torch.Generator(cuda).manual_seed(0), shape, VESDE(), config,
+                      cond=cond)
+        after = counts()
+        eager = [after[i] - before[i] for i in range(3)]
+        graphs.sample(dpmpp_sampler, model, torch.Generator(cuda).manual_seed(0), shape,
+                      VESDE(), config, cond=cond)
+        before = counts()
+        graphs.sample(dpmpp_sampler, model, torch.Generator(cuda).manual_seed(1), shape,
+                      VESDE(), config, cond=cond)
+        after = counts()
+    evaluations = config.num_steps - 1
+    assert eager[0] == eager[1] == 8 * evaluations and eager[2] > 0
+    assert [after[i] - before[i] for i in range(3)] == eager
+    stats = [s for s in capture.stats() if s["name"].startswith("dpmpp_sampler 2x64x64")]
+    per = stats[-1]["launches_per_replay"]
+    assert per["conv3x3_stats"] == per["gn_apply"] == 8 * evaluations
+    assert per["flash_attention_fwd_fp32"] == eager[2]
+
+
+def test_a_capture_that_fails_raises(cuda):
+    """A host sync inside the captured call raises CaptureError: nothing runs
+    the eager call in its place, and the card works on after it."""
+    from sbgm_danra_tpu_torch import capture
+    from sbgm_danra_tpu_torch.sampling import graphs
+    from sbgm_danra_tpu_torch.sampling.samplers import SamplerConfig
+    from sbgm_danra_tpu_torch.sde import VESDE
+
+    x = torch.ones(64, device=cuda)
+    with pytest.raises(capture.CaptureError, match="host sync"):
+        capture.Graph("host sync", lambda x: x * float(x.sum()), [x])
+
+    def syncing_score(x, t, **_):
+        return -x / (1.0 + float(t[0]))
+
+    with pytest.raises(capture.CaptureError):
+        graphs.sample("dpmpp_sampler", syncing_score, torch.Generator(cuda).manual_seed(0),
+                      (1, 8, 8, 1), VESDE(), SamplerConfig(num_steps=3))
+    assert torch.cuda.current_stream(cuda) == torch.cuda.default_stream(cuda)
+    assert (x + 1).sum().item() == 128.0
+
+
+def _card_train_state(cuda):
+    from sbgm_danra_tpu_torch.config import from_dict
+    from sbgm_danra_tpu_torch.training.state import create_train_state
+
+    cfg = from_dict({"training": {"learning_rate": 1e-3, "weight_init": False,
+                                  "ema_decay": 0.9, "weight_decay": 1e-6}})
+    model = _tiny_unet(torch.device("cpu"), seed=6)
+    state = create_train_state(cfg, model)
+    model.to(cuda)
+    return state.to(cuda).make_capturable()
+
+
+def _card_state(state):
+    out = [v.detach().clone() for v in state.update_tensors()]
+    return out
+
+
+def test_train_step_graph_equals_the_eager_step(cuda, monkeypatch):
+    """Three captured steps (capturable Adam, a tensor learning rate changed
+    between steps, EMA, BatchNorm statistics) equal three eager steps bit for
+    bit; a NaN batch with skip_nonfinite_updates leaves the state as it was."""
+    from sbgm_danra_tpu_torch.sde import VESDE
+    from sbgm_danra_tpu_torch.training.train_step import CapturedStep, make_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    eager, graph = _card_train_state(cuda), _card_train_state(cuda)
+    steps = {id(eager): make_train_step(eager.model, VESDE(), skip_nonfinite_updates=True),
+             id(graph): CapturedStep(make_train_step(graph.model, VESDE(),
+                                                     skip_nonfinite_updates=True),
+                                     1e-3, "train step")}
+    g = torch.Generator(cuda).manual_seed(7)
+    for i in range(3):
+        batch = {"x": torch.randn(2, 64, 64, 1, generator=g, device=cuda),
+                 "sdf": torch.rand(2, 64, 64, 1, generator=g, device=cuda),
+                 **_card_cond(2, (64, 64), cuda, 10 + i)}
+        t = torch.rand(2, generator=g, device=cuda) * 0.999 + 1e-3
+        z = torch.randn(2, 64, 64, 1, generator=g, device=cuda)
+        losses = []
+        for state in (eager, graph):
+            state.with_learning_rate(1e-3 / (i + 1))
+            losses.append(steps[id(state)](state, batch, t=t, z=z)["loss"])
+        assert torch.equal(losses[0], losses[1])
+        assert all(torch.equal(a, b) for a, b in zip(_card_state(eager), _card_state(graph)))
+    kept = _card_state(graph)
+    batch["x"][0, 0, 0, 0] = float("nan")
+    metrics = steps[id(graph)](graph, batch, t=t, z=z)
+    assert not bool(metrics["finite"]) and graph.step == 3
+    assert all(torch.equal(a, b) for a, b in zip(kept, _card_state(graph)))
+
+
+def test_eval_graph_reads_the_weights_train_replays_wrote(cuda, monkeypatch):
+    """Captured train steps, the captured eval step (K1 on packs of the
+    weights it reads), more captured train steps, the eval step again: each
+    eval equals an eager eval of the state as it then is, on fresh packs, bit
+    for bit. A replay runs no ATen op, so only the version counters that the
+    train graph's replays advance tell the eval graph's packs (and K1's cache)
+    that the weights moved. On the parameters and on the EMA."""
+    from sbgm_danra_tpu_torch.sde import VESDE
+    from sbgm_danra_tpu_torch.training.train_step import (CapturedStep, make_eval_step,
+                                                          make_train_step)
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    state = _card_train_state(cuda)
+    train = CapturedStep(make_train_step(state.model, VESDE()), 1e-3, "train step")
+    evals = {ema: (make_eval_step(state.model, VESDE(), use_ema=ema, capture=True),
+                   make_eval_step(state.model, VESDE(), use_ema=ema)) for ema in (False, True)}
+    g = torch.Generator(cuda).manual_seed(9)
+
+    def batch(seed):
+        return {"x": torch.randn(2, 64, 64, 1, generator=g, device=cuda),
+                "sdf": torch.rand(2, 64, 64, 1, generator=g, device=cuda),
+                **_card_cond(2, (64, 64), cuda, seed)}
+
+    probe = batch(30)
+    t = torch.rand(2, generator=g, device=cuda) * 0.999 + 1e-3
+    z = torch.randn(2, 64, 64, 1, generator=g, device=cuda)
+    seen = {ema: [] for ema in evals}
+    for round_ in range(2):
+        for i in range(2):
+            train(state, batch(40 + 2 * round_ + i), g)
+        for ema, (graph_eval, eager_eval) in evals.items():
+            got = graph_eval(state, probe, t=t, z=z)["loss"]
+            k1._packed.clear()  # the reference packs the weights afresh
+            want = eager_eval(state, probe, t=t, z=z)["loss"]
+            assert torch.equal(got, want), (round_, ema, got.item(), want.item())
+            seen[ema].append(want.item())
+    assert state.step == 4
+    assert all(a != b for a, b in seen.values())  # the weights moved between the evals
+
+
+def test_fused_graph_equals_eager_steps(cuda, monkeypatch, tmp_path):
+    """Two chunks of 3 fused steps on the card sampler (jump flood inside the
+    graph), captured, equal 3 + 3 eager steps on the same draws bit for bit:
+    losses and every tensor of the state."""
+    import os
+
+    from sbgm_danra_tpu_torch.config import from_dict
+    from sbgm_danra_tpu_torch.data.device_data import DeviceDataLoader
+    from sbgm_danra_tpu_torch.data.factory import make_dataset
+    from sbgm_danra_tpu_torch.data.paths import lsm_path, topo_path
+    from sbgm_danra_tpu_torch.data.synthetic import SyntheticSpec, generate
+    from sbgm_danra_tpu_torch.sde import VESDE
+    from sbgm_danra_tpu_torch.training.fused import make_fused_train_step, step_draws
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    root = str(tmp_path)
+    generate(SyntheticSpec(root=root, full_domain=(96, 128), n_days=10,
+                           variables=("temp", "prcp"), crop_region=(8, 88, 16, 120)))
+    cfg = from_dict({
+        "paths": {"data_dir": root, "lsm_path": lsm_path(root), "topo_path": topo_path(root),
+                  "stats_load_dir": os.path.join(root, "stats")},
+        "highres": {"variable": "prcp", "data_size": [64, 64], "scaling_method": "log_zscore",
+                    "full_domain_dims": [96, 128], "cutout_domains": [8, 88, 16, 120]},
+        "lowres": {"condition_variables": ["temp", "prcp"],
+                   "scaling_methods": ["zscore", "log_zscore"], "full_domain_dims": [96, 128]},
+    })
+    loader = DeviceDataLoader(make_dataset(cfg, "train"), 4, cfg_dropout_prob=0.5, device=cuda)
+    eager, graph = _card_train_state(cuda), _card_train_state(cuda)
+    runs = {id(eager): make_fused_train_step(eager.model, VESDE(), loader.sample_fn),
+            id(graph): make_fused_train_step(graph.model, VESDE(), loader.sample_fn,
+                                             capture=True)}
+    g = torch.Generator(cuda).manual_seed(8)
+    for chunk in range(2):
+        draws = loader.chunk_draws(0, 3 * chunk, 3)
+        sdraws = step_draws(g, (4, 64, 64, 1), 3, device=cuda)
+        traces = [runs[id(s)](s, draws, sdraws, loader.buffers())[1] for s in (eager, graph)]
+        assert all(torch.equal(traces[0][k], traces[1][k]) for k in ("loss", "finite"))
+        assert all(torch.equal(a, b) for a, b in zip(_card_state(eager), _card_state(graph)))
+    assert graph.step == 6

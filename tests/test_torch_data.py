@@ -9,7 +9,6 @@ synthetic dataset (64x96 grid, 12 days, written by the JAX generator) serves
 the module.
 """
 
-import logging
 import os
 
 import numpy as np
@@ -265,19 +264,19 @@ def test_cli_modes_not_ported_raise(tmp_path, mode):
         main_app.main(["--config_path", path, "--mode", mode])
 
 
-def test_fused_steps_guard_and_windowed_residency(data, caplog):
-    """fused_steps needs a device train loader, as in JAX, and then runs one
-    step per dispatch; a window of days raises, naming the ROADMAP item."""
+def test_fused_steps_guard_and_windowed_residency(data):
+    """fused_steps needs a device train loader, as in JAX, and then runs K
+    steps per dispatch (one chunk of 4 steps where 1 is asked: JAX's ceil);
+    a window of days raises, naming the ROADMAP item."""
     d = config_dict(data, training={"fused_steps": 4})
     mine_host = factory.make_loaders(from_dict(d), device="cpu")[0]
     with pytest.raises(ValueError, match="device-resident"):
         TrainingPipeline(from_dict(d), mine_host, device="cpu")
     dd = config_dict(data, training={"fused_steps": 4}, data_handling={"device_dataset": True})
     train = factory.make_loaders(from_dict(dd), device="cpu")[0]
-    with caplog.at_level(logging.INFO):
-        pipe = TrainingPipeline(from_dict(dd), train, device="cpu")
-    assert "one step per dispatch" in caplog.text
+    pipe = TrainingPipeline(from_dict(dd), train, device="cpu")
     assert np.isfinite(pipe.train_batches(1))
+    assert pipe.state.step == 4 and train.epoch == 1
     windowed = config_dict(data, data_handling={"device_dataset": True,
                                                 "device_window_days": 4})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
