@@ -105,6 +105,19 @@ times, and the graph's output against the eager route's on the same draws
    full-domain sample conditioned on the first test day with the trained EMA
    weights, back-transformed, on its graph: 272 K1 and 34 K2 launches a
    replay;
+5d'. generate: on 5d's data and checkpoint, the port's CLI as
+   ``main_app.run_mode`` calls it: ``--mode generate`` with ``gen_type:
+   [multiple, single, repeated]`` (dpmpp-25, CFG w=3, 4 conditions, 8
+   members; each mode captured once, then replayed alone: 8 K1 launches a
+   UNet evaluation, no K2), then ``[full_domain]`` with EDM-18 (272 K1 and 34
+   ``tc_bf16`` K2 a replay); the npz names and shapes, finite, prcp >= 0, 8
+   distinct members; ``--mode evaluate`` with pixel and spatial statistics,
+   CRPS and spectra (files written, finite); the exact-score quality study
+   (``evaluate/quality_study.py``, 64 members, 16x16, 256 truths; edm-18,
+   dpmpp-25, pc-100 on the three headline regimes: std ratio and
+   spread/skill in [0.9, 1.1]); ``generate_previews`` after captured train
+   steps against the eager loop on the same draws; each mode's load,
+   capture and replay seconds and pools;
 5e. train_full_domain: 5c's step at 589x789 -> 608x800, batch 2, attention
    'pallas', remat, on the step's graph: bf16, a capture and 3 replays with
    2 K2 forward and 1 K2 backward launch each (decoder block 1 at [2, 7600,
@@ -127,7 +140,8 @@ times, and the graph's output against the eager route's on the same draws
    and on the eager loop from the same seed, finite of the right shape.
 
 Each path's launch counts are set to 0 just before it runs and read just
-after. Then the kernels' summary line, the ``nvidia-smi`` name and power limit
+after. Then a ``timing`` line (the build's and each phase's wall seconds),
+the kernels' summary line, the ``nvidia-smi`` name and power limit
 line, and ``{"ok": true, "device": {...}}`` as the last line. Any failure
 raises and exits non-zero; without a CUDA device the script exits 1 and
 prints nothing on stdout.
@@ -135,12 +149,13 @@ prints nothing on stdout.
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -180,6 +195,10 @@ BF16_TOLERANCE = ("bf16: |err| <= 2^-8 |ref| + 2^-8 max|ref| against the fp32 pl
 K1_SHAPES = (  # (path, batch, (H, W, Cin, Cout), dtype, activation)
     [("serve-128", 16, c, torch.bfloat16, False) for c in dict.fromkeys(CHAINS_128)]
     + [("serve-128", 16, c, torch.float32, False) for c in dict.fromkeys(CHAINS_128)]
+    # the generate phase's 128-px UNet batches: 1 row (single) and 4 rows
+    # (multiple, previews), doubled by CFG; plan() picks their tiles by batch
+    + [("generate-128", n, c, torch.bfloat16, False) for n in (2, 8)
+       for c in dict.fromkeys(CHAINS_128)]
     + [("full-domain", 2, c, dt, False) for dt in (torch.bfloat16, torch.float32)
        for c in dict.fromkeys(CHAINS_FULL)]
     + [("perf_probe", 26, (64, 64, 64, 64), torch.bfloat16, False),
@@ -976,7 +995,6 @@ def phase_train_128(dev):
     256-token maps take SDPA), the loss finite, the EMA and the BatchNorm
     statistics moved, the two routes' losses and trained states on the same
     draws; then one EMA eval step on each route, which runs K1 (8 chains)."""
-    import tempfile
 
     from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
     from sbgm_danra_tpu_torch.training.train_step import make_eval_step
@@ -1098,7 +1116,7 @@ def fused_vs_one_step(dev, tmp, train) -> dict:
                 graphs=fused["graphs"], one_step_graphs=one["graphs"])
 
 
-def phase_train_data(dev):
+def phase_train_data(dev, tmp):
     """The flagship's data path on the card: synthetic stores at 589x789
     (32 days, no 'all' split: a depth cut), the card-resident train and valid
     stacks, the card sampler at batch 128 against the same sampler on the CPU
@@ -1110,9 +1128,8 @@ def phase_train_data(dev):
     with its checkpoint read back, and one EDM-18 full-domain sample
     conditioned on the first test day (``make_dataset(cfg, "test",
     full_domain=True)``) with the trained EMA weights, back-transformed to mm:
-    272 K1 and 34 K2 launches."""
-    import tempfile
-
+    272 K1 and 34 K2 launches. The data and the checkpoint stay under ``tmp``
+    for the generate phase."""
     from sbgm_danra_tpu_torch.cli.entries import train_main
     from sbgm_danra_tpu_torch.cli.main_app import synthetic_data
     from sbgm_danra_tpu_torch.data.device_data import make_sample_fn
@@ -1126,92 +1143,89 @@ def phase_train_data(dev):
     from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
     from sbgm_danra_tpu_torch.transforms import back_transforms_for_config
 
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg = data_config(tmp)
-        t0 = time.perf_counter()
-        synthetic_data(cfg, DATA_DAYS, no_all_split=True)
-        gen_s = time.perf_counter() - t0
-        train, valid, _ = make_loaders(cfg, device=dev)
-        stacks = train.stacks
-        resident_gib = (stacks.nbytes() + valid.stacks.nbytes()) / 2**30
+    cfg = data_config(tmp)
+    t0 = time.perf_counter()
+    synthetic_data(cfg, DATA_DAYS, no_all_split=True)
+    gen_s = time.perf_counter() - t0
+    train, valid, _ = make_loaders(cfg, device=dev)
+    stacks = train.stacks
+    resident_gib = (stacks.nbytes() + valid.stacks.nbytes()) / 2**30
 
-        g = torch.Generator(dev).manual_seed(21)
-        draws = train.draws(g)
-        card = train.sample_from(*draws)
-        ref = make_sample_fn(train.crop_hw)(*(d.cpu() for d in draws), stacks.fields.cpu(),
-                                            stacks.statics.cpu(), stacks.classifier.cpu())
-        unequal = [k for k in SAMPLE_KEYS if not torch.equal(card[k].cpu(), ref[k])]
-        sdf_vs_cpu = (card["sdf"].cpu() - ref["sdf"]).abs().max().item()
-        masks = card["lsm_hr"][..., 0].cpu().numpy()
-        sdf = card["sdf"][..., 0].cpu().numpy()
-        no_land = [i for i, m in enumerate(masks) if not m.any()]
-        sdf_vs_edt = max(float(np.abs(sdf[i] - sdf_from_mask(masks[i])).max())
-                         for i in range(len(masks)) if i not in no_land)
-        no_land_zero = all(not sdf[i].any() for i in no_land)
-        sampler = sampler_profile(torch, train, g)
+    g = torch.Generator(dev).manual_seed(21)
+    draws = train.draws(g)
+    card = train.sample_from(*draws)
+    ref = make_sample_fn(train.crop_hw)(*(d.cpu() for d in draws), stacks.fields.cpu(),
+                                        stacks.statics.cpu(), stacks.classifier.cpu())
+    unequal = [k for k in SAMPLE_KEYS if not torch.equal(card[k].cpu(), ref[k])]
+    sdf_vs_cpu = (card["sdf"].cpu() - ref["sdf"]).abs().max().item()
+    masks = card["lsm_hr"][..., 0].cpu().numpy()
+    sdf = card["sdf"][..., 0].cpu().numpy()
+    no_land = [i for i, m in enumerate(masks) if not m.any()]
+    sdf_vs_edt = max(float(np.abs(sdf[i] - sdf_from_mask(masks[i])).max())
+                     for i in range(len(masks)) if i not in no_land)
+    no_land_zero = all(not sdf[i].any() for i in no_land)
+    sampler = sampler_profile(torch, train, g)
 
-        # the one-step graph (fused_steps 0) on each loader, timed step by step
-        pipe = TrainingPipeline(data_config(tmp, fused_steps=0), train, valid, device=dev)
-        host = DataLoader(RepeatedDays(make_dataset(cfg, "train"), 128), batch_size=128,
-                          shuffle=True, num_workers=cfg.data_handling.num_workers, seed=0)
-        random = OnCard(train_batches(torch, DATA_STEPS, 128, (128, 128), dev, seed=40))
-        steps = {}
-        for name, loader in (("device_loader", train), ("host_loader_1_worker", host),
-                             ("random_batches", random)):
-            step_seconds(torch, pipe, loader, 2)  # warm-up (the first step captures)
-            steps[name] = step_seconds(torch, pipe, loader, DATA_STEPS)
-        losses_finite = all(np.isfinite(r["mean_loss"]) for r in steps.values())
-        del pipe, random
-        torch.cuda.empty_cache()
+    # the one-step graph (fused_steps 0) on each loader, timed step by step
+    pipe = TrainingPipeline(data_config(tmp, fused_steps=0), train, valid, device=dev)
+    host = DataLoader(RepeatedDays(make_dataset(cfg, "train"), 128), batch_size=128,
+                      shuffle=True, num_workers=cfg.data_handling.num_workers, seed=0)
+    random = OnCard(train_batches(torch, DATA_STEPS, 128, (128, 128), dev, seed=40))
+    steps = {}
+    for name, loader in (("device_loader", train), ("host_loader_1_worker", host),
+                         ("random_batches", random)):
+        step_seconds(torch, pipe, loader, 2)  # warm-up (the first step captures)
+        steps[name] = step_seconds(torch, pipe, loader, DATA_STEPS)
+    losses_finite = all(np.isfinite(r["mean_loss"]) for r in steps.values())
+    del pipe, random
+    torch.cuda.empty_cache()
 
-        fused = fused_vs_one_step(dev, tmp, train)
-        torch.cuda.empty_cache()
+    fused = fused_vs_one_step(dev, tmp, train)
+    torch.cuda.empty_cache()
 
-        # configs/flagship_synth.yaml's training section: 25 steps per dispatch
-        epoch_cfg = data_config(tmp, epochs=1, steps_per_epoch=FUSED_K)
-        t0 = time.perf_counter()
-        trained = train_main(epoch_cfg, device=dev)
-        train_main_s = time.perf_counter() - t0
-        train_main_graph = graph_stats("fused")
-        # a pipeline that only reads the checkpoint trains nothing: no fused
-        # steps to check against its (empty) loader
-        reread = TrainingPipeline(data_config(tmp, epochs=1, steps_per_epoch=FUSED_K,
-                                              fused_steps=0), [], device=dev)
-        reread.load()
-        read_back = (reread.state.step == trained.state.step == FUSED_K and reread.epoch == 1
-                     and all(torch.equal(a, b) for a, b in zip(
-                         reread.model.state_dict().values(),
-                         trained.model.state_dict().values()))
-                     and all(torch.equal(reread.state.ema_params[k], v)
-                             for k, v in trained.state.ema_params.items()))
-        history = trained.history
+    # configs/flagship_synth.yaml's training section: 25 steps per dispatch
+    epoch_cfg = data_config(tmp, epochs=1, steps_per_epoch=FUSED_K)
+    t0 = time.perf_counter()
+    trained = train_main(epoch_cfg, device=dev)
+    train_main_s = time.perf_counter() - t0
+    train_main_graph = graph_stats("fused")
+    # a pipeline that only reads the checkpoint trains nothing: no fused
+    # steps to check against its (empty) loader
+    reread = TrainingPipeline(data_config(tmp, epochs=1, steps_per_epoch=FUSED_K,
+                                          fused_steps=0), [], device=dev)
+    reread.load()
+    read_back = (reread.state.step == trained.state.step == FUSED_K and reread.epoch == 1
+                 and all(torch.equal(a, b) for a, b in zip(
+                     reread.model.state_dict().values(),
+                     trained.model.state_dict().values()))
+                 and all(torch.equal(reread.state.ema_params[k], v)
+                         for k, v in trained.state.ema_params.items()))
+    history = trained.history
 
-        day = make_dataset(cfg, "test", full_domain=True)
-        b = extract_batch(collate([day[0]]), cfg.highres.variable)
-        cond = {k: torch.as_tensor(b[k]).to(dev) for k in ("y", "cond_img", "lsm_cond",
-                                                         "topo_cond")}
-        spec = inference_spec(dataclasses.replace(model_spec_from_config(cfg),
-                                                  attention_backend="pallas"),
-                              padded_dims(*FULL_DOMAIN))
-        model = build_score_model(spec).to(dev)
-        weights = trained.model.state_dict()
-        weights.update(trained.state.ema_params)
-        model.load_state_dict(weights)
-        del trained, reread
-        config = SamplerConfig(num_steps=EDM_NODES, guidance_scale=3.0, s_churn=0.0)
+    day = make_dataset(cfg, "test", full_domain=True)
+    b = extract_batch(collate([day[0]]), cfg.highres.variable)
+    cond = {k: torch.as_tensor(b[k]).to(dev) for k in ("y", "cond_img", "lsm_cond",
+                                                     "topo_cond")}
+    spec = inference_spec(model_spec_from_config(cfg), padded_dims(*FULL_DOMAIN))
+    model = build_score_model(spec).to(dev)
+    weights = trained.model.state_dict()
+    weights.update(trained.state.ema_params)
+    model.load_state_dict(weights)
+    del trained, reread
+    config = SamplerConfig(num_steps=EDM_NODES, guidance_scale=3.0, s_churn=0.0)
 
-        def sample():
-            return sample_full_domain(model, torch.Generator(dev).manual_seed(3), cond,
-                                      domain_hw=FULL_DOMAIN, batch=1, config=config,
-                                      sampler="edm_sampler")
+    def sample():
+        return sample_full_domain(model, torch.Generator(dev).manual_seed(3), cond,
+                                  domain_hw=FULL_DOMAIN, batch=1, config=config,
+                                  sampler="edm_sampler")
 
-        with torch.inference_mode():
-            _, capture_call_s = timed(sample)  # warm-up, capture, one replay
-            reset_counts()  # the conditioned full-domain sample's run starts here: a replay
-            out, sample_s = timed(sample)
-            k1c, k2c = k1_counts(), k2_counts()
-        mm = np.asarray(back_transforms_for_config(cfg)["generated"](out))
-        test_date = day.date_of(0)
+    with torch.inference_mode():
+        _, capture_call_s = timed(sample)  # warm-up, capture, one replay
+        reset_counts()  # the conditioned full-domain sample's run starts here: a replay
+        out, sample_s = timed(sample)
+        k1c, k2c = k1_counts(), k2_counts()
+    mm = np.asarray(back_transforms_for_config(cfg)["generated"](out))
+    test_date = day.date_of(0)
     evaluations = 2 * (EDM_NODES - 1)
     median = {k: float(np.median(v["step_s"])) for k, v in steps.items()}
     emit(phase="train_data", settings="configs/flagship_synth.yaml (prcp log_zscore HR at "
@@ -1245,6 +1259,325 @@ def phase_train_data(dev):
           f"conditioned full-domain sample: K2 launches {k2c}")
     check_k1(k1c, evaluations, "conditioned full-domain sample")
     return {"k2": k2c, "conv3x3_stats": k1c[0], "gn_apply": k1c[1]}
+
+
+GEN_STEPS = 25  # configs/flagship_synth.yaml: evaluation.n_steps (dpmpp-25)
+GEN_ARTIFACTS = {"multiple": ("multi_n_4", 4), "single": ("single", 1),
+             "repeated": ("repeated_8", 8)}  # evaluation.n_gen_samples 4, n_repeats 8
+STUDY_GRID = ("edm_18", "dpmpp_25", "pc_100")
+STUDY_BAND = (0.9, 1.1)  # std ratio and spread/skill of the exact-score study
+
+
+def _artifact_checks(sample_path: str, suffix: str, n: int, hw) -> dict:
+    """The mode's npz files: names, shapes, finite values, prcp >= 0 after the
+    back-transform; the members' distinct fields."""
+    shapes = {"gen_samples": (n, *hw), "eval_samples": (n, *hw), "lsm_samples": (n, *hw, 2),
+              "seasons": (n,), "cond_samples_prcp": (n, *hw), "cond_samples_temp": (n, *hw)}
+    arrays = {k: np.load(os.path.join(sample_path, f"{k}_{suffix}.npz"))["arr_0"]
+              for k in shapes}
+    gen = arrays["gen_samples"]
+    return dict(
+        shapes_ok=all(arrays[k].shape == shape for k, shape in shapes.items()),
+        finite=all(bool(np.isfinite(a).all()) for a in arrays.values()),
+        prcp_min_mm=float(gen.min()), prcp_mean_mm=float(gen.mean()),
+        prcp_max_mm=float(gen.max()), distinct_fields=len({g.tobytes() for g in gen}))
+
+
+def _mode_graph(prefix: str) -> dict:
+    stats = graph_stats(prefix)
+    check(len(stats) == 1, f"graphs named {prefix!r}: {stats}")
+    return stats[0]
+
+
+def _sampler_alone_s(generator, mode: str, n: int, dev) -> float:
+    """Wall seconds of a mode's sampler call alone, made through the public
+    sampling API with the generator's score function, noise generator and
+    settings on its loader's batch: a replay of the graph the mode captured."""
+    from sbgm_danra_tpu_torch.data.loader import extract_batch
+    from sbgm_danra_tpu_torch.evaluate.full_domain import sample_full_domain
+    from sbgm_danra_tpu_torch.evaluate.generation import condition_tensors
+    from sbgm_danra_tpu_torch.parallel.ensemble import generate_ensemble
+    from sbgm_danra_tpu_torch.sampling import graphs
+
+    g = generator
+    batch = extract_batch(next(iter(g.dataloader)), g.cfg.highres.variable)
+    rows = n if mode in ("multiple", "full_domain") else 1
+    cond = condition_tensors({k: v[:rows] if getattr(v, "ndim", 0) else v
+                              for k, v in batch.items()}, dev)
+    hw = tuple(batch["x"].shape[1:3])
+    common = dict(sde=g.sde, config=g.sampler_config)
+    if mode == "repeated":
+        def call():
+            return generate_ensemble(g.score_fn, g.rng, n_members=n, sample_shape=(*hw, 1),
+                                     cond=cond, sampler=g.sampler_name, capture=True, **common)
+    elif mode == "full_domain":
+        def call():
+            return sample_full_domain(g.score_fn, g.rng, cond, domain_hw=hw, batch=n,
+                                      sampler=g.sampler_name, capture=True,
+                                      compute_dtype=g.cfg.model.compute_dtype, **common)
+    else:
+        def call():
+            return graphs.call(g.sampler_name, g.score_fn, g.rng, (rows, *hw, 1), cond=cond,
+                               graph=True, **common)
+    with torch.no_grad():
+        return timed(call)[1]
+
+
+def phase_generate(dev, tmp):
+    """Generation and evaluation through the port's CLI on the checkpoint that
+    ``train_data``'s ``train_main`` wrote (the flagship settings, 32 days), as
+    ``main_app.run_mode`` calls (no YAML):
+
+    1. ``--mode generate`` with ``gen_type: [multiple, single, repeated]``
+       (dpmpp-25, CFG w=3, 4 conditions, 8 members): the first call loads the
+       checkpoint and captures each mode's graph (two eager warm-ups, the
+       capture, one replay: 3 x 8 K1 launches a UNet evaluation); then each
+       mode again, a replay of the same graph (no new capture), counted alone:
+       8 K1 launches an evaluation, no K2; the npz names and shapes, finite,
+       prcp >= 0, 8 distinct members; the sampler's call alone through the
+       public API, a third replay; then each mode on the eager loop, for
+       its wall time; the trained UNet at the modes' batches (2 and 8 rows)
+       with K1 against the plain chain (5e-2 relative);
+    2. ``--mode generate`` with ``gen_type: [full_domain]``, EDM-18
+       (``configs/full_scale_demo.yaml``): 589x789 -> 608x800 through
+       ``score_fn(image_hw=...)``; its replay alone: 272 K1 and exactly 34 K2
+       launches, all ``tc_bf16``; then the eager loop, for its wall time;
+    3. ``--mode evaluate`` with pixel and spatial statistics, CRPS and the
+       power spectra on the four modes' artifacts: files written, values finite;
+    4. ``quality_study.run_study`` at JAX's default sizes (64 members, 16x16,
+       256 truths) on the headline regimes with edm-18, dpmpp-25 and pc-100,
+       each on its graph: std ratio and spread/skill in ``STUDY_BAND``, no K1 or K2;
+    5. ``generate_previews`` on its graph (``capture=True``) after captured
+       train steps on the device loader, then again after more (the train
+       replays made the K1 packs of the first preview stale; its graph went
+       with its call), against the eager loop, the previews' default route,
+       on fresh packs and the same draws (``GRAPH_TOL``).
+    Each mode's wall time (load; the first call: warm-ups, capture and a
+    replay; capture and instantiate; a replay; the eager loop), the graphs'
+    pools and launches are printed."""
+    import argparse
+    import gc
+
+    from sbgm_danra_tpu_torch.cli.main_app import run_mode
+    from sbgm_danra_tpu_torch.data.factory import make_gen_loader, make_loaders
+    from sbgm_danra_tpu_torch.evaluate import quality_study as qs
+    from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
+    from sbgm_danra_tpu_torch.sampling import graphs
+    from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
+    from sbgm_danra_tpu_torch.transforms import back_transforms_for_config
+
+    args = argparse.Namespace(device=str(dev))
+    evaluations = GEN_STEPS - 1  # dpmpp: one UNet evaluation (2n rows with CFG) a step, less one
+    result = {"modes": {}}
+    graphs.clear()
+
+    # 1. the 128-px modes through the CLI
+    cfg = data_config(tmp)
+    cfg.evaluation.gen_type = tuple(GEN_ARTIFACTS)
+    before = torch.cuda.memory_allocated(dev)
+    reset_counts()  # the generate call's run starts here
+    run, call_s = timed(lambda: run_mode(cfg, "generate", args))
+    first_k1, first_k2 = k1_counts(), k2_counts()
+    load_gib = (torch.cuda.memory_allocated(dev) - before) / 2**30
+    generator = run["generators"]["multiple"]
+    sample_path = generator.sample_path
+    for mode, (suffix, n) in GEN_ARTIFACTS.items():
+        graph_name = f"dpmpp_sampler {n}x128x128"
+        captured = _mode_graph(graph_name)
+        call = getattr(generator, f"generate_{mode}")
+        reset_counts()  # the mode alone: a replay of its graph
+        _, replay_s = timed(call)
+        k1c, k2c = k1_counts(), k2_counts()
+        again = _mode_graph(graph_name)
+        checks = _artifact_checks(sample_path, suffix, n, (128, 128))
+        sampler_s = _sampler_alone_s(generator, mode, n, dev)
+        alone = _mode_graph(graph_name)
+        generator.capture = False  # the same call on the eager loop, for its wall time
+        _, eager_s = timed(call)
+        generator.capture = True
+        result["modes"][mode] = dict(
+            suffix=suffix, first_call_s=run["mode_s"][mode], replay_s=replay_s,
+            replay_sampler_alone_s=sampler_s, eager_s=eager_s,
+            capture_s=captured["capture_s"], instantiate_s=captured["instantiate_s"],
+            pool_bytes=captured["pool_bytes"],
+            launches_per_replay=captured["launches_per_replay"], k1_launches=list(k1c),
+            k2_launches_by_variant=k2c, replays=again["replays"], **checks)
+        check(checks["shapes_ok"] and checks["finite"] and checks["prcp_min_mm"] >= 0.0,
+              f"generate {mode}: artifacts {checks}")
+        check(again["capture_s"] == captured["capture_s"] and again["replays"] == 2
+              and alone["replays"] == 3,
+              f"generate {mode}: the later calls did not replay the first call's graph")
+        check_k1(k1c, evaluations, f"generate {mode} (replay)")
+        check(not any(k2c.values()), f"generate {mode}: K2 launched {k2c}")
+    check(result["modes"]["repeated"]["distinct_fields"] == 8, "repeated members not distinct")
+    check_k1(first_k1, 3 * evaluations * len(GEN_ARTIFACTS),
+             "generate call (warm-ups and replays)")
+    check(not any(first_k2.values()), f"generate call: K2 launched {first_k2}")
+
+    # the trained model at the modes' UNet batches (1 and 4 rows, doubled by
+    # CFG): K1 against the plain chain, as phase_model holds batch 16
+    model = run["pipeline"].model
+    result["k1_vs_plain_chain"] = {}
+    with torch.no_grad():
+        for rows in (2, 8):
+            cond = make_cond(rows, SERVE_HW, dev, 30 + rows)
+            x = 2.0 * torch.randn(rows, *SERVE_HW, 1,
+                                  generator=torch.Generator(dev).manual_seed(rows), device=dev)
+            t = torch.linspace(0.05, 1.0, rows, device=dev)
+            reset_counts()
+            got = model(x, t, **cond)
+            counts = k1_counts()
+            restore = plain_k1()
+            try:
+                ref = model(x, t, **cond)
+            finally:
+                restore()
+            rel, finite = _rel(got, ref), bool(torch.isfinite(got).all())
+            result["k1_vs_plain_chain"][f"batch_{rows}"] = dict(
+                rel_err=rel, tolerance=5e-2, finite=finite, k1_launches=list(counts))
+            check(rel <= 5e-2 and finite, f"trained UNet at batch {rows}, K1 vs plain chain: "
+                                          f"rel err {rel}")
+            check_k1(counts, 1, f"trained UNet forward at batch {rows}")
+    result.update(load_s=run["load_s"], load_allocated_gib=load_gib, call_s=call_s,
+                  k1_launches=list(first_k1), k2_launches_by_variant=first_k2)
+    del run, generator, model
+    gc.collect()
+    graphs.clear()
+    torch.cuda.empty_cache()
+
+    # 2. full domain through the CLI
+    fd_cfg = data_config(tmp)
+    fd_cfg.sampler.sampler_type = "edm_sampler"
+    fd_cfg.evaluation.n_steps = EDM_NODES
+    fd_cfg.evaluation.gen_type = ("full_domain",)
+    fd_evaluations = 2 * (EDM_NODES - 1)
+    reset_counts()
+    run, fd_call_s = timed(lambda: run_mode(fd_cfg, "generate", args))
+    fd_first = (k1_counts(), k2_counts())
+    fd = run["generators"]["full_domain"]
+    graph_name = "edm_sampler 1x608x800"
+    captured = _mode_graph(graph_name)
+    reset_counts()  # the full-domain mode alone: a replay of its graph
+    _, fd_replay_s = timed(fd.generate_full_domain)
+    k1c, k2c = k1_counts(), k2_counts()
+    checks = _artifact_checks(sample_path, "full_domain", 1, FULL_DOMAIN)
+    fd_sampler_s = _sampler_alone_s(fd, "full_domain", 1, dev)
+    fd_replays = _mode_graph(graph_name)["replays"]
+    fd.capture = False  # the same call on the eager loop, for its wall time
+    _, fd_eager_s = timed(fd.generate_full_domain)
+    fd.capture = True
+    result["modes"]["full_domain"] = dict(
+        suffix="full_domain", load_s=run["load_s"], call_s=fd_call_s,
+        first_call_s=run["mode_s"]["full_domain"], replay_s=fd_replay_s,
+        replay_sampler_alone_s=fd_sampler_s, eager_s=fd_eager_s, replays=fd_replays,
+        capture_s=captured["capture_s"], instantiate_s=captured["instantiate_s"],
+        pool_bytes=captured["pool_bytes"], launches_per_replay=captured["launches_per_replay"],
+        k1_launches=list(k1c), k2_launches_by_variant=k2c,
+        first_call_k1_launches=list(fd_first[0]), first_call_k2_launches_by_variant=fd_first[1],
+        **checks)
+    check(checks["shapes_ok"] and checks["finite"] and checks["prcp_min_mm"] >= 0.0,
+          f"generate full_domain: artifacts {checks}")
+    check(fd_replays == 3, f"generate full_domain: {fd_replays} replays of its graph, not 3")
+    check_k1(k1c, fd_evaluations, "generate full_domain (replay)")
+    check(k2c == {"tc_bf16": fd_evaluations, "fp32": 0},
+          f"generate full_domain: K2 launches {k2c}, expected {fd_evaluations} tc_bf16")
+    check(fd_first[1] == {"tc_bf16": 3 * fd_evaluations, "fp32": 0},
+          f"generate full_domain call: K2 launches {fd_first[1]}")
+    del run, fd
+    gc.collect()
+    graphs.clear()
+    torch.cuda.empty_cache()
+
+    # 3. evaluation of the four modes' artifacts through the CLI
+    ev_cfg = data_config(tmp)
+    ev_cfg.evaluation.gen_type = (*GEN_ARTIFACTS, "full_domain")
+    ev_cfg.evaluation.eval_stat_methods = ("pixel_stats", "spatial_stats", "crps",
+                                           "power_spectrum")
+    stats, ev_s = timed(lambda: run_mode(ev_cfg, "evaluate", args))
+    fig_path = os.path.join(os.path.dirname(sample_path), "evaluation_figures")
+    written = sorted(os.listdir(fig_path))
+    finite = {gen_type: all(bool(np.isfinite(np.asarray(v, dtype=np.float64)).all())
+                            for method in out.values() for key, v in method.items()
+                            if key != "wavelengths")  # infinite at the DC bin by definition
+              for gen_type, out in stats.items()}
+    result["evaluate"] = dict(
+        s=ev_s, files=written, finite=finite, crps=stats["repeated"]["crps"],
+        rmse_per_sample={k: [float(x) for x in v["pixel_stats"]["rmse_per_sample"]]
+                         for k, v in stats.items()},
+        spectrum_log_mse={k: v["power_spectrum"]["log_mse"] for k, v in stats.items()})
+    check(all(finite.values()), f"evaluate: non-finite statistics {finite}")
+    check(all(f"{m}_{t}.npz" in written for m in ("pixel_stats", "spatial_stats")
+              for t in ev_cfg.evaluation.gen_type), f"evaluate: files {written}")
+
+    # 4. the exact-score quality study on the card
+    grid = [s for s in qs.SAMPLER_GRID if s["label"] in STUDY_GRID]
+    reset_counts()
+    study, study_s = timed(lambda: qs.run_study(sampler_grid=grid,
+                                                regimes=qs.default_regimes(stress=False),
+                                                device=dev))
+    study_k1, study_k2 = k1_counts(), k2_counts()
+    result["quality_study"] = dict(s=study_s, results=study, k1_launches=list(study_k1),
+                                   k2_launches_by_variant=study_k2)
+    for regime, rows in study.items():
+        for label, m in rows.items():
+            check(STUDY_BAND[0] <= m["std_ratio"] <= STUDY_BAND[1]
+                  and STUDY_BAND[0] <= m["spread_skill"] <= STUDY_BAND[1],
+                  f"quality study {regime}/{label}: {m}")
+    check(set(study) == {"unimodal", "bimodal", "correlated"}, f"study regimes {set(study)}")
+    check(study_k1 == (0, 0) and not any(study_k2.values()), "the study launched K1 or K2")
+    graphs.clear()
+
+    # 5. previews after captured train steps
+    pv_cfg = data_config(tmp, fused_steps=0)
+    train, _, _ = make_loaders(pv_cfg, device=dev)
+    pipe = TrainingPipeline(pv_cfg, train, device=dev,
+                            back_transforms=back_transforms_for_config(pv_cfg),
+                            gen_loader=make_gen_loader(pv_cfg))
+    pipe.load()
+
+    def preview(capture=False):
+        return timed(lambda: pipe.generate_previews(rng=torch.Generator(dev).manual_seed(4),
+                                                    capture=capture))
+
+    pipe.train_batches(3)  # the first step captures
+    k1.clear_packs()
+    p1, p1_s = preview(capture=True)
+    stale_before = k1.stale_packs()  # the packs the first preview made, still current
+    pipe.train_batches(3)
+    stale_after = k1.stale_packs()  # written by the train replays (Graph.writes)
+    reset_counts()  # the second preview's run on its graph: captured, then replayed
+    p2, p2_s = preview(capture=True)
+    pv_k1 = k1_counts()
+    held = graph_stats(f"dpmpp_sampler {GEN_ARTIFACTS['multiple'][1]}x128x128")
+    k1.clear_packs()  # the reference packs the weights afresh
+    eager, eager_s = preview()  # the previews' default route
+    vs_eager = compare(p2, eager, GRAPH_TOL["bfloat16"])
+    result["previews"] = dict(
+        shape=list(p2.shape), finite=bool(np.isfinite(p2).all()), first_graph_s=p1_s,
+        graph_s=p2_s, eager_s=eager_s, stale_packs_before_train=stale_before,
+        stale_packs_after_train=stale_after, k1_launches=list(pv_k1),
+        moved=not np.array_equal(p1, p2), graph_vs_eager=vs_eager,
+        graphs_held_after_the_call=held)
+    check(stale_before == 0 and stale_after > 0,
+          f"previews: K1 packs stale {stale_before} before / {stale_after} after the train "
+          "replays")
+    check(not held, f"previews: the preview's graph outlived its call: {held}")
+    check_k1(pv_k1, 3 * evaluations, "second preview (warm-ups and a replay)")
+    check(result["previews"]["finite"] and result["previews"]["moved"],
+          f"previews: {result['previews']}")
+    check(vs_eager["within"], f"preview graph vs eager: {vs_eager}")
+    del pipe, train
+    gc.collect()
+    graphs.clear()
+    emit(phase="generate", settings="configs/flagship_synth.yaml's evaluation (dpmpp-25, "
+         "CFG w=3, 4 conditions, 8 members) and configs/full_scale_demo.yaml's full domain "
+         "(EDM-18), on train_data's checkpoint (EMA weights)", **result)
+    return {"k2": result["modes"]["full_domain"]["k2_launches_by_variant"],
+            **{f"{mode}/{name}": result["modes"][mode]["k1_launches"][i]
+               for mode in result["modes"] for i, name in enumerate(("conv3x3_stats",
+                                                                    "gn_apply"))},
+            **{f"previews/{name}": pv_k1[i] for i, name in enumerate(("conv3x3_stats",
+                                                                    "gn_apply"))}}
 
 
 def _plain_k2():
@@ -1305,7 +1638,6 @@ def phase_train_full_domain(dev, dtype: str, steps: int, compare: bool):
     (same t and z), and the eager step with K2 swapped for the plain attention
     (forward and backward): the loss and every parameter's gradient against
     the kernel step's."""
-    import tempfile
 
     from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
 
@@ -1620,35 +1952,47 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     modules = (cuda_attention, fused_conv_gn)
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     with ThreadPoolExecutor(len(modules)) as pool:  # one nvcc per source, all at once
         builds = list(pool.map(lambda m: m.build_library(), modules))
     for built in builds:
         print(built.log, file=sys.stderr)
-    emit(phase="build", seconds=time.perf_counter() - t0, flags=" ".join(_nvcc.NVCC_FLAGS),
+    build_s = time.perf_counter() - t0
+    emit(phase="build", seconds=build_s, flags=" ".join(_nvcc.NVCC_FLAGS),
          libraries=[dict(source=m.SOURCE.name, library=b.path.name, compiled=b.compiled,
                          seconds=b.seconds) for m, b in zip(modules, builds)])
 
-    attention_rows = phase_attention_kernel(dev, sfu["exp_per_s"])
-    bwd_rows = phase_attention_backward(dev)
-    k1_rows = phase_conv_gn_kernel(dev)
-    model, serve_model, tiny_k2 = phase_model(dev)
-    launches = phase_full_domain(dev, model)
+    seconds = {}  # wall seconds of each phase, the card synchronised at its end
+
+    def run(name, phase, *args, **kw):
+        t = time.perf_counter()
+        out = phase(*args, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    attention_rows = run("kernel", phase_attention_kernel, dev, sfu["exp_per_s"])
+    bwd_rows = run("kernel_backward", phase_attention_backward, dev)
+    k1_rows = run("kernel_k1", phase_conv_gn_kernel, dev)
+    model, serve_model, tiny_k2 = run("model", phase_model, dev)
+    launches = run("full_domain", phase_full_domain, dev, model)
     del model
     torch.cuda.empty_cache()
-    fp32 = phase_fp32_full_width(dev, launches["wall_s"])
-    torch.cuda.empty_cache()
+    fp32 = run("fp32_full_width", phase_fp32_full_width, dev, launches["wall_s"])
     # training before serving: the serving engine sets cudnn.deterministic
-    train_128 = phase_train_128(dev)
-    torch.cuda.empty_cache()
-    train_data = phase_train_data(dev)
-    torch.cuda.empty_cache()
-    train_bf16 = phase_train_full_domain(dev, "bfloat16", TRAIN_FULL["steps"], compare=True)
-    torch.cuda.empty_cache()
-    train_fp32 = phase_train_full_domain(dev, "float32", 1, compare=False)
-    torch.cuda.empty_cache()
-    serving = phase_serving(dev)
-    samplers = phase_samplers(dev, serve_model)
+    train_128 = run("train_128", phase_train_128, dev)
+    with tempfile.TemporaryDirectory() as tmp:  # train_data's data and checkpoint
+        train_data = run("train_data", phase_train_data, dev, tmp)
+        generate = run("generate", phase_generate, dev, tmp)
+    train_bf16 = run("train_full_domain_bf16", phase_train_full_domain, dev, "bfloat16",
+                     TRAIN_FULL["steps"], compare=True)
+    train_fp32 = run("train_full_domain_fp32", phase_train_full_domain, dev, "float32", 1,
+                     compare=False)
+    serving = run("serving", phase_serving, dev)
+    samplers = run("samplers", phase_samplers, dev, serve_model)
+    emit(phase="timing", build_s=build_s, phase_s=seconds,
+         total_s=time.perf_counter() - start)
 
     # each kernel's launches on the path that runs it: bf16 full domain (and
     # serving and the samplers) for the bf16 kernels, fp32 full domain for
@@ -1659,6 +2003,7 @@ def main() -> int:
                     launches_by_path={"full_domain": k2["tc_bf16"],
                                       "full_domain/eager": launches["eager"]["k2"]["tc_bf16"],
                                       "train_data/full_domain": train_data["k2"]["tc_bf16"],
+                                      "generate/full_domain": generate["k2"]["tc_bf16"],
                                       "fp32_full_domain": fp32["k2"]["tc_bf16"],
                                       "train_full_domain_tc_bf16": train_bf16["k2_fwd"]}),
         _k2_summary(attention_rows, "fp32", "tf32x3 (mma.sync)", launches=fp32["k2"]["fp32"],
@@ -1700,6 +2045,8 @@ def main() -> int:
             "launches_by_path": {"full_domain": launches[name],
                                  "full_domain/eager": launches["eager"][name],
                                  "train_data/full_domain": train_data[name],
+                                 **{f"generate/{mode}": generate[f"{mode}/{name}"]
+                                    for mode in (*GEN_ARTIFACTS, "full_domain", "previews")},
                                  "serving": serving[name],
                                  "serving/eager": serving["eager"][name],
                                  "train_128/ema_eval_step": train_128["eval_k1"][

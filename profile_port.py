@@ -451,10 +451,11 @@ DATA_DAYS = 32  # train 22, valid 4, test 6: a depth cut of configs/flagship_syn
 
 
 def data_config(root: str, device_dataset: bool = True, num_workers: int = 1, **training):
-    """configs/flagship_synth.yaml's data, model and training sections (prcp
-    HR in log_zscore at 128x128 from the 589x789 grid inside [170, 350, 340,
-    520], LR temp and prcp, lsm, topo and the SDF loss, CFG 0.1, 4 seasons,
-    bf16 UNet, batch 128, Adam 5e-4 with EMA 0.999, fused_steps 25) with its
+    """configs/flagship_synth.yaml's data, model, training and evaluation
+    sections (prcp HR in log_zscore at 128x128 from the 589x789 grid inside
+    [170, 350, 340, 520], LR temp and prcp, lsm, topo and the SDF loss, CFG
+    0.1, 4 seasons, bf16 UNet, batch 128, Adam 5e-4 with EMA 0.999 (loaded for
+    generation), fused_steps 25; dpmpp-25 with CFG w=3, 8 members) with its
     paths under ``root``, through the port's own reader (no YAML);
     ``training`` overrides that section's keys."""
     from sbgm_danra_tpu_torch.config import from_dict
@@ -463,6 +464,7 @@ def data_config(root: str, device_dataset: bool = True, num_workers: int = 1, **
     return from_dict({
         "experiment": {"config_name": "flagship_synth"},
         "paths": {"data_dir": data, "checkpoint_dir": os.path.join(root, "ckpt"),
+                  "sample_dir": os.path.join(root, "samples"),
                   "lsm_path": os.path.join(data, "data_lsm/truth_fullDomain/lsm_full.npz"),
                   "topo_path": os.path.join(data, "data_topo/truth_fullDomain/topo_full.npz"),
                   "stats_load_dir": os.path.join(data, "stats")},
@@ -481,9 +483,12 @@ def data_config(root: str, device_dataset: bool = True, num_workers: int = 1, **
                      "epochs": 150, "steps_per_epoch": 100, "with_ema": True,
                      "ema_decay": 0.999, "weight_decay": 1e-6, "sdf_weighted_loss": True,
                      "fused_steps": 25, "early_stopping": False, "verbose": False,
-                     **training},
+                     "load_ema": True, "monitor_extremes": False, **training},
         "classifier_free_guidance": {"enabled": True, "drop_prob": 0.1,
                                      "guidance_scale": 3.0},
+        "evaluation": {"n_gen_samples": 4, "n_steps": 25, "seed": 0, "gen_type": ["repeated"],
+                       "n_repeats": 8, "eval_stat_methods": ["pixel_stats", "spatial_stats"]},
+        "visualization": {"plot_initial_sample": False, "preview_every": 0},
     })
 
 

@@ -1,30 +1,57 @@
 """Mode entry functions of the port's CLI (counterpart of
-``sbgm_danra_tpu/cli/entries.py``, cut to ``train_main``).
+``sbgm_danra_tpu/cli/entries.py``).
 
-``train_main(cfg, device)`` builds the loaders (``data/factory.py``), probes
-the train loader when ``training.verbose``, builds ``TrainingPipeline`` on
-``device`` (the card unless the caller asks for the CPU; a CUDA device on a
-machine without one raises), resumes from the latest checkpoint when
-``training.load_checkpoint``, and trains. Plotting options are skipped with a
-log line (no plotting on the card machine). Generation and evaluation wait
-for ROADMAP Queue 1 (orchestration).
+- ``train_main(cfg, device)`` builds the loaders (``data/factory.py``), probes
+  the train loader when ``training.verbose``, builds ``TrainingPipeline`` on
+  ``device`` with the back-transforms (the extreme sentinel) and, when
+  ``visualization.preview_every``, the gen loader (the previews), resumes from
+  the latest checkpoint when ``training.load_checkpoint``, and trains.
+- ``generation_main(cfg, device)`` loads the best checkpoint and runs each of
+  ``evaluation.gen_type`` through ``evaluate/generation.py::SampleGenerator``:
+  ``multiple``, ``single`` and ``repeated`` on the gen loader with one score
+  function, ``full_domain`` on a loader of whole-domain test samples with the
+  score function built for the domain (``TrainingPipeline.score_fn(image_hw=
+  highres.full_domain_dims)``).
+- ``evaluation_main(cfg)`` computes ``evaluation.eval_stat_methods`` on the
+  artifacts of each gen type (numpy on the host).
+
+``device`` is the card unless the caller asks for the CPU; a CUDA device on a
+machine without one raises. Plotting options and the frozen config dump (a
+YAML file) are skipped with a log line: the card machine has no plotting
+library, and the chip path imports no PyYAML.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
+import os
 import time
+from typing import Dict
 
 from sbgm_danra_tpu_torch.data.device_data import require_device
-from sbgm_danra_tpu_torch.data.factory import make_loaders
+from sbgm_danra_tpu_torch.data.factory import make_dataset, make_gen_loader, make_loaders
+from sbgm_danra_tpu_torch.data.loader import DataLoader
+from sbgm_danra_tpu_torch.evaluate.evaluation import Evaluation
+from sbgm_danra_tpu_torch.evaluate.generation import SampleGenerator
 from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
+from sbgm_danra_tpu_torch.transforms import back_transforms_for_config
+from sbgm_danra_tpu_torch.utils.logging_utils import setup_logger
 
 logger = logging.getLogger(__name__)
+
+GEN_MODES = {"multiple": "generate_multiple", "single": "generate_single",
+             "repeated": "generate_repeated"}
+
+
+def _gen_types(cfg):
+    gen_types = cfg.evaluation.gen_type
+    return (gen_types,) if isinstance(gen_types, str) else tuple(gen_types)
 
 
 def train_main(cfg, device="cuda") -> TrainingPipeline:
     device = require_device(device)
-    train_loader, valid_loader, _ = make_loaders(cfg, device=device)
+    train_loader, valid_loader, gen_loader = make_loaders(cfg, device=device)
 
     if cfg.training.verbose:
         t0 = time.time()
@@ -35,11 +62,14 @@ def train_main(cfg, device="cuda") -> TrainingPipeline:
             logger.info("loader probe: %.3f s/batch over %d batches",
                         (time.time() - t0) / n_probe, n_probe)
     vis = cfg.visualization
-    for name in ("plot_initial_sample", "plot_losses", "preview_every"):
+    for name in ("plot_initial_sample", "plot_losses"):
         if getattr(vis, name):
             logger.info("visualization.%s skipped: the port does not plot", name)
+    logger.info("frozen config dump skipped: the port writes no YAML")
 
-    pipeline = TrainingPipeline(cfg, train_loader, valid_loader, device=device)
+    pipeline = TrainingPipeline(cfg, train_loader, valid_loader, device=device,
+                                back_transforms=back_transforms_for_config(cfg),
+                                gen_loader=gen_loader if vis.preview_every else None)
     n_params = sum(p.numel() for p in pipeline.model.parameters())
     logger.info("model %s: %s params", pipeline.model_string, f"{n_params:,}")
     if cfg.training.load_checkpoint:
@@ -50,3 +80,99 @@ def train_main(cfg, device="cuda") -> TrainingPipeline:
             logger.info("no checkpoint to resume from; training from scratch")
     pipeline.train()
     return pipeline
+
+
+def _load_pipeline_for_sampling(cfg, device):
+    """The model with the best checkpoint's weights, and the gen loader.
+
+    A deep copy of the config with ``fused_steps`` 0 (sampling never runs the
+    fused steps). JAX builds the train loader here (its state is made from a
+    first batch), with ``device_dataset`` the device-resident train stacks;
+    the port's state needs no batch, so it builds no train or valid loader.
+    """
+    cfg = copy.deepcopy(cfg)
+    cfg.training.fused_steps = 0
+    pipeline = TrainingPipeline(cfg, [], None, device=device)
+    pipeline.load(best=True)
+    return pipeline, make_gen_loader(cfg)
+
+
+def generation_main(cfg, device="cuda") -> Dict:
+    """Each gen type of ``evaluation.gen_type`` once; returns the pipeline,
+    its load seconds, each gen type's wall seconds (the mode's first call:
+    on the card its warm-ups, capture and one replay) and ``SampleGenerator``
+    (each keeps its graphs while it lives: call a mode again to replay)."""
+    device = require_device(device)
+    if cfg.parallel.mesh_shape is not None:
+        raise NotImplementedError(
+            "parallel.mesh_shape: member-sharded generation is not ported to "
+            "sbgm_danra_tpu_torch yet: ROADMAP Queue 1 item 7 (parallel/ on torch.distributed)")
+    setup_logger(log_dir=os.path.join(cfg.paths.sample_dir, "logs"))
+    t0 = time.perf_counter()
+    pipeline, gen_loader = _load_pipeline_for_sampling(cfg, device)
+    load_s = time.perf_counter() - t0
+    logger.info("checkpoint loaded in %.2f s", load_s)
+    back_transforms = back_transforms_for_config(cfg)
+    use_ema = cfg.training.load_ema
+    generator = SampleGenerator(cfg, pipeline.score_fn(use_ema=use_ema), gen_loader,
+                                back_transforms=back_transforms, device=device)
+    generators, mode_s = {}, {}
+    for gen_type in _gen_types(cfg):
+        logger.info("generation mode: %s", gen_type)
+        t0 = time.perf_counter()
+        if gen_type in GEN_MODES:
+            getattr(generator, GEN_MODES[gen_type])()
+            generators[gen_type] = generator
+        elif gen_type == "full_domain":
+            # a dedicated loader: full-field conditioning, training-crop statistics
+            fd_loader = DataLoader(
+                make_dataset(cfg, "test", full_domain=True),
+                batch_size=cfg.evaluation.n_full_domain_samples,
+                shuffle=False,
+                drop_last=False,
+                num_workers=cfg.data_handling.num_workers,
+                seed=cfg.evaluation.seed,
+            )
+            score = pipeline.score_fn(use_ema=use_ema,
+                                      image_hw=tuple(cfg.highres.full_domain_dims))
+            generators[gen_type] = SampleGenerator(cfg, score, fd_loader,
+                                                   back_transforms=back_transforms, device=device)
+            generators[gen_type].generate_full_domain()
+        else:
+            raise ValueError(f"Unknown gen_type: {gen_type}")
+        mode_s[gen_type] = time.perf_counter() - t0
+        logger.info("%s: %.3f s", gen_type, mode_s[gen_type])
+    return {"pipeline": pipeline, "load_s": load_s, "mode_s": mode_s, "generators": generators}
+
+
+def evaluation_main(cfg) -> Dict[str, Dict[str, Dict]]:
+    """``evaluation.eval_stat_methods`` on each gen type's artifacts; returns
+    the statistics by gen type and method."""
+    setup_logger(log_dir=os.path.join(cfg.paths.sample_dir, "logs"))
+    results: Dict[str, Dict[str, Dict]] = {}
+    for gen_type in _gen_types(cfg):
+        if gen_type == "repeated":
+            n = cfg.evaluation.n_repeats
+        elif gen_type == "multiple":
+            n = cfg.data_handling.n_gen_samples
+        else:
+            n = 1
+        ev = Evaluation(cfg, generated_sample_type=gen_type, n_samples=n)
+        out = results[gen_type] = {}
+        for method in cfg.evaluation.eval_stat_methods:
+            if method == "pixel_stats":
+                stats = out[method] = ev.full_pixel_statistics()
+                logger.info("%s pixel stats: rmse %.4f mae %.4f", gen_type,
+                            stats["rmse_per_sample"].mean(), stats["abs_error_per_sample"].mean())
+            elif method == "spatial_stats":
+                out[method] = ev.spatial_statistics()
+            elif method == "power_spectrum":
+                sp = out[method] = ev.power_spectrum_comparison()
+                logger.info("%s spectrum: logMSE %.4f (ratio at finest resolved scale %.3f)",
+                            gen_type, sp["log_mse"], sp["ratio"][-2])
+            elif method == "crps" and gen_type == "repeated":
+                scores = out[method] = ev.ensemble_crps()
+                logger.info("ensemble CRPS %.4f rmse %.4f spread %.4f", scores["crps"],
+                            scores["ensemble_mean_rmse"], scores["spread"])
+        ev.plot_example_images(mask_ocean=cfg.evaluation.mask_ocean)
+    return results

@@ -1,35 +1,52 @@
 """The port's pipeline CLI (counterpart of ``sbgm_danra_tpu/cli/main_app.py``).
 
     python -m sbgm_danra_tpu_torch.cli.main_app --config_path cfg.yaml \
-        --mode {synthetic_data,train} [--n_days N] [--no_all_split] \
-        [--device cuda] [key=value ...]
+        --mode {synthetic_data,train,generate,evaluate,full_pipeline} \
+        [--skip_training] [--skip_generation] [--skip_evaluation] \
+        [--n_days N] [--no_all_split] [--device cuda] [key=value ...]
 
 ``synthetic_data`` writes the synthetic DANRA/ERA5 stores, geography and
 statistics of the config's variables under ``paths.data_dir``
-(``data/synthetic.py``); ``train`` trains on them (``cli/entries.py``) on
-``--device`` (default ``cuda``). The JAX CLI's other modes are not ported
-yet and raise, naming the ROADMAP item. Reading a YAML config needs PyYAML.
+(``data/synthetic.py``); ``train``, ``generate`` and ``evaluate`` run the
+entry functions of ``cli/entries.py``, ``full_pipeline`` all three, on
+``--device`` (default ``cuda``; evaluation is numpy on the host). The
+existence gates are JAX's: ``generate`` needs a trained checkpoint
+(``check_model_exists``) and ``evaluate`` generated samples
+(``check_generated_samples_exist``), else ``SystemExit``; ``full_pipeline``
+skips a stage whose input is missing, with a warning. ``data_splits`` and
+``run_statistics`` are not ported yet and raise, naming the ROADMAP item.
+Reading a YAML config needs PyYAML.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import logging
+import os
 import time
 
-from sbgm_danra_tpu_torch.config import load_config, parse_override
+from sbgm_danra_tpu_torch.config import get_model_string, load_config, parse_override
 
 logger = logging.getLogger(__name__)
 
 MODES = ("train", "generate", "evaluate", "full_pipeline", "data_splits", "run_statistics",
          "synthetic_data")
 NOT_PORTED = {
-    "generate": "ROADMAP Queue 1, item 'orchestration' (evaluate/generation.py)",
-    "evaluate": "ROADMAP Queue 1, item 'orchestration' (evaluate/evaluation.py)",
-    "full_pipeline": "ROADMAP Queue 1, item 'orchestration' (generate and evaluate)",
     "data_splits": "ROADMAP Queue 1, item 'orchestration' (pipelines/splits.py)",
     "run_statistics": "ROADMAP Queue 1, item 'orchestration' (pipelines/stats_pipeline.py)",
 }
+
+
+def check_model_exists(cfg) -> bool:
+    ckpt_dir = os.path.join(cfg.paths.checkpoint_dir, get_model_string(cfg))
+    return os.path.isdir(ckpt_dir) and bool(os.listdir(ckpt_dir))
+
+
+def check_generated_samples_exist(cfg) -> bool:
+    sample_path = os.path.join(cfg.paths.sample_dir, "generation", get_model_string(cfg),
+                               "generated_samples")
+    return bool(glob.glob(os.path.join(sample_path, "gen_samples_*.npz")))
 
 
 def synthetic_data(cfg, n_days: int, no_all_split: bool) -> dict:
@@ -57,28 +74,57 @@ def synthetic_data(cfg, n_days: int, no_all_split: bool) -> dict:
     return written
 
 
-def run_mode(cfg, mode: str, args) -> None:
+def run_mode(cfg, mode: str, args):
+    """Run ``mode``; returns what its entry function returns (``full_pipeline``:
+    a dict of the stages that ran)."""
     if mode in NOT_PORTED:
         raise NotImplementedError(
             f"--mode {mode} is not ported to sbgm_danra_tpu_torch yet: {NOT_PORTED[mode]}")
+    from sbgm_danra_tpu_torch.cli import entries
+
     if mode == "synthetic_data":
-        synthetic_data(cfg, args.n_days, args.no_all_split)
-    elif mode == "train":
-        from sbgm_danra_tpu_torch.cli.entries import train_main
+        return synthetic_data(cfg, args.n_days, args.no_all_split)
+    if mode == "train":
+        return entries.train_main(cfg, device=args.device)
+    if mode == "generate":
+        if not check_model_exists(cfg):
+            raise SystemExit("No trained checkpoint found — run --mode train first "
+                             f"(looked under {cfg.paths.checkpoint_dir})")
+        return entries.generation_main(cfg, device=args.device)
+    if mode == "evaluate":
+        if not check_generated_samples_exist(cfg):
+            raise SystemExit("No generated samples found — run --mode generate first")
+        return entries.evaluation_main(cfg)
+    if mode == "full_pipeline":
+        out = {}
+        if not args.skip_training:
+            out["train"] = entries.train_main(cfg, device=args.device)
+        if not args.skip_generation:
+            if check_model_exists(cfg):
+                out["generate"] = entries.generation_main(cfg, device=args.device)
+            else:
+                logger.warning("skipping generation: no checkpoint found")
+        if not args.skip_evaluation:
+            if check_generated_samples_exist(cfg):
+                out["evaluate"] = entries.evaluation_main(cfg)
+            else:
+                logger.warning("skipping evaluation: no generated samples found")
+        return out
+    raise SystemExit(f"Unknown mode: {mode}")
 
-        train_main(cfg, device=args.device)
-    else:
-        raise SystemExit(f"Unknown mode: {mode}")
 
-
-def main(argv=None) -> None:
+def main(argv=None):
     parser = argparse.ArgumentParser(description="sbgm_danra_tpu_torch pipeline")
     parser.add_argument("--config_path", required=True)
     parser.add_argument("--mode", default="full_pipeline", choices=MODES)
+    parser.add_argument("--skip_training", action="store_true")
+    parser.add_argument("--skip_generation", action="store_true")
+    parser.add_argument("--skip_evaluation", action="store_true")
     parser.add_argument("--n_days", type=int, default=64, help="synthetic_data days")
     parser.add_argument("--no_all_split", action="store_true",
                         help="synthetic_data: skip the duplicate 'all' split")
-    parser.add_argument("--device", default="cuda", help="train: the torch device")
+    parser.add_argument("--device", default="cuda",
+                        help="train, generate: the torch device")
     parser.add_argument(
         "overrides", nargs="*", help="dot-key config overrides, e.g. training.epochs=3"
     )
@@ -86,7 +132,7 @@ def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
     overrides = dict(parse_override(s) for s in args.overrides)
     cfg = load_config(args.config_path, overrides)
-    run_mode(cfg, args.mode, args)
+    return run_mode(cfg, args.mode, args)
 
 
 if __name__ == "__main__":

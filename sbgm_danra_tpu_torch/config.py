@@ -5,7 +5,7 @@ same section and field names, defaults, ``${env:VAR}`` interpolation, dot-key
 overrides and type coercion, and ``get_model_string`` from
 ``sbgm_danra_tpu/utils/naming.py``. Only the fields that ``serve.py``,
 ``models/unet.py``, ``transforms.py`` (the statistics files behind the
-transforms), ``data/``, ``training/`` and ``cli/`` read are declared, under the
+transforms), ``data/``, ``training/``, ``evaluate/`` and ``cli/`` read are declared, under the
 JAX reader's names and defaults; every other section and key of a config is
 skipped, since the JAX package's reader is the one that checks them.
 
@@ -63,6 +63,7 @@ class ExperimentConfig:
 class PathsConfig:
     data_dir: str = "./data"
     checkpoint_dir: str = "./checkpoints"
+    sample_dir: str = "./samples"
     lsm_path: str = ""
     topo_path: str = ""
     stats_load_dir: str = "./stats"
@@ -160,8 +161,11 @@ class TransformsConfig:
 
 @dataclass
 class VisualizationConfig:
-    """Read only to say that the port skips them (no plotting on the card machine)."""
+    """``preview_every``: preview sampling every N epochs (0: off). The port
+    does not plot (no plotting on the card machine): the figure options are
+    read only to log that they are skipped."""
 
+    save_figs: bool = True
     plot_initial_sample: bool = False
     plot_losses: bool = True
     preview_every: int = 0
@@ -188,10 +192,13 @@ class EarlyStoppingParams:
 @dataclass
 class TrainingConfig:
     """The fields of the JAX reader's training section that the port's trainer
-    and serving engine act on; the reader skips the others (the extreme
-    sentinel, profiling, checkpoint cadence), which the port does not do yet
-    (ROADMAP). ``fused_steps`` runs K steps per dispatch, as JAX runs it
-    (``training/fused.py``)."""
+    and serving engine act on; the reader skips the others (profiling,
+    checkpoint cadence), which the port does not do yet (ROADMAP).
+    ``fused_steps`` runs K steps per dispatch, as JAX runs it
+    (``training/fused.py``). ``monitor_extremes`` runs the
+    extreme-precipitation sentinel on the back-transformed HR batch every 50
+    steps (``utils/sentinels.py``; skipped under ``fused_steps``), with
+    ``extreme_cap`` in mm/day."""
 
     seed: int = 42
     batch_size: int = 16
@@ -217,6 +224,8 @@ class TrainingConfig:
     fused_steps: int = 0
     load_checkpoint: bool = False
     verbose: bool = True
+    monitor_extremes: bool = True
+    extreme_cap: float = 300.0
 
 
 @dataclass
@@ -229,7 +238,20 @@ class CFGuidanceConfig:
 
 @dataclass
 class EvaluationConfig:
+    n_gen_samples: int = 1
     n_steps: int = 1000
+    batch_size: int = 1
+    seed: int = 42
+    gen_type: Tuple[str, ...] = ("multiple",)  # multiple | single | repeated | full_domain
+    n_full_domain_samples: int = 1  # batch size for gen_type full_domain
+    n_repeats: int = 8
+    save_samples: bool = True
+    save_figs: bool = True
+    fig_name: str = "generated_samples"
+    eval_stat_methods: Tuple[str, ...] = ("pixel_stats", "spatial_stats")
+    mask_ocean: bool = False
+    # ensemble inflation factor applied to repeated-mode members in normalised
+    # space before the back-transform (evaluate/calibration.py); None: raw members
     spread_calibration: Optional[float] = None
 
 

@@ -221,12 +221,18 @@ def make_loaders(cfg, device="cuda") -> Tuple:
             num_workers=dh.num_workers,
             seed=t.seed + 1,
         )
-    gen = DataLoader(
+    return train, valid, make_gen_loader(cfg)
+
+
+def make_gen_loader(cfg) -> DataLoader:
+    """The gen loader of ``make_loaders``: the test split on the host, in order,
+    ``data_handling.n_gen_samples`` a batch."""
+    dh = cfg.data_handling
+    return DataLoader(
         make_dataset(cfg, "test", n_samples=None),
         batch_size=dh.n_gen_samples,
         shuffle=False,
         drop_last=False,
         num_workers=dh.num_workers,
-        seed=t.seed + 2,
+        seed=cfg.training.seed + 2,
     )
-    return train, valid, gen

@@ -91,8 +91,7 @@ def sample_full_domain(
     sampler_fn = get_sampler(sampler)
     shape = (batch, target[0], target[1], 1)
     device = rng.device if isinstance(rng, torch.Generator) else rng[0].device
-    run = graphs.sample if use_graphs(capture, device) else (
-        lambda fn, *args, **kw: fn(*args, **kw))
     with exact_fp32(compute_dtype), torch.inference_mode():
-        out = run(sampler_fn, score_fn, rng, shape, sde, config, cond=padded)
+        out = graphs.call(sampler_fn, score_fn, rng, shape, sde, config, cond=padded,
+                          graph=use_graphs(capture, device))
     return out[:, : domain_hw[0], : domain_hw[1], 0].float().cpu().numpy()

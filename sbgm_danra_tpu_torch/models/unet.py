@@ -316,14 +316,19 @@ class ModelSpec:
 
 
 def inference_spec(spec: ModelSpec, image_hw: Optional[Tuple[int, int]] = None) -> ModelSpec:
-    """The JAX package's per-shape lowering choice: ``fuse_head`` at >= 512 px.
+    """The per-shape lowering choices at >= 512 px: the JAX package's
+    ``fuse_head``, and attention 'xla' (dense) becomes 'pallas', the flash
+    dispatcher, which is dense below 4096 tokens and K2 from there (the
+    608x800 domain's decoder block 1).
 
-    The knobs change no output here; the function is kept so that a spec made
-    for a given image size is the same object on both sides.
+    The knobs change no output beyond summation order; the function is kept
+    so that a spec made for a given image size is the same on both sides.
     """
     full_domain = image_hw is not None and min(image_hw) >= 512
+    attention = "pallas" if full_domain and spec.attention_backend == "xla" \
+        else spec.attention_backend
     return dataclasses.replace(spec, stem_impl="direct", fuse_upsample="none",
-                               fuse_head=bool(full_domain))
+                               fuse_head=bool(full_domain), attention_backend=attention)
 
 
 def model_spec_from_config(cfg) -> ModelSpec:

@@ -352,6 +352,18 @@ def _cached(t: torch.Tensor, tag, make):
     return made
 
 
+def stale_packs() -> int:
+    """How many cached packs no longer match their parameter: written since
+    (its version counter moved) or moved to other storage."""
+    return sum(1 for ref, signature, _ in list(_packed.values())
+               if ref() is None or ref()._version != signature[0])
+
+
+def clear_packs() -> None:
+    """Drop every cached pack: the next call packs its weights afresh."""
+    _packed.clear()
+
+
 def _taps(kernel: torch.Tensor, dtype: torch.dtype, cin_pad: int) -> torch.Tensor:
     """The HWIO ``kernel`` [3, 3, Cin, Cout] as [9, Cout tiles x 64, cin_pad]
     in ``dtype`` (tap, output channel, input channel), zero-padded."""

@@ -30,7 +30,8 @@ select on the device), replayed by the host loop, which reads t once per
 attempt. JAX runs the whole ``lax.while_loop`` as one program.
 
 A capture that fails raises ``capture.CaptureError``; nothing falls back to
-the eager loop. Callers choose the route with ``capture.use_graphs``.
+the eager loop. Callers choose the route with ``capture.use_graphs`` and
+``call`` takes it.
 """
 
 from __future__ import annotations
@@ -115,6 +116,18 @@ def sample(sampler, score_fn, rng: S.Rng, shape: Sequence[int], sde=VESDE(),
     if rk45:
         return _run_rk45(entry, sde, config)
     return entry.graph.replay().clone()
+
+
+def call(sampler, score_fn, rng: S.Rng, shape: Sequence[int], sde=VESDE(),
+         config: S.SamplerConfig = S.SamplerConfig(),
+         cond: Optional[Dict[str, Optional[torch.Tensor]]] = None, graph: bool = True,
+         **kw) -> torch.Tensor:
+    """``sample`` when ``graph`` (an entry point's ``capture.use_graphs``
+    route), else the sampler's eager loop on the same arguments."""
+    if graph:
+        return sample(sampler, score_fn, rng, shape, sde, config, cond, **kw)
+    fn = S.get_sampler(sampler) if isinstance(sampler, str) else sampler
+    return fn(score_fn, rng, tuple(shape), sde, config, cond=cond, **kw)
 
 
 def _capture_rk45(fn, score_fn, shape, sde, config, draws, static, nulls) -> _Entry:

@@ -59,6 +59,22 @@ class SamplerConfig:
     s_churn: float = 0.0
 
 
+def config_from_run(cfg, num_steps: int) -> SamplerConfig:
+    """A run config's sampler settings (``sampler``, ``classifier_free_guidance``)
+    at ``num_steps``, as the JAX package's generator, previews and serving
+    engine build them."""
+    g = cfg.classifier_free_guidance
+    return SamplerConfig(
+        num_steps=num_steps,
+        snr=cfg.sampler.snr,
+        eps=cfg.sampler.t_eps,
+        guidance_scale=g.guidance_scale if g.enabled else None,
+        guidance_scale_max=g.guidance_scale_max,
+        edm_rho=cfg.sampler.edm_rho,
+        s_churn=cfg.sampler.s_churn,
+    )
+
+
 def randn(rng: Rng, shape: Sequence[int]) -> torch.Tensor:
     """Standard normal float32 noise of ``shape``; per-row generators draw their own rows."""
     if isinstance(rng, torch.Generator):

@@ -56,7 +56,8 @@ from sbgm_danra_tpu_torch.config import get_model_string, load_config, parse_ove
 from sbgm_danra_tpu_torch.models.unet import ModelSpec, build_score_model, model_spec_from_config
 from sbgm_danra_tpu_torch.precision import exact_fp32
 from sbgm_danra_tpu_torch.sampling import graphs
-from sbgm_danra_tpu_torch.sampling.samplers import SamplerConfig, get_sampler, pc_sampler
+from sbgm_danra_tpu_torch.sampling.samplers import (SamplerConfig, config_from_run, get_sampler,
+                                                   pc_sampler)
 from sbgm_danra_tpu_torch.sde import VESDE
 from sbgm_danra_tpu_torch.transforms import Transform, back_transforms_for_config
 
@@ -97,20 +98,11 @@ FLAGSHIP_SYNTH = ServeSettings(
 
 def settings_from_config(cfg) -> ServeSettings:
     """A loaded run config -> ServeSettings, as the JAX engine reads it."""
-    g = cfg.classifier_free_guidance
     s, rf = cfg.highres.data_size, cfg.lowres.resize_factor
     return ServeSettings(
         spec=model_spec_from_config(cfg),
         sampler_type=cfg.sampler.sampler_type,
-        sampler=SamplerConfig(
-            num_steps=cfg.evaluation.n_steps,
-            snr=cfg.sampler.snr,
-            eps=cfg.sampler.t_eps,
-            guidance_scale=g.guidance_scale if g.enabled else None,
-            guidance_scale_max=g.guidance_scale_max,
-            edm_rho=cfg.sampler.edm_rho,
-            s_churn=cfg.sampler.s_churn,
-        ),
+        sampler=config_from_run(cfg, cfg.evaluation.n_steps),
         sample_hw=(s[0] // rf, s[1] // rf),
         n_lr=len(cfg.lowres.condition_variables or ()),
         model_string=get_model_string(cfg),

@@ -10,7 +10,13 @@ steps, the scheduler, early stopping and the port's checkpoints:
   training loss where there is none), the best checkpoint written on every
   improvement, early stopping;
 - ``save`` / ``load``: the port's checkpoints with an exact resume;
-- ``score_fn(use_ema)``: the sampling closure over the (EMA) weights.
+- ``score_fn(use_ema, image_hw)``: the sampling closure over the (EMA)
+  weights; with ``image_hw`` on a model built for that size (``inference_spec``)
+  that shares this model's tensors;
+- ``generate_previews``: a preview batch sampled from ``gen_loader`` on the
+  live EMA weights every ``visualization.preview_every`` epochs;
+- the extreme-precipitation sentinel (``training.monitor_extremes``) on the
+  back-transformed HR batch every ``MONITOR_EVERY`` steps.
 
 ``train_loader`` and ``valid_loader`` come from ``data/factory.py::make_loaders``
 or are any iterables of batch dicts. A device loader's batches
@@ -35,9 +41,9 @@ steps' DSM draws from the trainer's generator in the eager order, one
 ``fused`` call (each step's batch drawn on the card), one read of the K
 losses (and, with ``detect_anomaly``, of the K finite flags, naming the
 step offsets that failed). An epoch of ``steps_per_epoch`` steps runs
-ceil(steps / K) chunks. Per-epoch preview sampling, the
-extreme-precipitation sentinel, rate-limited and asynchronous checkpoint
-writes, and meshes wait for ROADMAP Queue 1.
+ceil(steps / K) chunks; the sentinel is skipped there (the batches are
+drawn inside the graph), with a warning, as in JAX. Rate-limited and
+asynchronous checkpoint writes and meshes wait for ROADMAP Queue 1.
 """
 
 from __future__ import annotations
@@ -54,8 +60,12 @@ import torch
 from sbgm_danra_tpu_torch.capture import use_graphs
 from sbgm_danra_tpu_torch.config import get_model_string
 from sbgm_danra_tpu_torch.data.loader import device_prefetch, extract_batch
-from sbgm_danra_tpu_torch.models.unet import build_score_model, model_spec_from_config
+from sbgm_danra_tpu_torch.evaluate.generation import condition_tensors
+from sbgm_danra_tpu_torch.models.unet import (build_score_model, inference_spec,
+                                              model_spec_from_config)
 from sbgm_danra_tpu_torch.precision import exact_fp32
+from sbgm_danra_tpu_torch.sampling import graphs
+from sbgm_danra_tpu_torch.sampling.samplers import config_from_run
 from sbgm_danra_tpu_torch.sde import VESDE
 from sbgm_danra_tpu_torch.training.checkpointing import CheckpointManager
 from sbgm_danra_tpu_torch.training.fused import make_fused_train_step, step_draws
@@ -67,10 +77,26 @@ from sbgm_danra_tpu_torch.training.train_step import (
     make_score_fn,
     make_train_step,
 )
+from sbgm_danra_tpu_torch.utils.sentinels import clamp_extremes, report_precip_extremes
 
 logger = logging.getLogger(__name__)
 
 _MODEL_KEYS = ("x", "y", "cond_img", "lsm_cond", "topo_cond", "sdf")
+MONITOR_EVERY = 50  # steps between two sentinel reads of the HR batch, as in JAX
+
+
+def share_tensors(model: torch.nn.Module, source: torch.nn.Module) -> torch.nn.Module:
+    """Point every parameter and buffer of ``model`` at ``source``'s tensor of
+    the same name (the same objects: updates of ``source`` are seen, nothing is
+    copied)."""
+    modules = dict(source.named_modules())
+    for name, module in model.named_modules():
+        src = modules[name]
+        for key in module._parameters:
+            module._parameters[key] = src._parameters[key]
+        for key in module._buffers:
+            module._buffers[key] = src._buffers[key]
+    return model
 
 
 class TrainingPipeline:
@@ -78,10 +104,13 @@ class TrainingPipeline:
 
     def __init__(self, cfg, train_loader: Iterable[Dict],
                  valid_loader: Optional[Iterable[Dict]] = None, device: str = "cuda",
-                 capture: Optional[bool] = None):
+                 capture: Optional[bool] = None, back_transforms: Optional[Dict] = None,
+                 gen_loader: Optional[Iterable[Dict]] = None):
         self.cfg = cfg
         self.train_loader = train_loader
         self.valid_loader = valid_loader
+        self.back_transforms = back_transforms or {}
+        self.gen_loader = gen_loader
         self.device = torch.device(device)
         self.sde = VESDE()
         self.spec = model_spec_from_config(cfg)
@@ -120,6 +149,9 @@ class TrainingPipeline:
                 raise ValueError(
                     "training.fused_steps is a single-device path; mesh "
                     "training already amortizes dispatch via parallel steps")
+            if t.monitor_extremes:
+                logger.warning("fused_steps > 0: extreme-value monitoring is skipped "
+                               "(batches are drawn inside the graph)")
             self._fused = precision(make_fused_train_step(
                 self.model, self.sde, train_loader.sample_fn, t_eps=eps,
                 use_sdf_weights=t.sdf_weighted_loss, remat=t.remat,
@@ -172,6 +204,16 @@ class TrainingPipeline:
                 raise FloatingPointError(
                     f"Non-finite loss/gradients at step {self.state.step}")
             losses.append(metrics["loss"])
+            if i % MONITOR_EVERY == 0:
+                self._monitor_extremes(batch["x"])
+
+    def _monitor_extremes(self, x: torch.Tensor) -> None:
+        """The sentinel on the back-transformed HR batch (prcp only)."""
+        t = self.cfg.training
+        if (t.monitor_extremes and self.cfg.highres.variable == "prcp"
+                and "generated" in self.back_transforms):
+            hr_bt = self.back_transforms["generated"](x.float().cpu().numpy())
+            report_precip_extremes(hr_bt, "train-HR", t.extreme_cap)
 
     def _run_fused(self, max_steps: Optional[int], losses: List[torch.Tensor]) -> None:
         """K steps per ``fused`` call over ``iter_chunks``; one read of each
@@ -247,6 +289,9 @@ class TrainingPipeline:
                 best_val = monitored
                 self.save(monitored)
             self.state.with_learning_rate(self.scheduler.step(monitored))
+            every = cfg.visualization.preview_every
+            if every and self.epoch % every == 0:
+                self.generate_previews()
             if on_epoch_end is not None:
                 on_epoch_end(self, self.epoch, train_loss, val_loss)
             if self.early_stopping is not None and self.early_stopping.update(monitored):
@@ -254,8 +299,56 @@ class TrainingPipeline:
                 break
         return self.history
 
-    def score_fn(self, use_ema: Optional[bool] = None):
-        """Sampling closure over the EMA weights (``training.with_ema``) or the parameters."""
+    def score_fn(self, use_ema: Optional[bool] = None, image_hw: Optional[tuple] = None):
+        """Sampling closure over the EMA weights (``training.with_ema``) or the parameters.
+
+        ``image_hw``: the inference image size, if known: the model is built
+        from ``inference_spec(spec, image_hw)`` (at the full domain, K2 on
+        decoder block 1) and shares every tensor of the trained model
+        (``share_tensors``). None keeps the training model.
+        """
         use_ema = self.cfg.training.with_ema if use_ema is None else use_ema
+        model = self.model
+        if image_hw is not None:
+            spec = inference_spec(self.spec, image_hw)
+            model = share_tensors(build_score_model(spec, self.sde), self.model)
         return exact_fp32(self.spec.compute_dtype)(
-            make_score_fn(self.model, self.state, use_ema=use_ema))
+            make_score_fn(model, self.state, use_ema=use_ema))
+
+    def generate_previews(self, n_steps: Optional[int] = None,
+                          rng: Optional[torch.Generator] = None,
+                          capture: bool = False) -> Optional[np.ndarray]:
+        """Preview sampling: one gen-loader batch sampled with the configured
+        sampler at ``n_steps`` (``min(sampler.n_timesteps, 200)``) on the live
+        EMA weights, the sentinel on the back-transformed prcp, and the figure
+        skipped (the port does not plot). Returns the (N, H, W) normalised
+        fields, or None without a gen loader.
+
+        The noise comes from ``rng`` (the trainer's generator by default). The
+        sampler runs its eager loop: the train steps between two previews
+        write the EMA weights, so a graph of the preview would be captured
+        anew each time, which costs more than the eager loop (PERF.md §6).
+        ``capture=True`` takes the graph route all the same: a fresh capture,
+        freed with the call.
+        """
+        if self.gen_loader is None:
+            return None
+        cfg = self.cfg
+        batch = extract_batch(next(iter(self.gen_loader)), cfg.highres.variable)
+        cond = condition_tensors(batch, self.device)
+        shape = (*batch["x"].shape[:3], 1)
+        config = config_from_run(cfg, n_steps or min(cfg.sampler.n_timesteps, 200))
+        rng = self.generator if rng is None else rng
+        with exact_fp32(self.spec.compute_dtype), torch.no_grad():
+            out = graphs.call(cfg.sampler.sampler_type, self.score_fn(), rng, shape,
+                              self.sde, config, cond=cond,
+                              graph=use_graphs(capture, self.device))
+        generated = out[..., 0].float().cpu().numpy()
+        if cfg.highres.variable == "prcp" and "generated" in self.back_transforms:
+            gen_bt = np.asarray(self.back_transforms["generated"](generated))
+            report_precip_extremes(gen_bt, f"epoch{self.epoch}-preview", cfg.training.extreme_cap)
+            generated = np.asarray(clamp_extremes(generated, generated.max()))
+        if cfg.visualization.save_figs:
+            logger.info("figure preview_%s_epoch%d skipped: the port does not plot",
+                        self.model_string, self.epoch)
+        return generated

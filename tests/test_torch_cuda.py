@@ -941,3 +941,55 @@ def test_fused_graph_equals_eager_steps(cuda, monkeypatch, tmp_path):
         assert all(torch.equal(traces[0][k], traces[1][k]) for k in ("loss", "finite"))
         assert all(torch.equal(a, b) for a, b in zip(_card_state(eager), _card_state(graph)))
     assert graph.step == 6
+
+
+def test_preview_after_train_replays_equals_the_eager_preview(cuda, monkeypatch):
+    """Captured train steps, a preview on its graph, more captured train
+    steps, a preview on its graph again: the second equals the eager loop's
+    (the previews' default route) preview of the state as it then is, on
+    fresh K1 packs and the same draws, bit for bit, and differs from the first
+    (the EMA moved; the K1 packs the first preview made went stale through the
+    train replays' version bumps)."""
+    import numpy as np
+
+    from sbgm_danra_tpu_torch.config import from_dict
+    from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = from_dict({
+        "highres": {"variable": "prcp", "data_size": [64, 64]},
+        "lowres": {"condition_variables": ["temp", "prcp"]},
+        "sampler": {"sampler_type": "dpmpp_sampler", "n_timesteps": 5, "time_embedding": 32,
+                    "last_fmap_channels": 64, "num_heads": 2, "block_layers": [1, 1, 1, 1]},
+        "training": {"learning_rate": 1e-3, "weight_init": False, "ema_decay": 0.9,
+                     "batch_size": 2, "monitor_extremes": False},
+        "classifier_free_guidance": {"enabled": True, "guidance_scale": 3.0},
+    })
+    rng = np.random.default_rng(0)
+
+    def field(c):
+        return rng.normal(size=(2, 64, 64, c)).astype(np.float32)
+
+    train = [{"x": field(1), "sdf": np.abs(field(1)), "cond_img": field(2),
+              "lsm_cond": field(2), "topo_cond": field(2),
+              "y": rng.integers(1, 5, size=(2,)).astype(np.int32)} for _ in range(2)]
+    gen = {"prcp_hr": field(1), "prcp_lr": field(1), "temp_lr": field(1), "lsm": field(2),
+           "topo": field(2), "classifier": np.array([1, 3], np.int32)}
+    pipe = TrainingPipeline(cfg, train, device=cuda, gen_loader=[gen])
+    assert pipe.capture
+
+    def preview(capture=False):
+        return pipe.generate_previews(rng=torch.Generator(cuda).manual_seed(5), capture=capture)
+
+    pipe.train_batches(2)
+    k1.clear_packs()
+    first = preview(capture=True)
+    assert k1.stale_packs() == 0
+    pipe.train_batches(2)
+    assert k1.stale_packs() > 0
+    graph = preview(capture=True)
+    k1.clear_packs()  # the reference packs the weights afresh
+    eager = preview()
+    assert pipe.state.step == 4 and graph.shape == (2, 64, 64) and np.isfinite(graph).all()
+    assert np.array_equal(graph, eager)
+    assert not np.array_equal(first, graph)

@@ -380,3 +380,28 @@ class TestDecoderBlock:
                         torch.from_numpy(t) if with_t else None).permute(0, 2, 3, 1).numpy()
         assert got.shape == want.shape == (2, 2 * hw[0], 2 * hw[1], out_ch)
         assert rel_err(got, want) <= 1e-4
+
+
+def test_pack_cache_goes_stale_on_a_write_and_clears():
+    """A cached pack is stale once its parameter is written in place (its
+    version counter moves), and ``clear_packs`` empties the cache; the next
+    call packs afresh."""
+    weight = torch.nn.Parameter(torch.randn(3, 3, 4, 8, generator=torch.Generator().manual_seed(0)))
+    made = []
+
+    def pack():
+        made.append(weight.detach().clone())
+        return made[-1]
+
+    k1.clear_packs()
+    assert k1._cached(weight, "probe", pack) is k1._cached(weight, "probe", pack)
+    assert len(made) == 1 and k1.stale_packs() == 0
+    with torch.no_grad():
+        weight.mul_(2.0)
+    assert k1.stale_packs() == 1
+    assert torch.equal(k1._cached(weight, "probe", pack), 2.0 * made[0])
+    assert len(made) == 2 and k1.stale_packs() == 0
+    k1.clear_packs()
+    assert k1.stale_packs() == 0
+    k1._cached(weight, "probe", pack)
+    assert len(made) == 3

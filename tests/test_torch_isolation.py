@@ -76,7 +76,11 @@ def test_chip_smoke_path_imports_nothing_of_the_jax_package(blocked_extra):
         for name in ("sbgm_danra_tpu_torch.evaluate.full_domain", "sbgm_danra_tpu_torch.serve",
                      "sbgm_danra_tpu_torch.models.unet", "sbgm_danra_tpu_torch.ops.cuda_attention",
                      "sbgm_danra_tpu_torch.ops.flash_attention",
-                     "sbgm_danra_tpu_torch.sampling.samplers"):
+                     "sbgm_danra_tpu_torch.sampling.samplers",
+                     "sbgm_danra_tpu_torch.cli.entries", "sbgm_danra_tpu_torch.cli.main_app",
+                     "sbgm_danra_tpu_torch.evaluate.generation",
+                     "sbgm_danra_tpu_torch.evaluate.evaluation",
+                     "sbgm_danra_tpu_torch.evaluate.quality_study"):
             importlib.import_module(name)
         assert not [m for m in sys.modules if _blocked(m)]
         """,
@@ -100,7 +104,10 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package():
     assert len(files) >= 20
     scanned = {os.path.relpath(f, ROOT) for f in files}
     for part in ("cli/main_app.py", "cli/entries.py", "data/device_data.py", "data/loader.py",
-                 "data/dataset.py", "data/synthetic.py", "data/factory.py", "ops/sdf.py"):
+                 "data/dataset.py", "data/synthetic.py", "data/factory.py", "ops/sdf.py",
+                 "evaluate/generation.py", "evaluate/evaluation.py", "evaluate/quality_study.py",
+                 "evaluate/crps.py", "evaluate/calibration.py", "parallel/ensemble.py",
+                 "pipelines/comparison.py", "utils/sentinels.py", "utils/logging_utils.py"):
         assert os.path.join("sbgm_danra_tpu_torch", part) in scanned, part
     bad = [(os.path.relpath(f, ROOT), name) for f in files for name in _imported_names(f)
            if name.split(".")[0] in JAX_SIDE]
@@ -135,8 +142,9 @@ def test_config_reader_and_serve_main_run_without_the_jax_package():
 def test_data_path_and_train_main_run_without_the_jax_package(tmp_path):
     """With JAX, the JAX package and PyYAML refused: the port's synthetic
     generator writes a tiny dataset, ``make_loaders`` builds the host and the
-    card-resident loaders (on the CPU here) and gives one batch each, and
-    ``train_main`` takes one CPU step from a ``from_dict`` config."""
+    card-resident loaders (on the CPU here) and gives one batch each,
+    ``train_main`` takes one CPU step from a ``from_dict`` config, and the
+    CLI's ``generate`` and ``evaluate`` modes run on its checkpoint."""
     out = _run(
         (*JAX_SIDE, "yaml"),
         f"""
@@ -180,6 +188,19 @@ def test_data_path_and_train_main_run_without_the_jax_package(tmp_path):
         with torch.backends.mkldnn.flags(enabled=False):
             pipe = train_main(cfg(True), device="cpu")
         assert pipe.state.step == 1 and np.isfinite(pipe.history["train_loss"][0])
+        import argparse
+        from sbgm_danra_tpu_torch.cli.main_app import run_mode
+        run_cfg = cfg(True)
+        run_cfg.paths.sample_dir = os.path.join(root, "samples")
+        run_cfg.evaluation.n_steps = 3
+        run_cfg.evaluation.gen_type = ("multiple", "repeated")
+        run_cfg.evaluation.n_repeats = 2
+        run_cfg.data_handling.n_gen_samples = 1
+        args = argparse.Namespace(device="cpu")
+        generated = run_mode(run_cfg, "generate", args)
+        assert set(generated["generators"]) == {{"multiple", "repeated"}}
+        stats = run_mode(run_cfg, "evaluate", args)
+        assert np.isfinite(stats["repeated"]["pixel_stats"]["rmse_per_sample"]).all()
         assert not [m for m in sys.modules if _blocked(m)]
         print(pipe.history["train_loss"][0])
         """,

@@ -111,6 +111,13 @@ class TestScoreUNet:
         assert inference_spec(spec, (608, 800)).fuse_head
         assert not inference_spec(spec, (128, 128)).fuse_head
 
+    def test_inference_spec_takes_the_flash_dispatcher_at_full_domain(self):
+        spec = ModelSpec(**TINY)
+        assert spec.attention_backend == "xla"
+        assert inference_spec(spec, (608, 800)).attention_backend == "pallas"
+        assert inference_spec(spec, (128, 128)).attention_backend == "xla"
+        assert inference_spec(spec).attention_backend == "xla"
+
 
 class TestOps:
     def test_upsample_matches_jax_and_interpolate(self):
