@@ -118,6 +118,18 @@ times, and the graph's output against the eager route's on the same draws
    spread/skill in [0.9, 1.1]); ``generate_previews`` after captured train
    steps against the eager loop on the same draws; each mode's load,
    capture and replay seconds and pools;
+5d''. data_prep: a raw archive to generated fields with the port alone, through
+   its CLIs (``profile_port.data_config``'s flagship data, 32 days, under
+   5d's temporary directory): ``--mode synthetic_data`` with the 'all'
+   split, ``data_splits`` (Random: the splits add up, are disjoint and equal
+   the 'all' store day for day), ``run_statistics`` into a fresh directory
+   (each JSON against the synthetic writer's: 1e-9 relative, std 1e-6),
+   ``train`` (one epoch of 2 steps on the device loader) and ``generate``
+   single on its checkpoint (finite, prcp >= 0, 8 K1 launches a UNet
+   evaluation), then ``main_data_app``'s ``run_comparison``,
+   ``run_correlation``, ``create_small_batches`` and ``run_statistics
+   --figures`` (without matplotlib: one skip line a figure set); each mode's
+   wall seconds;
 5e. train_full_domain: 5c's step at 589x789 -> 608x800, batch 2, attention
    'pallas', remat, on the step's graph: bf16, a capture and 3 replays with
    2 K2 forward and 1 K2 backward launch each (decoder block 1 at [2, 7600,
@@ -151,6 +163,7 @@ from __future__ import annotations
 
 import functools
 import json
+import logging
 import math
 import os
 import subprocess
@@ -1580,6 +1593,235 @@ def phase_generate(dev, tmp):
                                                                     "gn_apply"))}}
 
 
+PREP_SPLITS = ("train", "valid", "test")
+PREP_STATS_TOL = {"mean": 1e-9, "min": 1e-9, "max": 1e-9, "log_mean": 1e-9, "log_min": 1e-9,
+                  "log_max": 1e-9, "std": 1e-6, "log_std": 1e-6}  # relative
+PREP_SMALL_DAYS = 8  # create_small_batches --n_samples
+PREP_FIGURE_DAYS = 4  # run_statistics --figures --max_days
+
+
+class LogLines(logging.Handler):
+    """The log records of a block, as text (the skip lines are checked)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        logging.getLogger().addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger().removeHandler(self)
+
+
+def _prep_split_checks(cfg, written) -> dict:
+    """Each store's train/valid/test days: their counts add up to the days of
+    its 'all' store, they are disjoint, and each written day's array equals
+    the 'all' store's."""
+    from sbgm_danra_tpu_torch.data import zarrlite
+    from sbgm_danra_tpu_torch.data.paths import build_data_path
+
+    dims = tuple(cfg.highres.full_domain_dims)
+    out = {}
+    for model, var in [(cfg.highres.model, cfg.highres.variable)] + [
+            (cfg.lowres.model, v) for v in cfg.lowres.condition_variables]:
+        every = zarrlite.open_group(build_data_path(cfg.paths.data_dir, model, var, dims, "all"))
+        days, unequal = [], []
+        counts = {}
+        for split in PREP_SPLITS:
+            store = zarrlite.open_group(build_data_path(cfg.paths.data_dir, model, var, dims,
+                                                        split))
+            keys = store.keys()
+            counts[split] = len(keys)
+            days += keys
+            unequal += [k for k in keys if not np.array_equal(store[k]["data"][...],
+                                                              every[k]["data"][...])]
+        out[f"{model}/{var}"] = dict(
+            days=counts, all_days=len(every.keys()),
+            counts_match_written=all(written[f"{model}/{var}/{s}"] == n
+                                     for s, n in counts.items()),
+            sum_ok=sum(counts.values()) == len(every.keys()) == DATA_DAYS,
+            disjoint=len(set(days)) == len(days), same_days=sorted(days) == every.keys(),
+            unequal_days=unequal)
+    return out
+
+
+def _prep_stats_checks(results: dict, stats_root: str, synthetic_root: str) -> dict:
+    """Every statistics JSON that ``run_statistics`` wrote against the one the
+    synthetic writer wrote for the same variable, domain, crop and split: the
+    largest relative deviation per key, within ``PREP_STATS_TOL``."""
+    from sbgm_danra_tpu_torch import transforms as T
+
+    out = {}
+    for key in results:
+        model, var, crop, split = key.split("/")
+        domain = "x".join(map(str, FULL_DOMAIN))
+        got = T.load_global_stats(stats_root, model, var, domain, crop, split)
+        want = T.load_global_stats(synthetic_root, model, var, domain, crop, split)
+        dev = {k: abs(got[k] - v) / abs(v) if v else abs(got[k]) for k, v in want.items()}
+        out[key] = dict(n=got["n"], max_rel_dev=max(dev.values()),
+                        within=all(dev[k] <= PREP_STATS_TOL[k] for k in dev),
+                        rel_dev=dev)
+    return out
+
+
+def phase_data_prep(dev, tmp):
+    """A raw archive to generated fields with the port alone, through its CLIs
+    as a user calls them (the flagship settings of ``data_config``: 589x789,
+    crop [170, 350, 340, 520], DANRA prcp and ERA5 temp and prcp, 32
+    synthetic days, under ``tmp/data_prep``):
+
+    1. ``--mode synthetic_data`` with the 'all' split (the raw stores);
+    2. ``--mode data_splits`` with ``splits.method: Random`` and JAX's default
+       fractions (every synthetic date falls in 2000, which the default Time
+       ranges would put in train alone): each store's train/valid/test days
+       add up to 32, are disjoint and equal the 'all' store's day for day;
+    3. ``--mode run_statistics`` into a fresh ``paths.stats_load_dir``: each
+       JSON within ``PREP_STATS_TOL`` of the synthetic writer's (whose sums
+       are shifted, ``StreamingStats``' are not), the largest deviation
+       printed;
+    4. ``--mode train`` on those splits and statistics (one epoch of 2 steps,
+       the device loader, the one-step graph), then ``--mode generate`` with
+       ``gen_type: [single]`` on its checkpoint: finite artifacts, prcp >= 0
+       after the back-transform, 8 K1 launches a UNet evaluation;
+    5. ``main_data_app``: ``run_comparison``, ``run_correlation`` (with
+       ``--figures``) and ``create_small_batches`` (finite results, 8 days a
+       small store), then ``run_statistics --figures``: without matplotlib
+       (the card machine's setting) one skip line a figure set and a normal
+       exit, with it the PNGs.
+    Each mode's wall seconds and the phase's are printed."""
+    import argparse
+
+    from sbgm_danra_tpu_torch.cli import main_data_app
+    from sbgm_danra_tpu_torch.cli.main_app import run_mode
+    from sbgm_danra_tpu_torch.sampling import graphs
+
+    root = os.path.join(tmp, "data_prep")
+    cfg = data_config(root, epochs=1, steps_per_epoch=2, fused_steps=0)
+    cfg.splits.method = "Random"
+    cfg.evaluation.gen_type = ("single",)
+    synthetic_stats = cfg.paths.stats_load_dir
+    cfg.paths.stats_load_dir = os.path.join(root, "stats_prep")
+    args = argparse.Namespace(device=str(dev), n_days=DATA_DAYS, no_all_split=False)
+    mode_s, result = {}, {}
+    start = time.perf_counter()
+
+    def mode(name, fn):
+        out, mode_s[name] = timed(fn)
+        return out
+
+    mode("synthetic_data", lambda: run_mode(cfg, "synthetic_data", args))
+    written = mode("data_splits", lambda: run_mode(cfg, "data_splits", args))
+    result["splits"] = splits = _prep_split_checks(cfg, written)
+    stats = mode("run_statistics", lambda: run_mode(cfg, "run_statistics", args))
+    result["statistics"] = stats_checks = _prep_stats_checks(stats, cfg.paths.stats_load_dir,
+                                                             synthetic_stats)
+    result["stats_max_rel_dev"] = max(c["max_rel_dev"] for c in stats_checks.values())
+
+    pipe = mode("train", lambda: run_mode(cfg, "train", args))
+    history = pipe.history
+    result["train"] = dict(step=pipe.state.step, history=history,
+                           finite=all(np.isfinite(history["train_loss"] + history["val_loss"])))
+    del pipe
+    graphs.clear()
+    torch.cuda.empty_cache()
+    reset_counts()  # the generate call's run starts here
+    run = mode("generate_single", lambda: run_mode(cfg, "generate", args))
+    k1c, k2c = k1_counts(), k2_counts()
+    sample_path = run["generators"]["single"].sample_path
+    result["generate_single"] = dict(k1_launches=list(k1c), k2_launches_by_variant=k2c,
+                                     **_artifact_checks(sample_path, "single", 1, SERVE_HW))
+    del run
+    graphs.clear()
+    torch.cuda.empty_cache()
+
+    cfg_path = cfg.dump(os.path.join(root, "data_prep.yaml"))
+    check(cfg_path is not None, "data_prep: the config dump needs PyYAML")
+
+    def data_app(*argv):
+        return main_data_app.main(["--config_path", cfg_path, *argv])
+
+    small_dir = os.path.join(root, "small")
+    with LogLines() as log:
+        cmp = mode("run_comparison", lambda: data_app("--mode", "run_comparison"))["comparison"]
+        corr = mode("run_correlation", lambda: data_app("--mode", "run_correlation",
+                                                        "--figures"))["correlations"]
+        small = mode("create_small_batches", lambda: data_app(
+            "--mode", "create_small_batches", "--out_dir", small_dir,
+            "--n_samples", str(PREP_SMALL_DAYS)))["small_batches"]
+        figs = mode("run_statistics_figures", lambda: data_app(
+            "--mode", "run_statistics", "--figures", "--max_days", str(PREP_FIGURE_DAYS)))
+    skips = [line for line in log.lines if line.endswith("skipped: matplotlib missing")]
+    try:
+        import matplotlib  # noqa: F401  (absent on the card machine)
+        have_mpl = True
+    except ImportError:
+        have_mpl = False
+    fig_dir = os.path.join(cfg.paths.sample_dir, "figures")
+    pngs = sorted(os.path.relpath(os.path.join(d, f), fig_dir)
+                  for d, _, fs in os.walk(fig_dir) for f in fs)
+    n_vars = 1 + len(cfg.lowres.condition_variables)
+    ts = cmp["timeseries"]
+    result["data_app"] = dict(
+        comparison=dict(days=len(cmp["dates"]), bias=float(ts["bias"].mean()),
+                        rmse=float(ts["rmse"].mean()), corr=float(ts["corr"].mean()),
+                        spectrum_log_mse=cmp["spectrum"]["log_mse"],
+                        seasons=sorted(cmp["seasonal_spectra"]),
+                        finite=all(bool(np.isfinite(v).all()) for v in (
+                            ts["bias"], ts["rmse"], ts["corr"], cmp["field"]["diff_map"],
+                            cmp["spectrum"]["spectrum_a"], cmp["spectrum"]["spectrum_b"],
+                            cmp["spectrum"]["log_mse"]))),
+        correlations={v: dict(temporal_pearson=c["temporal_pearson"],
+                              temporal_spearman=c["temporal_spearman"],
+                              spatial_finite_share=float(np.isfinite(c["spatial_pearson"]).mean()),
+                              spatial_in_range=bool(np.all(np.abs(
+                                  c["spatial_pearson"][np.isfinite(c["spatial_pearson"])])
+                                  <= 1 + 1e-9)))
+                      for v, c in corr.items()},
+        small_batches=small, statistics_figures=figs.get("figures"),
+        matplotlib=have_mpl, skip_lines=skips, figures=pngs)
+    result["mode_s"] = mode_s
+    result["total_s"] = time.perf_counter() - start
+    emit(phase="data_prep", settings="configs/flagship_synth.yaml's data (profile_port."
+         "data_config): DANRA prcp, ERA5 temp and prcp at 589x789, crop [170, 350, 340, 520], "
+         f"{DATA_DAYS} synthetic days, splits Random (0.7/0.15/0.15), one train epoch of 2 "
+         "steps, generate single (dpmpp-25, CFG w=3)", **result)
+
+    for store, c in splits.items():
+        check(c["sum_ok"] and c["disjoint"] and c["same_days"] and c["counts_match_written"]
+              and not c["unequal_days"], f"data_splits {store}: {c}")
+    check(len(stats_checks) == 1 + 1 + len(cfg.lowres.condition_variables),
+          f"run_statistics wrote {sorted(stats_checks)}")
+    check(all(c["within"] for c in stats_checks.values()),
+          f"run_statistics against the synthetic writer's: {stats_checks}")
+    check(result["train"]["finite"] and result["train"]["step"] == 2,
+          f"data_prep train: {result['train']}")
+    gen = result["generate_single"]
+    check(gen["shapes_ok"] and gen["finite"] and gen["prcp_min_mm"] >= 0.0,
+          f"data_prep generate single: {gen}")
+    check_k1(k1c, 3 * (GEN_STEPS - 1), "data_prep generate single (warm-ups and a replay)")
+    check(not any(k2c.values()), f"data_prep generate single: K2 launched {k2c}")
+    app = result["data_app"]
+    check(app["comparison"]["finite"] and app["comparison"]["days"] == DATA_DAYS,
+          f"run_comparison: {app['comparison']}")
+    check(all(np.isfinite([c["temporal_pearson"], c["temporal_spearman"]]).all()
+              and c["spatial_finite_share"] > 0 and c["spatial_in_range"]
+              for c in app["correlations"].values()), f"run_correlation: {app['correlations']}")
+    check(set(small.values()) == {PREP_SMALL_DAYS} and len(small) == n_vars,
+          f"create_small_batches: {small}")
+    if have_mpl:
+        check(len(pngs) == 5 * n_vars + 3 * len(cfg.lowres.condition_variables),
+              f"figures: {pngs}")
+    else:
+        check(len(skips) == n_vars + len(cfg.lowres.condition_variables) and not pngs,
+              f"figures without matplotlib: skip lines {skips}, files {pngs}")
+    return {name: k1c[i] for i, name in enumerate(("conv3x3_stats", "gn_apply"))}
+
+
 def _plain_k2():
     """Swap the plain attention (autograd through the dense fp32 version) in
     for K2 (restore by calling the result)."""
@@ -1985,6 +2227,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:  # train_data's data and checkpoint
         train_data = run("train_data", phase_train_data, dev, tmp)
         generate = run("generate", phase_generate, dev, tmp)
+        data_prep = run("data_prep", phase_data_prep, dev, tmp)
     train_bf16 = run("train_full_domain_bf16", phase_train_full_domain, dev, "bfloat16",
                      TRAIN_FULL["steps"], compare=True)
     train_fp32 = run("train_full_domain_fp32", phase_train_full_domain, dev, "float32", 1,
@@ -2047,6 +2290,7 @@ def main() -> int:
                                  "train_data/full_domain": train_data[name],
                                  **{f"generate/{mode}": generate[f"{mode}/{name}"]
                                     for mode in (*GEN_ARTIFACTS, "full_domain", "previews")},
+                                 "data_prep/generate_single": data_prep[name],
                                  "serving": serving[name],
                                  "serving/eager": serving["eager"][name],
                                  "train_128/ema_eval_step": train_128["eval_k1"][

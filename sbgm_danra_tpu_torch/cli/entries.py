@@ -1,11 +1,16 @@
 """Mode entry functions of the port's CLI (counterpart of
 ``sbgm_danra_tpu/cli/entries.py``).
 
-- ``train_main(cfg, device)`` builds the loaders (``data/factory.py``), probes
-  the train loader when ``training.verbose``, builds ``TrainingPipeline`` on
-  ``device`` with the back-transforms (the extreme sentinel) and, when
-  ``visualization.preview_every``, the gen loader (the previews), resumes from
-  the latest checkpoint when ``training.load_checkpoint``, and trains.
+- ``train_main(cfg, device)`` sets up the run's log file under
+  ``{paths.sample_dir}/logs`` and writes the frozen config
+  ``{paths.sample_dir}/config_{model_string}.yaml``, builds the loaders
+  (``data/factory.py``), probes the train loader when ``training.verbose``,
+  plots a first batch (``visualization.plot_initial_sample``), builds
+  ``TrainingPipeline`` on ``device`` with the back-transforms (the extreme
+  sentinel) and, when ``visualization.preview_every``, the gen loader (the
+  previews), resumes from the latest checkpoint when
+  ``training.load_checkpoint``, trains, and plots the losses
+  (``visualization.plot_losses``).
 - ``generation_main(cfg, device)`` loads the best checkpoint and runs each of
   ``evaluation.gen_type`` through ``evaluate/generation.py::SampleGenerator``:
   ``multiple``, ``single`` and ``repeated`` on the gen loader with one score
@@ -16,9 +21,9 @@
   artifacts of each gen type (numpy on the host).
 
 ``device`` is the card unless the caller asks for the CPU; a CUDA device on a
-machine without one raises. Plotting options and the frozen config dump (a
-YAML file) are skipped with a log line: the card machine has no plotting
-library, and the chip path imports no PyYAML.
+machine without one raises. A figure needs matplotlib and the frozen config
+PyYAML, both imported only when used: where one is missing (the card machine
+has no matplotlib) that file is skipped with a log line.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import os
 import time
 from typing import Dict
 
+from sbgm_danra_tpu_torch.config import get_model_string
 from sbgm_danra_tpu_torch.data.device_data import require_device
 from sbgm_danra_tpu_torch.data.factory import make_dataset, make_gen_loader, make_loaders
 from sbgm_danra_tpu_torch.data.loader import DataLoader
@@ -37,6 +43,7 @@ from sbgm_danra_tpu_torch.evaluate.generation import SampleGenerator
 from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
 from sbgm_danra_tpu_torch.transforms import back_transforms_for_config
 from sbgm_danra_tpu_torch.utils.logging_utils import setup_logger
+from sbgm_danra_tpu_torch.utils.plotting import plot_batch_grid, plot_losses, plot_or_skip
 
 logger = logging.getLogger(__name__)
 
@@ -51,6 +58,8 @@ def _gen_types(cfg):
 
 def train_main(cfg, device="cuda") -> TrainingPipeline:
     device = require_device(device)
+    setup_logger(log_dir=os.path.join(cfg.paths.sample_dir, "logs"))
+    cfg.dump(os.path.join(cfg.paths.sample_dir, f"config_{get_model_string(cfg)}.yaml"))
     train_loader, valid_loader, gen_loader = make_loaders(cfg, device=device)
 
     if cfg.training.verbose:
@@ -62,10 +71,14 @@ def train_main(cfg, device="cuda") -> TrainingPipeline:
             logger.info("loader probe: %.3f s/batch over %d batches",
                         (time.time() - t0) / n_probe, n_probe)
     vis = cfg.visualization
-    for name in ("plot_initial_sample", "plot_losses"):
-        if getattr(vis, name):
-            logger.info("visualization.%s skipped: the port does not plot", name)
-    logger.info("frozen config dump skipped: the port writes no YAML")
+    if vis.plot_initial_sample:
+        # the loader's first batch as it comes: {var}_hr, {var}_lr, lsm, topo, sdf columns
+        fig_dir = os.path.join(cfg.paths.sample_dir, "figures")
+        os.makedirs(fig_dir, exist_ok=True)
+        path = os.path.join(fig_dir, "initial_sample_plot.png")
+        if plot_or_skip("initial_sample_plot", plot_batch_grid, next(iter(train_loader)),
+                        hr_var=cfg.highres.variable, path=path) is not None:
+            logger.info("Saved initial sample plot to %s", path)
 
     pipeline = TrainingPipeline(cfg, train_loader, valid_loader, device=device,
                                 back_transforms=back_transforms_for_config(cfg),
@@ -79,6 +92,9 @@ def train_main(cfg, device="cuda") -> TrainingPipeline:
         except FileNotFoundError:
             logger.info("no checkpoint to resume from; training from scratch")
     pipeline.train()
+    if vis.plot_losses:
+        plot_or_skip("losses", plot_losses, pipeline.history,
+                     os.path.join(cfg.paths.sample_dir, f"losses_{pipeline.model_string}.png"))
     return pipeline
 
 

@@ -1,21 +1,26 @@
 """The port's pipeline CLI (counterpart of ``sbgm_danra_tpu/cli/main_app.py``).
 
     python -m sbgm_danra_tpu_torch.cli.main_app --config_path cfg.yaml \
-        --mode {synthetic_data,train,generate,evaluate,full_pipeline} \
+        --mode {synthetic_data,data_splits,run_statistics,train,generate,evaluate,full_pipeline} \
         [--skip_training] [--skip_generation] [--skip_evaluation] \
         [--n_days N] [--no_all_split] [--device cuda] [key=value ...]
 
 ``synthetic_data`` writes the synthetic DANRA/ERA5 stores, geography and
 statistics of the config's variables under ``paths.data_dir``
-(``data/synthetic.py``); ``train``, ``generate`` and ``evaluate`` run the
+(``data/synthetic.py``); ``data_splits`` writes the train/valid/test stores
+from each variable's ``all`` store as ``splits`` asks
+(``pipelines/splits.py``) and ``run_statistics`` the global-statistics JSONs
+of the ``all`` split under ``paths.stats_load_dir``, which the transforms
+read (``pipelines/stats_pipeline.py``), both numpy on the host, so a raw
+archive goes to a trained model with the port alone; ``train``,
+``generate`` and ``evaluate`` run the
 entry functions of ``cli/entries.py``, ``full_pipeline`` all three, on
 ``--device`` (default ``cuda``; evaluation is numpy on the host). The
 existence gates are JAX's: ``generate`` needs a trained checkpoint
 (``check_model_exists``) and ``evaluate`` generated samples
 (``check_generated_samples_exist``), else ``SystemExit``; ``full_pipeline``
-skips a stage whose input is missing, with a warning. ``data_splits`` and
-``run_statistics`` are not ported yet and raise, naming the ROADMAP item.
-Reading a YAML config needs PyYAML.
+skips a stage whose input is missing, with a warning. Reading a YAML config
+needs PyYAML. The data-analysis modes are in ``cli/main_data_app.py``.
 """
 
 from __future__ import annotations
@@ -32,10 +37,6 @@ logger = logging.getLogger(__name__)
 
 MODES = ("train", "generate", "evaluate", "full_pipeline", "data_splits", "run_statistics",
          "synthetic_data")
-NOT_PORTED = {
-    "data_splits": "ROADMAP Queue 1, item 'orchestration' (pipelines/splits.py)",
-    "run_statistics": "ROADMAP Queue 1, item 'orchestration' (pipelines/stats_pipeline.py)",
-}
 
 
 def check_model_exists(cfg) -> bool:
@@ -77,13 +78,18 @@ def synthetic_data(cfg, n_days: int, no_all_split: bool) -> dict:
 def run_mode(cfg, mode: str, args):
     """Run ``mode``; returns what its entry function returns (``full_pipeline``:
     a dict of the stages that ran)."""
-    if mode in NOT_PORTED:
-        raise NotImplementedError(
-            f"--mode {mode} is not ported to sbgm_danra_tpu_torch yet: {NOT_PORTED[mode]}")
     from sbgm_danra_tpu_torch.cli import entries
 
     if mode == "synthetic_data":
         return synthetic_data(cfg, args.n_days, args.no_all_split)
+    if mode == "data_splits":
+        from sbgm_danra_tpu_torch.pipelines.splits import create_splits_from_config
+
+        return create_splits_from_config(cfg)
+    if mode == "run_statistics":
+        from sbgm_danra_tpu_torch.pipelines.stats_pipeline import run_data_statistics
+
+        return run_data_statistics(cfg)
     if mode == "train":
         return entries.train_main(cfg, device=args.device)
     if mode == "generate":
@@ -124,7 +130,7 @@ def main(argv=None):
     parser.add_argument("--no_all_split", action="store_true",
                         help="synthetic_data: skip the duplicate 'all' split")
     parser.add_argument("--device", default="cuda",
-                        help="train, generate: the torch device")
+                        help="train, generate, full_pipeline: the torch device")
     parser.add_argument(
         "overrides", nargs="*", help="dot-key config overrides, e.g. training.epochs=3"
     )

@@ -5,22 +5,26 @@ same section and field names, defaults, ``${env:VAR}`` interpolation, dot-key
 overrides and type coercion, and ``get_model_string`` from
 ``sbgm_danra_tpu/utils/naming.py``. Only the fields that ``serve.py``,
 ``models/unet.py``, ``transforms.py`` (the statistics files behind the
-transforms), ``data/``, ``training/``, ``evaluate/`` and ``cli/`` read are declared, under the
-JAX reader's names and defaults; every other section and key of a config is
-skipped, since the JAX package's reader is the one that checks them.
+transforms), ``data/``, ``training/``, ``evaluate/``, ``pipelines/`` and ``cli/`` read are
+declared, under the JAX reader's names and defaults; every other section and key of a config
+is skipped, since the JAX package's reader is the one that checks them.
 
-PyYAML is imported inside ``load_config`` and ``parse_override`` only, so that
-the serving path imports it only when it reads a file.
+PyYAML is imported inside ``load_config``, ``parse_override`` and ``Config.dump`` only, so
+that the serving path imports it only when it reads a file; without it ``dump`` logs a
+skip and writes nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import re
 import typing
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Tuple
+
+logger = logging.getLogger(__name__)
 
 _ENV_RE = re.compile(r"\$\{env:([A-Za-z_][A-Za-z0-9_]*)\}")
 
@@ -161,9 +165,10 @@ class TransformsConfig:
 
 @dataclass
 class VisualizationConfig:
-    """``preview_every``: preview sampling every N epochs (0: off). The port
-    does not plot (no plotting on the card machine): the figure options are
-    read only to log that they are skipped."""
+    """``preview_every``: preview sampling every N epochs (0: off). Figures
+    need matplotlib, which the port imports only inside a figure function
+    (``utils/plotting.py``); where it is missing a figure is skipped with a
+    log line."""
 
     save_figs: bool = True
     plot_initial_sample: bool = False
@@ -193,10 +198,13 @@ class EarlyStoppingParams:
 class TrainingConfig:
     """The fields of the JAX reader's training section that the port's trainer
     and serving engine act on; the reader skips the others (profiling,
-    checkpoint cadence), which the port does not do yet (ROADMAP).
-    ``fused_steps`` runs K steps per dispatch, as JAX runs it
-    (``training/fused.py``). ``monitor_extremes`` runs the
-    extreme-precipitation sentinel on the back-transformed HR batch every 50
+    ``async_checkpointing``), which the port does not do yet (ROADMAP).
+    ``checkpoint_min_interval_epochs``: best-validation checkpoint writes at
+    most every N epochs; an improvement inside the window is held as a
+    snapshot on the device and written at the next eligible epoch or at the
+    loop's end (``TrainingPipeline.train``). ``fused_steps`` runs K steps per
+    dispatch, as JAX runs it (``training/fused.py``). ``monitor_extremes``
+    runs the extreme-precipitation sentinel on the back-transformed HR batch every 50
     steps (``utils/sentinels.py``; skipped under ``fused_steps``), with
     ``extreme_cap`` in mm/day."""
 
@@ -222,6 +230,7 @@ class TrainingConfig:
     remat: bool = False
     skip_nonfinite_updates: bool = False
     fused_steps: int = 0
+    checkpoint_min_interval_epochs: int = 1
     load_checkpoint: bool = False
     verbose: bool = True
     monitor_extremes: bool = True
@@ -256,6 +265,19 @@ class EvaluationConfig:
 
 
 @dataclass
+class SplitsConfig:
+    """Split creation (``pipelines/splits.py``): year ranges, inclusive, for
+    "Time"; ``fractions`` (default 0.7 / 0.15 / 0.15) and ``seed`` for "Random"."""
+
+    method: str = "Time"  # Time | Random
+    train_years: Tuple[int, int] = (1990, 2015)
+    valid_years: Tuple[int, int] = (2016, 2018)
+    test_years: Tuple[int, int] = (2019, 2022)
+    fractions: Optional[Dict[str, float]] = None
+    seed: int = 0
+
+
+@dataclass
 class ParallelConfig:
     mesh_shape: Optional[Dict[str, int]] = None
 
@@ -278,6 +300,7 @@ class Config:
     evaluation: EvaluationConfig = field(default_factory=EvaluationConfig)
     visualization: VisualizationConfig = field(default_factory=VisualizationConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    splits: SplitsConfig = field(default_factory=SplitsConfig)
 
     def in_channels(self) -> int:
         """Conditioning channels: n_lr + 2 per geo variable."""
@@ -289,6 +312,34 @@ class Config:
     def num_classes(self) -> Optional[int]:
         sc = self.stationary_conditions.seasonal_conditions
         return sc.n_seasons if sc.sample_w_cond_season else None
+
+    def dump(self, path: str) -> Optional[str]:
+        """Write the frozen resolved config (the sections the port declares)
+        as YAML; returns the path, or None with a log line where PyYAML is
+        missing."""
+        try:
+            import yaml
+        except ImportError:
+            logger.info("frozen config %s skipped: PyYAML missing", os.path.basename(path))
+            return None
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            yaml.safe_dump(_jsonify(dataclasses.asdict(self)), f, sort_keys=False)
+        return path
+
+
+def _jsonify(obj: Any) -> Any:
+    if isinstance(obj, Mapping):
+        return {k: _jsonify(v) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        return [_jsonify(v) for v in obj]
+    # numpy scalars leak in from samplers and metrics; YAML needs Python natives
+    if hasattr(obj, "item") and not isinstance(obj, (str, bytes)):
+        try:
+            return obj.item()
+        except Exception:
+            return obj
+    return obj
 
 
 def _coerce(value: Any, typ: Any) -> Any:

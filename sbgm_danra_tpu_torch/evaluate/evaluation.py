@@ -3,8 +3,9 @@
 ``SampleGenerator`` wrote for one sample-type suffix and computes pixel and
 spatial statistics, per-sample summaries, the ensemble CRPS of a repeated
 artifact and the radially averaged power-spectrum comparison. All of it is
-numpy on the host, as in JAX. The port does not plot: the figures are
-skipped with a log line.
+numpy on the host, as in JAX. The figures (pixel and error histograms, the
+truth / generated examples) go to ``evaluation_figures/``; where matplotlib
+is missing each is skipped with a log line.
 """
 
 from __future__ import annotations
@@ -18,6 +19,9 @@ import numpy as np
 from sbgm_danra_tpu_torch.config import get_model_string
 from sbgm_danra_tpu_torch.evaluate.crps import crps_ensemble
 from sbgm_danra_tpu_torch.pipelines.comparison import compare_power_spectra
+from sbgm_danra_tpu_torch.utils.plotting import (plot_error_histograms, plot_or_skip,
+                                                 plot_pixel_histograms, pyplot)
+from sbgm_danra_tpu_torch.utils.units import VARIABLE_REGISTRY
 
 logger = logging.getLogger(__name__)
 
@@ -90,8 +94,14 @@ class Evaluation:
             np.savez_compressed(out, **stats)
             logger.info("Saved pixel statistics to %s", out)
         if save_figs:
-            logger.info("figures pixel_hist_%s / rmse_mae_hist_%s skipped: the port does not "
-                        "plot", self.sample_type, self.sample_type)
+            unit = VARIABLE_REGISTRY.get(self.cfg.highres.variable, {}).get("unit", "")
+            plot_or_skip(f"pixel_hist_{self.sample_type}", plot_pixel_histograms,
+                         stats["gen_values"], stats["eval_values"], unit,
+                         path=os.path.join(self.fig_path, f"pixel_hist_{self.sample_type}.png"))
+            plot_or_skip(f"rmse_mae_hist_{self.sample_type}", plot_error_histograms,
+                         stats["mae_all"], stats["rmse_all"],
+                         path=os.path.join(self.fig_path,
+                                           f"rmse_mae_hist_{self.sample_type}.png"))
         return stats
 
     def spatial_statistics(self, save_stats: bool = True) -> Dict[str, np.ndarray]:
@@ -137,5 +147,33 @@ class Evaluation:
         gen, ref = self._paired()
         return compare_power_spectra(list(gen), list(ref), dx_km).as_dict()
 
-    def plot_example_images(self, n_samples: int = 4, mask_ocean: bool = False) -> None:
-        logger.info("figure examples_%s skipped: the port does not plot", self.sample_type)
+    def plot_example_images(self, n_samples: int = 4, mask_ocean: bool = False
+                            ) -> Optional[str]:
+        """Truth and generated side by side, ``examples_{type}.png``; the
+        path, or None where matplotlib is missing."""
+        return plot_or_skip(f"examples_{self.sample_type}", self._plot_examples, n_samples,
+                            mask_ocean)
+
+    def _plot_examples(self, n_samples: int, mask_ocean: bool) -> str:
+        plt = pyplot()
+        n = min(n_samples, self.gen_imgs.shape[0])
+        fig, axes = plt.subplots(2, n, figsize=(2.4 * n, 5), squeeze=False)
+        for i in range(n):
+            ref = self.eval_imgs[min(i, self.eval_imgs.shape[0] - 1)]
+            gen = self.gen_imgs[i]
+            if mask_ocean and self.lsm_imgs is not None:
+                lsm = self.lsm_imgs[min(i, self.lsm_imgs.shape[0] - 1)]
+                lsm = lsm[..., 0] if lsm.ndim == 3 else lsm
+                ref = np.where(lsm > 0.5, ref, np.nan)
+                gen = np.where(lsm > 0.5, gen, np.nan)
+            axes[0][i].imshow(ref)
+            axes[0][i].set_title("truth")
+            axes[1][i].imshow(gen)
+            axes[1][i].set_title("generated")
+            for ax in (axes[0][i], axes[1][i]):
+                ax.set_xticks([])
+                ax.set_yticks([])
+        path = os.path.join(self.fig_path, f"examples_{self.sample_type}.png")
+        fig.savefig(path, dpi=150)
+        plt.close(fig)
+        return path

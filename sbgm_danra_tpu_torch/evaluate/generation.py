@@ -20,8 +20,10 @@ sampler call of ``n_repeats`` rows of one condition
 normalised space before the back-transform; ``generate_full_domain`` runs
 ``evaluate/full_domain.py::sample_full_domain`` on a loader of whole-domain
 samples. A float32 model's calls run with TF32 off (``precision.exact_fp32``).
-The port does not plot: ``evaluation.save_figs`` logs that the figure was
-skipped.
+With ``evaluation.save_figs`` each mode writes the conditions, truth and
+generated grid to ``generated_figures/gen_samples_{suffix}.png`` (skipped
+with a log line where matplotlib is missing; a failed figure never stops
+generation).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from sbgm_danra_tpu_torch.precision import exact_fp32
 from sbgm_danra_tpu_torch.sampling import graphs
 from sbgm_danra_tpu_torch.sampling.samplers import config_from_run
 from sbgm_danra_tpu_torch.sde import VESDE
+from sbgm_danra_tpu_torch.utils.plotting import plot_or_skip, plot_samples_and_generated
 
 logger = logging.getLogger(__name__)
 
@@ -135,12 +138,17 @@ class SampleGenerator:
             np.savez_compressed(path, np.asarray(value))
             logger.info("Saved %s_%s to %s", key, suffix, path)
 
-    def _plot(self, suffix: str) -> None:
-        if self.cfg.evaluation.save_figs:
-            logger.info("figure gen_samples_%s skipped: the port does not plot", suffix)
+    def _plot(self, batch, generated, suffix: str) -> None:
+        if not self.cfg.evaluation.save_figs:
+            return
+        try:
+            plot_or_skip(f"gen_samples_{suffix}", plot_samples_and_generated, batch, generated,
+                         self.cfg, path=os.path.join(self.fig_path, f"gen_samples_{suffix}.png"))
+        except Exception as e:  # plotting must never kill generation
+            logger.warning("Plotting failed for %s: %s", suffix, e)
 
     def _finalize(self, batch, generated, suffix):
-        self._plot(suffix)
+        self._plot(batch, generated, suffix)
         x = batch["x"][..., 0]
         cond_img = batch.get("cond_img")
         x_bt, gen_bt, cond_bt = self._apply_backtransforms(x, generated, cond_img)

@@ -58,7 +58,7 @@ class SpatialSelfAttention(nn.Module):
         elif self.backend == "ring":
             raise NotImplementedError(
                 "attention backend 'ring' (sequence-sharded ring attention) is not ported "
-                "yet: ROADMAP queue 1 item 8 (parallel/ on torch.distributed)"
+                "yet: ROADMAP queue 1 item 7 (parallel/ on torch.distributed)"
             )
         else:
             out = dense_attention(q, k, v)

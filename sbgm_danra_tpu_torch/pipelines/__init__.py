@@ -1,2 +1,4 @@
-"""Analysis pipelines (counterpart of ``sbgm_danra_tpu.pipelines``, cut to the
-spectrum estimator)."""
+"""Data preparation and analysis pipelines (counterpart of
+``sbgm_danra_tpu.pipelines``, less the ERA5 download): splits, global
+statistics, store comparison and spectra, correlations, preprocessing and the
+data-analysis figures. numpy on the host, as in JAX."""

@@ -15,13 +15,20 @@ the scheduler's and early stopping's state, and host metadata (epoch,
 validation loss, history, model string). ``index.json`` keeps each step's
 validation loss; the manager keeps the ``max_to_keep`` newest files and the
 best one. A file is written beside its final name and renamed into place.
+
+``snapshot_state`` clones every tensor of the state on its device, with the
+scheduler's and early stopping's states: a rate-limited best checkpoint
+(``training.checkpoint_min_interval_epochs``) is held so until it is written,
+and ``CheckpointManager.save`` takes it in place of the state. It must be a
+copy: the train step, captured or not, writes the state's tensors in place.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -34,22 +41,52 @@ def _cpu(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
 
 
-def state_tree(state: TrainState, scheduler=None, early_stop=None,
-               meta: Optional[Dict] = None) -> Dict:
-    """The checkpoint's contents for ``state`` (tensors copied to the CPU)."""
-    params = dict(state.model.named_parameters())
+_CPU_ENTRIES = ("params", "batch_stats", "buffers", "ema_params")
+
+
+def _entries(state: TrainState, scheduler=None, early_stop=None) -> Dict:
+    """The checkpoint's entries of ``state``: its live tensors, not copies."""
     buffers = dict(state.model.named_buffers())
     return {
         "step": state.step,
-        "params": _cpu(params),
-        "batch_stats": _cpu({k: v for k, v in buffers.items() if k.endswith(_STATS)}),
-        "buffers": _cpu({k: v for k, v in buffers.items() if not k.endswith(_STATS)}),
+        "params": dict(state.model.named_parameters()),
+        "batch_stats": {k: v for k, v in buffers.items() if k.endswith(_STATS)},
+        "buffers": {k: v for k, v in buffers.items() if not k.endswith(_STATS)},
         "optimizer": state.optimizer.state_dict(),
-        "ema_params": _cpu(state.ema_params),
+        "ema_params": dict(state.ema_params),
         "scheduler": scheduler.state_dict() if scheduler is not None else None,
         "early_stop": early_stop.state_dict() if early_stop is not None else None,
-        "meta": dict(meta or {}),
     }
+
+
+def _clone(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone(v) for v in tree)
+    return copy.deepcopy(tree)
+
+
+@torch.no_grad()
+def snapshot_state(state: TrainState, scheduler=None, early_stop=None) -> Dict:
+    """Every tensor of ``state`` cloned on its device (parameters, BatchNorm
+    statistics, buffers, the optimizer's moments, step counts and tensor
+    learning rate, the EMA copy) with the step and the scheduler's and early
+    stopping's states as they are now."""
+    return _clone(_entries(state, scheduler, early_stop))
+
+
+def state_tree(state: Union[TrainState, Dict], scheduler=None, early_stop=None,
+               meta: Optional[Dict] = None) -> Dict:
+    """The checkpoint's contents for ``state`` or a ``snapshot_state`` of one
+    (which holds its scheduler's and early stopping's states), the weights
+    copied to the CPU."""
+    tree = state if isinstance(state, dict) else _entries(state, scheduler, early_stop)
+    out = {k: _cpu(v) if k in _CPU_ENTRIES else v for k, v in tree.items()}
+    out["meta"] = dict(meta or {})
+    return out
 
 
 def model_state_dict(tree: Dict, use_ema: bool = False) -> Dict[str, torch.Tensor]:
@@ -94,8 +131,9 @@ class CheckpointManager:
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt_{step:08d}.pt")
 
-    def save(self, step: int, state: TrainState, meta: Optional[Dict] = None, scheduler=None,
-             early_stop=None) -> str:
+    def save(self, step: int, state: Union[TrainState, Dict], meta: Optional[Dict] = None,
+             scheduler=None, early_stop=None) -> str:
+        """Write ``state`` (or a ``snapshot_state``) as step ``step``."""
         meta = dict(meta or {})
         final = self.path(step)
         tmp = final + ".tmp"

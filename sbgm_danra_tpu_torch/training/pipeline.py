@@ -7,14 +7,19 @@ steps, the scheduler, early stopping and the port's checkpoints:
 - ``train_batches`` / ``validate_batches``: one epoch of steps / validation
   losses over the loaders;
 - ``train``: the epoch loop: scheduler stepped on the validation loss (the
-  training loss where there is none), the best checkpoint written on every
-  improvement, early stopping;
+  training loss where there is none), the best checkpoint written on an
+  improvement at most every ``training.checkpoint_min_interval_epochs``
+  epochs (an improvement inside the window held as a ``snapshot_state`` on
+  the device and written at the next eligible epoch or at the loop's end,
+  early stopping included), early stopping, and the loss history written to
+  ``{paths.sample_dir}/losses_{model_string}.json``;
 - ``save`` / ``load``: the port's checkpoints with an exact resume;
 - ``score_fn(use_ema, image_hw)``: the sampling closure over the (EMA)
   weights; with ``image_hw`` on a model built for that size (``inference_spec``)
   that shares this model's tensors;
 - ``generate_previews``: a preview batch sampled from ``gen_loader`` on the
-  live EMA weights every ``visualization.preview_every`` epochs;
+  live EMA weights every ``visualization.preview_every`` epochs, and its
+  figure;
 - the extreme-precipitation sentinel (``training.monitor_extremes``) on the
   back-transformed HR batch every ``MONITOR_EVERY`` steps.
 
@@ -42,12 +47,13 @@ steps' DSM draws from the trainer's generator in the eager order, one
 losses (and, with ``detect_anomaly``, of the K finite flags, naming the
 step offsets that failed). An epoch of ``steps_per_epoch`` steps runs
 ceil(steps / K) chunks; the sentinel is skipped there (the batches are
-drawn inside the graph), with a warning, as in JAX. Rate-limited and
-asynchronous checkpoint writes and meshes wait for ROADMAP Queue 1.
+drawn inside the graph), with a warning, as in JAX. Asynchronous checkpoint
+writes and meshes wait for ROADMAP Queue 1.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import math
 import os
@@ -67,7 +73,7 @@ from sbgm_danra_tpu_torch.precision import exact_fp32
 from sbgm_danra_tpu_torch.sampling import graphs
 from sbgm_danra_tpu_torch.sampling.samplers import config_from_run
 from sbgm_danra_tpu_torch.sde import VESDE
-from sbgm_danra_tpu_torch.training.checkpointing import CheckpointManager
+from sbgm_danra_tpu_torch.training.checkpointing import CheckpointManager, snapshot_state
 from sbgm_danra_tpu_torch.training.fused import make_fused_train_step, step_draws
 from sbgm_danra_tpu_torch.training.schedulers import EarlyStopping, make_scheduler
 from sbgm_danra_tpu_torch.training.state import create_train_state
@@ -77,6 +83,7 @@ from sbgm_danra_tpu_torch.training.train_step import (
     make_score_fn,
     make_train_step,
 )
+from sbgm_danra_tpu_torch.utils.plotting import plot_or_skip, plot_samples_and_generated
 from sbgm_danra_tpu_torch.utils.sentinels import clamp_extremes, report_precip_extremes
 
 logger = logging.getLogger(__name__)
@@ -246,6 +253,8 @@ class TrainingPipeline:
         return float(torch.stack(losses).mean()) if losses else float("nan")
 
     def _meta(self, val_loss: float) -> Dict:
+        """The checkpoint's metadata as it is now (the history copied, so a
+        deferred save records its own epoch's)."""
         return {"epoch": self.epoch, "val_loss": val_loss,
                 "history": {k: list(v) for k, v in self.history.items()},
                 "model_string": self.model_string}
@@ -253,6 +262,18 @@ class TrainingPipeline:
     def save(self, val_loss: float) -> str:
         return self.checkpoints.save(self.state.step, self.state, self._meta(val_loss),
                                      self.scheduler, self.early_stopping)
+
+    def _flush_pending(self, pending: tuple) -> None:
+        step, snapshot, meta = pending
+        logger.info("flushing rate-limited best checkpoint (epoch %d, val %.4f)",
+                    meta["epoch"], meta["val_loss"])
+        self.checkpoints.save(step, snapshot, meta)
+
+    def _dump_history(self) -> None:
+        path = os.path.join(self.cfg.paths.sample_dir, f"losses_{self.model_string}.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(self.history, f)
 
     def load(self, best: bool = False) -> None:
         meta = self.checkpoints.restore(self.state, best=best, scheduler=self.scheduler,
@@ -272,6 +293,9 @@ class TrainingPipeline:
         epochs = epochs or cfg.training.epochs
         steps_per_epoch = steps_per_epoch or cfg.training.steps_per_epoch
         best_val = min(self.history["val_loss"], default=math.inf)
+        save_interval = max(1, cfg.training.checkpoint_min_interval_epochs)
+        last_save_epoch = -save_interval  # the first improvement always saves
+        pending = None  # a rate-limited best: (step, snapshot_state, meta)
         for _ in range(epochs):
             t0 = time.time()
             if hasattr(self.train_loader, "set_epoch"):
@@ -284,10 +308,22 @@ class TrainingPipeline:
             logger.info("epoch %d: train %.4f  val %.4f  lr %.2e  (%.1fs)", self.epoch,
                         train_loss, val_loss, self.scheduler.lr, time.time() - t0)
             monitored = val_loss if np.isfinite(val_loss) else train_loss
-            self.epoch += 1
+            self.epoch += 1  # epochs completed; the checkpoint's metadata records it
+            eligible = self.epoch - last_save_epoch >= save_interval
             if monitored < best_val:
                 best_val = monitored
-                self.save(monitored)
+                if eligible:
+                    self.save(monitored)
+                    last_save_epoch = self.epoch
+                    pending = None
+                else:
+                    pending = (self.state.step,
+                               snapshot_state(self.state, self.scheduler, self.early_stopping),
+                               self._meta(monitored))
+            elif pending is not None and eligible:
+                self._flush_pending(pending)
+                last_save_epoch = self.epoch
+                pending = None
             self.state.with_learning_rate(self.scheduler.step(monitored))
             every = cfg.visualization.preview_every
             if every and self.epoch % every == 0:
@@ -297,6 +333,9 @@ class TrainingPipeline:
             if self.early_stopping is not None and self.early_stopping.update(monitored):
                 logger.info("early stopping at epoch %d", self.epoch)
                 break
+        if pending is not None:  # held past the last eligible epoch, or an early stop
+            self._flush_pending(pending)
+        self._dump_history()
         return self.history
 
     def score_fn(self, use_ema: Optional[bool] = None, image_hw: Optional[tuple] = None):
@@ -320,9 +359,11 @@ class TrainingPipeline:
                           capture: bool = False) -> Optional[np.ndarray]:
         """Preview sampling: one gen-loader batch sampled with the configured
         sampler at ``n_steps`` (``min(sampler.n_timesteps, 200)``) on the live
-        EMA weights, the sentinel on the back-transformed prcp, and the figure
-        skipped (the port does not plot). Returns the (N, H, W) normalised
-        fields, or None without a gen loader.
+        EMA weights, the sentinel on the back-transformed prcp, and with
+        ``visualization.save_figs`` the figure
+        ``{paths.sample_dir}/preview_{model_string}_epoch{epoch}.png`` (a
+        failed or skipped figure never stops training). Returns the (N, H, W)
+        normalised fields, or None without a gen loader.
 
         The noise comes from ``rng`` (the trainer's generator by default). The
         sampler runs its eager loop: the train steps between two previews
@@ -349,6 +390,11 @@ class TrainingPipeline:
             report_precip_extremes(gen_bt, f"epoch{self.epoch}-preview", cfg.training.extreme_cap)
             generated = np.asarray(clamp_extremes(generated, generated.max()))
         if cfg.visualization.save_figs:
-            logger.info("figure preview_%s_epoch%d skipped: the port does not plot",
-                        self.model_string, self.epoch)
+            name = f"preview_{self.model_string}_epoch{self.epoch}"
+            try:
+                os.makedirs(cfg.paths.sample_dir, exist_ok=True)
+                plot_or_skip(name, plot_samples_and_generated, batch, generated, cfg,
+                             path=os.path.join(cfg.paths.sample_dir, f"{name}.png"), dpi=120)
+            except Exception as e:  # previews must never kill training
+                logger.warning("preview plotting failed: %s", e)
         return generated

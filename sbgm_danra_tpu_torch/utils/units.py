@@ -1,11 +1,32 @@
-"""Physical-unit corrections (a copy of ``sbgm_danra_tpu/utils/units.py``, cut
-to what the port reads): temperatures K -> degC, ERA5 precipitation m -> mm,
-CAPE J -> kJ, MSL Pa -> hPa, geopotential -> geopotential height.
+"""Physical-unit corrections and the variables' names, units and colormaps
+(a copy of ``sbgm_danra_tpu/utils/units.py``, cut to what the port reads):
+temperatures K -> degC, ERA5 precipitation m -> mm, CAPE J -> kJ, MSL Pa ->
+hPa, geopotential -> geopotential height.
 """
 
 from __future__ import annotations
 
+from typing import Dict
+
 import numpy as np
+
+# long name, unit and colormap per variable (the figures read them)
+VARIABLE_REGISTRY: Dict[str, Dict[str, str]] = {
+    "temp": {"long_name": "2m temperature", "unit": "degC", "cmap": "plasma"},
+    "prcp": {"long_name": "Total precipitation", "unit": "mm", "cmap": "inferno"},
+    "cape": {"long_name": "CAPE", "unit": "kJ/kg", "cmap": "viridis"},
+    "nwvf": {"long_name": "Northward water vapour flux", "unit": "kg/m/s", "cmap": "cividis"},
+    "ewvf": {"long_name": "Eastward water vapour flux", "unit": "kg/m/s", "cmap": "cividis"},
+    "msl": {"long_name": "Mean sea level pressure", "unit": "hPa", "cmap": "coolwarm"},
+    "z_pl_250": {"long_name": "Geopotential height 250 hPa", "unit": "m", "cmap": "viridis"},
+    "z_pl_500": {"long_name": "Geopotential height 500 hPa", "unit": "m", "cmap": "viridis"},
+    "z_pl_850": {"long_name": "Geopotential height 850 hPa", "unit": "m", "cmap": "viridis"},
+    "z_pl_1000": {"long_name": "Geopotential height 1000 hPa", "unit": "m", "cmap": "viridis"},
+    "u10": {"long_name": "10m U wind", "unit": "m/s", "cmap": "RdBu_r"},
+    "v10": {"long_name": "10m V wind", "unit": "m/s", "cmap": "RdBu_r"},
+    "lsm": {"long_name": "Land-sea mask", "unit": "", "cmap": "binary"},
+    "topo": {"long_name": "Topography", "unit": "m", "cmap": "terrain"},
+}
 
 _TINY = 1e-10
 

@@ -193,3 +193,20 @@ def test_each_mode_writes_every_artifact(cli_env):
     for suffix in ("multi_n_2", "single", "repeated_4"):
         assert {f"{k}_{suffix}.npz" for k in ("gen_samples", "eval_samples", "lsm_samples",
                                               "seasons", "cond_samples_temp")} <= names
+
+
+def test_figures_under_jax_names(cli_env):
+    """matplotlib is present here: each mode's grid, the evaluation's
+    histograms and examples, the preview and the loss curves, under the
+    names and directories the JAX package uses."""
+    out = os.path.join(cli_env["root"], "samples")
+    ms = get_model_string(cli_env["cfg"])
+    gen_dir = os.path.join(out, "generation", ms)
+    want = {os.path.join(gen_dir, "generated_figures", f"gen_samples_{s}.png")
+            for s in ("multi_n_2", "single", "repeated_4")}
+    want |= {os.path.join(gen_dir, "evaluation_figures", f"{k}_{t}.png")
+             for k in ("pixel_hist", "rmse_mae_hist", "examples")
+             for t in ("multiple", "single", "repeated")}
+    want |= {os.path.join(out, f"preview_{ms}_epoch1.png"), os.path.join(out, f"losses_{ms}.png"),
+             os.path.join(out, f"config_{ms}.yaml"), os.path.join(out, f"losses_{ms}.json")}
+    assert not [p for p in sorted(want) if not os.path.getsize(p)]

@@ -48,6 +48,7 @@ def config_dict(root: str, **sections) -> dict:
         "paths": {
             "data_dir": root,
             "checkpoint_dir": os.path.join(root, "ckpt"),
+            "sample_dir": os.path.join(root, "samples"),
             "lsm_path": jax_paths.lsm_path(root),
             "topo_path": jax_paths.topo_path(root),
             "stats_load_dir": os.path.join(root, "stats"),
@@ -253,15 +254,58 @@ def test_cli_synthetic_data_then_train(tmp_path, device_dataset):
     pipe.load()
     assert pipe.epoch == 1 and pipe.state.step == 2
     assert all(np.isfinite(pipe.history["train_loss"] + pipe.history["val_loss"]))
+    written = set(os.listdir(os.path.join(root, "samples")))
+    assert {f"losses_{pipe.model_string}.json", f"losses_{pipe.model_string}.png",
+            f"config_{pipe.model_string}.yaml"} <= written
 
 
-@pytest.mark.parametrize("mode", sorted(main_app.NOT_PORTED))
-def test_cli_modes_not_ported_raise(tmp_path, mode):
-    path = os.path.join(str(tmp_path), "run.yaml")
+STATS_KEYS_EXACT = ("mean", "min", "max", "log_mean", "log_min", "log_max")
+
+
+@pytest.mark.parametrize("mode", ["data_splits", "run_statistics"])
+def test_cli_data_prep_modes(tmp_path, mode):
+    """``--mode synthetic_data`` (with the 'all' split), then ``--mode
+    data_splits`` (Random: every synthetic day falls in 2000) or ``--mode
+    run_statistics`` into a fresh statistics directory. Splits: each store's
+    train/valid/test days add up to the 12, are disjoint, and equal the 'all'
+    store's days. Statistics: every JSON the synthetic writer also wrote
+    agrees with it (its sums are shifted, ``StreamingStats``' are not: 1e-9
+    relative, std 1e-6)."""
+    root = str(tmp_path)
+    path = os.path.join(root, "run.yaml")
     with open(path, "w") as f:
-        yaml.safe_dump(config_dict(str(tmp_path)), f)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main_app.main(["--config_path", path, "--mode", mode])
+        yaml.safe_dump(config_dict(root, splits={"method": "Random", "seed": 1}), f)
+    main_app.main(["--config_path", path, "--mode", "synthetic_data", "--n_days", "12"])
+    if mode == "data_splits":
+        written = main_app.main(["--config_path", path, "--mode", mode])
+        assert len(written) == 3 * 3  # DANRA prcp, ERA5 temp and prcp x three splits
+        for model, var in (("DANRA", "prcp"), ("ERA5", "temp"), ("ERA5", "prcp")):
+            every = zarrlite.open_group(paths.build_data_path(root, model, var, GRID, "all"))
+            days = []
+            for split in ("train", "valid", "test"):
+                store = zarrlite.open_group(paths.build_data_path(root, model, var, GRID, split))
+                assert written[f"{model}/{var}/{split}"] == len(store.keys()) > 0
+                for key in store.keys():
+                    assert np.array_equal(store[key]["data"][...], every[key]["data"][...])
+                days += store.keys()
+            assert sorted(days) == every.keys() and len(days) == 12
+    else:
+        out_dir = os.path.join(root, "stats_new")
+        results = main_app.main(["--config_path", path, "--mode", mode,
+                                 f"paths.stats_load_dir={out_dir}"])
+        crop = "_".join(map(str, CROP_REGION))
+        assert set(results) == {f"DANRA/prcp/full/all", f"DANRA/prcp/{crop}/all",
+                                "ERA5/temp/full/all", "ERA5/prcp/full/all"}
+        for key in results:
+            model, var, crop_str, split = key.split("/")
+            size = f"{GRID[0]}x{GRID[1]}"
+            got = T.load_global_stats(out_dir, model, var, size, crop_str, split)
+            want = T.load_global_stats(os.path.join(root, "stats"), model, var, size,
+                                       crop_str, split)
+            assert got["n"] == 12 * (GRID[0] * GRID[1] if crop_str == "full" else 48 * 64)
+            for k, v in want.items():
+                tol = 1e-9 if k in STATS_KEYS_EXACT else 1e-6
+                assert abs(got[k] - v) <= tol * abs(v), (key, k, got[k], v)
 
 
 def test_fused_steps_guard_and_windowed_residency(data):

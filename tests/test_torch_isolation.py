@@ -1,5 +1,6 @@
 """Torch port: no module of sbgm_danra_tpu_torch imports JAX, and the path
-chip_smoke.py drives imports nothing of the JAX package (nor PyYAML).
+chip_smoke.py drives imports nothing of the JAX package (nor PyYAML, nor
+matplotlib, which the card machine lacks).
 
 A source scan reads every import statement of the port and of chip_smoke.py,
 those inside functions included. The run checks use a fresh interpreter that
@@ -65,10 +66,11 @@ def test_every_port_module_imports_without_jax():
     assert int(out.strip()) >= 15
 
 
-@pytest.mark.parametrize("blocked_extra", [("sbgm_danra_tpu",), ("sbgm_danra_tpu", "yaml")])
+@pytest.mark.parametrize("blocked_extra", [("sbgm_danra_tpu",), ("sbgm_danra_tpu", "yaml"),
+                                           ("sbgm_danra_tpu", "yaml", "matplotlib")])
 def test_chip_smoke_path_imports_nothing_of_the_jax_package(blocked_extra):
     """chip_smoke.py and the modules it imports, with the JAX package (and
-    PyYAML) refused as well."""
+    PyYAML, and matplotlib) refused as well."""
     _run(
         ("jax", "jaxlib", "flax", "optax", "orbax", *blocked_extra),
         """
@@ -80,7 +82,15 @@ def test_chip_smoke_path_imports_nothing_of_the_jax_package(blocked_extra):
                      "sbgm_danra_tpu_torch.cli.entries", "sbgm_danra_tpu_torch.cli.main_app",
                      "sbgm_danra_tpu_torch.evaluate.generation",
                      "sbgm_danra_tpu_torch.evaluate.evaluation",
-                     "sbgm_danra_tpu_torch.evaluate.quality_study"):
+                     "sbgm_danra_tpu_torch.evaluate.quality_study",
+                     "sbgm_danra_tpu_torch.cli.main_data_app",
+                     "sbgm_danra_tpu_torch.pipelines.splits",
+                     "sbgm_danra_tpu_torch.pipelines.stats_pipeline",
+                     "sbgm_danra_tpu_torch.pipelines.comparison",
+                     "sbgm_danra_tpu_torch.pipelines.correlations",
+                     "sbgm_danra_tpu_torch.pipelines.preprocess",
+                     "sbgm_danra_tpu_torch.pipelines.figures",
+                     "sbgm_danra_tpu_torch.utils.plotting"):
             importlib.import_module(name)
         assert not [m for m in sys.modules if _blocked(m)]
         """,
@@ -107,7 +117,10 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package():
                  "data/dataset.py", "data/synthetic.py", "data/factory.py", "ops/sdf.py",
                  "evaluate/generation.py", "evaluate/evaluation.py", "evaluate/quality_study.py",
                  "evaluate/crps.py", "evaluate/calibration.py", "parallel/ensemble.py",
-                 "pipelines/comparison.py", "utils/sentinels.py", "utils/logging_utils.py"):
+                 "pipelines/comparison.py", "utils/sentinels.py", "utils/logging_utils.py",
+                 "cli/main_data_app.py", "pipelines/splits.py", "pipelines/stats_pipeline.py",
+                 "pipelines/correlations.py", "pipelines/preprocess.py", "pipelines/figures.py",
+                 "utils/plotting.py"):
         assert os.path.join("sbgm_danra_tpu_torch", part) in scanned, part
     bad = [(os.path.relpath(f, ROOT), name) for f in files for name in _imported_names(f)
            if name.split(".")[0] in JAX_SIDE]
@@ -164,6 +177,7 @@ def test_data_path_and_train_main_run_without_the_jax_package(tmp_path):
         def cfg(device_dataset):
             return from_dict({{
                 "paths": {{"data_dir": root, "checkpoint_dir": os.path.join(root, "ckpt"),
+                          "sample_dir": os.path.join(root, "samples"),
                           "lsm_path": lsm_path(root), "topo_path": topo_path(root),
                           "stats_load_dir": os.path.join(root, "stats")}},
                 "highres": {{"variable": "prcp", "data_size": [32, 32],
@@ -191,7 +205,6 @@ def test_data_path_and_train_main_run_without_the_jax_package(tmp_path):
         import argparse
         from sbgm_danra_tpu_torch.cli.main_app import run_mode
         run_cfg = cfg(True)
-        run_cfg.paths.sample_dir = os.path.join(root, "samples")
         run_cfg.evaluation.n_steps = 3
         run_cfg.evaluation.gen_type = ("multiple", "repeated")
         run_cfg.evaluation.n_repeats = 2
@@ -206,3 +219,89 @@ def test_data_path_and_train_main_run_without_the_jax_package(tmp_path):
         """,
     )
     assert float(out.strip().splitlines()[-1]) > 0
+
+
+def test_no_module_of_the_port_imports_matplotlib_at_import():
+    """matplotlib only inside functions: an import statement at a module's top
+    level (under ``if`` / ``try`` too) never names it."""
+    files = glob.glob(os.path.join(ROOT, "sbgm_danra_tpu_torch", "**", "*.py"), recursive=True)
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        nodes = list(tree.body)
+        while nodes:
+            node = nodes.pop()
+            if isinstance(node, (ast.If, ast.Try)):
+                nodes += node.body + node.orelse + getattr(node, "finalbody", [])
+                nodes += [n for h in getattr(node, "handlers", []) for n in h.body]
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module] if isinstance(node, ast.ImportFrom) and node.module else [])
+            bad += [(os.path.relpath(path, ROOT), n) for n in names
+                    if n.split(".")[0] == "matplotlib"]
+    assert not bad, bad
+
+
+def test_data_prep_and_figures_run_without_matplotlib(tmp_path):
+    """With JAX, the JAX package and matplotlib refused (the card machine's
+    setting): ``main_app``'s ``data_splits`` and ``run_statistics``, a
+    ``train_main`` epoch whose loss figure is skipped, and ``main_data_app``'s
+    modes with ``--figures``, each figure skipped with one log line."""
+    out = _run(
+        (*JAX_SIDE, "matplotlib"),
+        f"""
+        import argparse, io, logging, os
+        import torch, yaml
+        from sbgm_danra_tpu_torch.cli import main_data_app
+        from sbgm_danra_tpu_torch.cli.entries import train_main
+        from sbgm_danra_tpu_torch.cli.main_app import run_mode
+        from sbgm_danra_tpu_torch.config import from_dict
+        from sbgm_danra_tpu_torch.data.paths import lsm_path, topo_path
+
+        root = {str(tmp_path)!r}
+        log = io.StringIO()
+        logging.basicConfig(level=logging.INFO, stream=log)
+        d = {{
+            "paths": {{"data_dir": root, "checkpoint_dir": os.path.join(root, "ckpt"),
+                      "sample_dir": os.path.join(root, "samples"),
+                      "lsm_path": lsm_path(root), "topo_path": topo_path(root),
+                      "stats_load_dir": os.path.join(root, "stats")}},
+            "highres": {{"variable": "prcp", "data_size": [32, 32],
+                        "scaling_method": "log_zscore", "full_domain_dims": [40, 48],
+                        "cutout_domains": [4, 36, 8, 40]}},
+            "lowres": {{"condition_variables": ["temp", "prcp"],
+                       "scaling_methods": ["zscore", "log_zscore"],
+                       "full_domain_dims": [40, 48]}},
+            "sampler": {{"time_embedding": 16, "last_fmap_channels": 32, "num_heads": 2,
+                        "block_layers": [1, 1, 1, 1]}},
+            "data_handling": {{"num_workers": 1}},
+            "training": {{"batch_size": 2, "epochs": 1, "steps_per_epoch": 1,
+                         "lr_scheduler": "none", "early_stopping": False, "verbose": False}},
+            "splits": {{"method": "Random"}},
+        }}
+        cfg = from_dict(d)
+        args = argparse.Namespace(n_days=10, no_all_split=False, device="cpu")
+        run_mode(cfg, "synthetic_data", args)
+        splits = run_mode(cfg, "data_splits", args)
+        assert sum(v for k, v in splits.items() if k.startswith("DANRA/")) == 10, splits
+        cfg.paths.stats_load_dir = os.path.join(root, "stats_prep")
+        stats = run_mode(cfg, "run_statistics", args)
+        assert len(stats) == 4, sorted(stats)
+        with torch.backends.mkldnn.flags(enabled=False):
+            pipe = train_main(cfg, device="cpu")
+        assert pipe.state.step == 1
+        path = os.path.join(root, "run.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(d, f)
+        for mode in ("run_statistics", "run_correlation"):
+            main_data_app.main(["--config_path", path, "--mode", mode, "--figures"])
+        assert not os.path.exists(os.path.join(root, "samples", "figures"))
+        text = log.getvalue()
+        assert "figure losses skipped: matplotlib missing" in text
+        assert text.count("skipped: matplotlib missing") == 1 + 3 + 2, text
+        assert not [m for m in sys.modules if _blocked(m)]
+        print(sorted(os.listdir(os.path.join(root, "samples"))))
+        """,
+    )
+    assert "logs" in out

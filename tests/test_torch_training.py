@@ -3,13 +3,19 @@
 The DSM loss, BatchNorm's training forward and update, one and three train
 steps of the tiny UNet against ``make_train_step`` (JAX's own t and z draws
 fed to both sides), remat, skipped non-finite steps, the optimizers, Xavier
-init, the schedulers, the port's checkpoints and pipeline, and the export of
-a JAX checkpoint with its EMA weights. One compiled JAX train step and one
-compiled JAX gradient are shared by the module (``jax_run``).
+init, the schedulers, the port's checkpoints and pipeline (the rate-limited
+best checkpoint, the loss history, ``train_main``'s log file and frozen
+config), and the export of a JAX checkpoint with its EMA weights. One
+compiled JAX train step and one compiled JAX gradient are shared by the
+module (``jax_run``).
 """
 
 import dataclasses
+import json
+import logging
 import os
+import sys
+import types
 
 import flax
 import jax
@@ -28,7 +34,7 @@ from sbgm_danra_tpu.training import schedulers as jax_sched
 from sbgm_danra_tpu.training.state import create_train_state as jax_create_state
 from sbgm_danra_tpu.training.train_step import make_train_step as jax_make_train_step
 from sbgm_danra_tpu_torch import losses
-from sbgm_danra_tpu_torch.config import from_dict
+from sbgm_danra_tpu_torch.config import from_dict, load_config
 from sbgm_danra_tpu_torch.convert import state_dict_from_flax, state_dicts_from_flax
 from sbgm_danra_tpu_torch.models.layers import BatchNorm
 from sbgm_danra_tpu_torch.models.unet import ModelSpec, build_score_model
@@ -498,7 +504,7 @@ class TestPipeline:
         them), validates, steps the scheduler, writes the best checkpoint and
         loads it back."""
         cfg = from_dict({
-            "paths": {"checkpoint_dir": str(tmp_path)},
+            "paths": {"checkpoint_dir": str(tmp_path), "sample_dir": str(tmp_path / "samples")},
             "highres": {"variable": "prcp", "data_size": list(HW)},
             "lowres": {"condition_variables": ["temp", "prcp"]},
             "sampler": {"last_fmap_channels": 64, "time_embedding": 32, "num_heads": 2,
@@ -532,6 +538,157 @@ class TestPipeline:
                 if k in ("cond_img", "lsm_cond", "topo_cond")}
         out = pipe.score_fn()(torch.zeros(1, *HW, 1), torch.tensor([0.5]), **cond)
         assert out.shape == (1, *HW, 1) and torch.isfinite(out).all()
+
+
+RUN = {"highres": {"variable": "prcp", "data_size": list(HW)},
+       "lowres": {"condition_variables": ["temp", "prcp"]},
+       "sampler": {"last_fmap_channels": 64, "time_embedding": 32, "num_heads": 2,
+                   "block_layers": [1, 1, 1, 1]}}
+
+
+def _run_cfg(tmp_path, **training):
+    return from_dict({**RUN, "paths": {"checkpoint_dir": str(tmp_path / "ckpt"),
+                                       "sample_dir": str(tmp_path / "samples")},
+                      "training": {"weight_init": False, "early_stopping": False,
+                                   "lr_scheduler": "StepLR",
+                                   "lr_scheduler_params": {"step_size": 1, "gamma": 0.5},
+                                   **training}})
+
+
+def _scripted(cfg, monkeypatch, val_losses):
+    """A pipeline whose epochs train nothing: each adds 1 to every parameter
+    and EMA tensor in place (as a train step writes them) and counts a step;
+    validation returns ``val_losses`` in turn (JAX's tests script them so)."""
+    pipe = TrainingPipeline(cfg, [], device="cpu")
+
+    @torch.no_grad()
+    def train_batches(max_steps=None):
+        for p in pipe.model.parameters():
+            p.add_(1.0)
+        for e in pipe.state.ema_params.values():
+            e.add_(1.0)
+        pipe.state.step = pipe.state.step + 1
+        return 1.0
+
+    vals = iter(val_losses)
+    monkeypatch.setattr(pipe, "train_batches", train_batches)
+    monkeypatch.setattr(pipe, "validate_batches", lambda max_steps=None: next(vals))
+    return pipe
+
+
+class TestCheckpointCadence:
+    """``training.checkpoint_min_interval_epochs`` (ROADMAP F11), on the
+    scripted validation losses of ``tests/test_training.py``'s cadence tests."""
+
+    def test_interval_gates_saves(self, tmp_path, monkeypatch):
+        """Improvements at epochs 1-5 with interval 3: live writes at 1 and 4,
+        the epoch-5 improvement held and flushed at the loop's end, as JAX's
+        ``test_checkpoint_interval_gates_saves`` pins; on disk, steps 1, 4, 5."""
+        cfg = _run_cfg(tmp_path, checkpoint_min_interval_epochs=3)
+        pipe = _scripted(cfg, monkeypatch, [100.0 - e for e in range(5)])
+        saved, flushed = [], []
+        save, flush = pipe.save, pipe._flush_pending
+        monkeypatch.setattr(pipe, "save", lambda val: (saved.append(pipe.epoch), save(val)))
+        monkeypatch.setattr(pipe, "_flush_pending",
+                            lambda pending: (flushed.append(pending[2]["epoch"]), flush(pending)))
+        pipe.train(epochs=5)
+        assert saved == [1, 4] and flushed == [5]
+        assert sorted(pipe.checkpoints._index) == [1, 4, 5]
+        assert pipe.checkpoints.best_step() == 5
+
+    def test_rate_limited_best_keeps_its_own_weights(self, tmp_path, monkeypatch):
+        """Validation 10, 2, 8, 9 with interval 3: epoch 2's improvement is
+        held and flushed at epoch 4; ``load(best=True)`` gives epoch 2, min
+        validation 2.0, epoch 2's weights, EMA and scheduler, not epoch 4's
+        (a snapshot that aliased the live tensors would save epoch 4's)."""
+        cfg = _run_cfg(tmp_path, checkpoint_min_interval_epochs=3)
+        pipe = _scripted(cfg, monkeypatch, [10.0, 2.0, 8.0, 9.0])
+        at = {}
+
+        def record(p, epoch, *_):
+            at[epoch] = ({k: v.clone() for k, v in p.model.state_dict().items()},
+                         {k: v.clone() for k, v in p.state.ema_params.items()})
+
+        pipe.train(epochs=4, on_epoch_end=record)
+        assert sorted(pipe.checkpoints._index) == [1, 2]
+        loaded = TrainingPipeline(cfg, [], device="cpu")
+        loaded.load(best=True)
+        assert loaded.epoch == 2 and loaded.state.step == 2
+        assert min(loaded.history["val_loss"]) == pytest.approx(2.0)
+        assert loaded.history == {k: v[:2] for k, v in pipe.history.items()}
+        weights, ema = at[2]
+        for k, v in loaded.model.state_dict().items():
+            assert torch.equal(v, weights[k]), k
+        assert all(torch.equal(v, ema[k]) for k, v in loaded.state.ema_params.items())
+        assert not torch.equal(next(loaded.model.parameters()), next(pipe.model.parameters()))
+        assert loaded.scheduler.lr == loaded.state.learning_rate == pipe.history["lr"][1]
+
+    def test_an_early_stop_flushes_the_held_best(self, tmp_path, monkeypatch):
+        cfg = _run_cfg(tmp_path, checkpoint_min_interval_epochs=10, early_stopping=True,
+                       early_stopping_params={"patience": 1, "min_delta": 0.0})
+        pipe = _scripted(cfg, monkeypatch, [5.0, 4.0, 4.5, 4.6, 1.0])
+        pipe.train(epochs=5)
+        assert pipe.epoch == 3 and sorted(pipe.checkpoints._index) == [1, 2]
+        assert pipe.checkpoints.best_step() == 2
+
+
+def test_train_writes_the_loss_history_as_jax(tmp_path, monkeypatch):
+    """``losses_{model_string}.json`` (ROADMAP F12): JAX's keys, one entry an
+    epoch, the bytes JAX's ``_dump_history`` writes for the same history."""
+    from sbgm_danra_tpu.training.pipeline import TrainingPipeline as JaxPipeline
+
+    cfg = _run_cfg(tmp_path)
+    pipe = _scripted(cfg, monkeypatch, [3.0, 2.0, 2.5])
+    pipe.train(epochs=3)
+    path = tmp_path / "samples" / f"losses_{pipe.model_string}.json"
+    history = json.loads(path.read_text())
+    assert set(history) == {"train_loss", "val_loss", "lr"}
+    assert all(len(v) == 3 for v in history.values()) and history["val_loss"] == [3.0, 2.0, 2.5]
+    theirs = tmp_path / "jax"
+    JaxPipeline._dump_history(types.SimpleNamespace(
+        cfg=types.SimpleNamespace(paths=types.SimpleNamespace(sample_dir=str(theirs))),
+        model_string=pipe.model_string, history=pipe.history))
+    assert path.read_bytes() == (theirs / path.name).read_bytes()
+
+
+@pytest.fixture
+def fresh_run_logger():
+    """The package logger without handlers, so that ``setup_logger`` opens
+    this test's log file; restored after."""
+    log = logging.getLogger("sbgm_danra_tpu_torch")
+    saved, log.handlers = log.handlers, []
+    yield log
+    for handler in log.handlers:
+        handler.close()
+    log.handlers = saved
+
+
+@pytest.mark.parametrize("with_yaml", [True, False])
+def test_train_main_writes_its_log_and_frozen_config(tmp_path, monkeypatch, caplog,
+                                                     fresh_run_logger, with_yaml):
+    """``train_main`` (ROADMAP F13): the run's log file under
+    ``sample_dir/logs``, ``config_{model_string}.yaml`` that reads back to the
+    same config, and the losses JSON and figure; with PyYAML refused, one skip
+    line and no YAML file."""
+    from sbgm_danra_tpu_torch.cli import entries
+
+    cfg = _run_cfg(tmp_path, epochs=1)
+    monkeypatch.setattr(entries, "make_loaders", lambda cfg, device: ([], None, None))
+    monkeypatch.setattr(TrainingPipeline, "train_batches", lambda self, max_steps=None: 1.0)
+    if not with_yaml:
+        monkeypatch.setitem(sys.modules, "yaml", None)
+    caplog.set_level(logging.INFO)
+    pipe = entries.train_main(cfg, device="cpu")
+    samples = tmp_path / "samples"
+    assert [f.endswith(".log") for f in os.listdir(samples / "logs")] == [True]
+    frozen = samples / f"config_{pipe.model_string}.yaml"
+    assert (samples / f"losses_{pipe.model_string}.json").exists()
+    assert (samples / f"losses_{pipe.model_string}.png").exists()
+    if with_yaml:
+        assert load_config(str(frozen)) == cfg
+    else:
+        assert not frozen.exists()
+        assert f"frozen config {frozen.name} skipped: PyYAML missing" in caplog.text
 
 
 def test_export_flax_checkpoint_to_convert(jax_run, tmp_path):
