@@ -130,6 +130,24 @@ times, and the graph's output against the eager route's on the same draws
    ``run_correlation``, ``create_small_batches`` and ``run_statistics
    --figures`` (without matplotlib: one skip line a figure set); each mode's
    wall seconds;
+5d'''. windowed: on 5d's stores, ``data_handling.device_window_days`` 6 over
+   the 22 train days (4 windows, bf16 staging), ``fused_steps`` 25,
+   ``training.async_checkpointing``, through ``make_loaders`` and
+   ``TrainingPipeline.train``: two epochs in fixed mode (25 steps a window)
+   and one swap-on-ready; every window visited, 3 swaps an epoch, at most two
+   fused graphs (one a card slot) and no capture after the first epoch, the
+   slots equal to the host days after the bf16 cast, K1 on the eval steps (as
+   many launches as the validations call for) and against the plain chain at
+   the eval batch, each asynchronous save against
+   a blocking copy of what it saves, the step time against the resident
+   loader's on the same stores, one fp32 window against the resident sampler
+   bit for bit, the host's decode ms a day (native codec and zlib), the
+   pinned copy's GB/s and a projection for a 30-year archive;
+5d''''. sweep: ``run_sweep`` with 2 trials of ``configs/sweep_tpu.yaml``'s
+   model on 5d's stores in this process: the card's reserved memory after
+   each trial (trial 2 at most 5% above trial 1), K1 fp32 on the eval steps
+   (as many launches as the validations call for) and each trial's UNet at
+   its eval batch against the plain chain;
 5e. train_full_domain: 5c's step at 589x789 -> 608x800, batch 2, attention
    'pallas', remat, on the step's graph: bf16, a capture and 3 replays with
    2 K2 forward and 1 K2 backward launch each (decoder block 1 at [2, 7600,
@@ -161,6 +179,7 @@ prints nothing on stdout.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import logging
@@ -590,6 +609,87 @@ def plain_k1():
 
     unet.conv3x3_gn_relu = k1.reference_chain
     return lambda: setattr(unet, "conv3x3_gn_relu", k1.conv3x3_gn_relu)
+
+
+K1_FWD_TOL = {"bfloat16": 5e-2, "float32": 1e-4}  # UNet forward, K1 vs the plain chain: of max|ref|
+
+
+def set_k1_counts(counts) -> None:
+    from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
+
+    k1.conv3x3_stats_launches, k1.gn_apply_launches = counts
+
+
+def k1_vs_plain_forward(model, batch, dev, dtype: str, seed: int) -> dict:
+    """``model`` (``train=False``) on a data batch's conditioning and noised
+    field at a seeded t, with K1 and with the plain chain, inside the fp32
+    precision rule of the trainer's steps (``exact_fp32``): the relative error
+    of max |ref|, finiteness, and K1's launches in the K1 forward. The launches
+    are taken back out of K1's counts: they compare, they do not run the path."""
+    from sbgm_danra_tpu_torch.precision import exact_fp32
+
+    g = torch.Generator(dev).manual_seed(seed)
+    cond = {k: batch[k] for k in ("y", "cond_img", "lsm_cond", "topo_cond")}
+    x = batch["x"] + torch.randn(batch["x"].shape, generator=g, device=dev)
+    t = torch.rand(batch["x"].shape[0], generator=g, device=dev) * 0.9 + 0.05
+    before = k1_counts()
+    with torch.no_grad(), exact_fp32(dtype):
+        reset_counts()
+        got = model(x, t, **cond)
+        counts = k1_counts()
+        restore = plain_k1()
+        try:
+            ref = model(x, t, **cond)
+        finally:
+            restore()
+    set_k1_counts(before)
+    rel = _rel(got, ref)
+    return dict(rel_err=rel, tolerance=K1_FWD_TOL[dtype], finite=bool(torch.isfinite(got).all()),
+                k1_launches=list(counts), batch=int(x.shape[0]), dtype=dtype)
+
+
+def check_k1_forward(row: dict, where: str) -> None:
+    check(row["rel_err"] <= row["tolerance"] and row["finite"],
+          f"{where}, K1 vs plain chain: {row}")
+    check_k1(tuple(row["k1_launches"]), 1, f"{where}, forward")
+
+
+@contextlib.contextmanager
+def watched_validations(hook=None):
+    """``TrainingPipeline.validate_batches`` watched for the block: each
+    validation's batch count (``min(max_steps, len(valid_loader))``, taken
+    before it runs) is appended to the yielded list, and ``hook(pipe)`` runs
+    after it while the pipeline lives. ``eval_evaluations`` turns the list
+    into the UNet evaluations the eval steps must launch K1 for."""
+    from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
+
+    original = TrainingPipeline.validate_batches
+    batches = []
+
+    def validate(self, max_steps=None):
+        n = len(self.valid_loader)
+        batches.append(n if max_steps is None else min(n, max_steps))
+        out = original(self, max_steps)
+        if hook is not None:
+            hook(self)
+        return out
+
+    TrainingPipeline.validate_batches = validate
+    try:
+        yield batches
+    finally:
+        TrainingPipeline.validate_batches = original
+
+
+def eval_evaluations(batches) -> int:
+    """UNet evaluations of the captured eval steps over validations of
+    ``batches`` batches each: each validation follows train replays, which
+    make the K1 packs its graph reads stale, so it captures its graph anew
+    (the warm-up calls run eagerly, the capture counts nothing) and replays
+    it once a batch."""
+    from sbgm_danra_tpu_torch.capture import WARMUP_CALLS
+
+    return sum(n + WARMUP_CALLS for n in batches)
 
 
 def phase_model(dev):
@@ -1822,6 +1922,406 @@ def phase_data_prep(dev, tmp):
     return {name: k1c[i] for i, name in enumerate(("conv3x3_stats", "gn_apply"))}
 
 
+WINDOW_DAYS = 6  # windowed phase: 22 train days in 4 windows, the last wrapping to day 0
+ARCHIVE_30Y_DAYS = 10957  # a 30-year daily archive, for the stager's projection
+
+
+def _same_tree(a, b) -> bool:
+    """Checkpoint trees equal: every tensor bit for bit (on the CPU), every
+    other value ``==``."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a.cpu(), b.cpu()))
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_tree(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _host_copy(tree):
+    """A checkpoint tree with every tensor copied to the host now."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    return tree
+
+
+def _slots_equal_host(loader) -> dict:
+    """Each card slot against its block's days loaded on the host and cast
+    by torch to the staging dtype: bit for bit."""
+    from sbgm_danra_tpu_torch.data.device_data import load_days
+
+    out = {}
+    for slot, block in enumerate(loader._slot_block):
+        if block < 0:
+            continue
+        hr, lr, classes = load_days(loader.dataset, loader._block_dates(block))
+        host = torch.from_numpy(np.concatenate([hr[..., None], lr], axis=-1)).to(loader.dtype)
+        out[f"slot{slot}_block{block}"] = bool(
+            torch.equal(loader._slots[slot].cpu(), host)
+            and torch.equal(loader._slot_classes[slot].cpu(), torch.from_numpy(classes)))
+    return out
+
+
+DECODE_ROUNDS = 3
+
+
+def _decode_ms_per_day(dataset, days) -> dict:
+    """Host milliseconds a day to read, decode and transform ``days``
+    full-domain days (``load_days``, one thread) on the native codec and on
+    the zlib path, ``DECODE_ROUNDS`` rounds alternating the two (the days in
+    the page cache); and the chunk decode alone (``zarrlite`` reads of the
+    three fields' full domains, no transform)."""
+    from sbgm_danra_tpu_torch.data import native_codec
+    from sbgm_danra_tpu_torch.data.dataset import extract_2d
+    from sbgm_danra_tpu_torch.data.device_data import load_days
+
+    sources = [(dataset.hr, dataset._hr_group, dataset._hr_map)] + [
+        (c, dataset._lr_groups[c.name], dataset._lr_maps[c.name])
+        for c in dataset.lr_conditions]
+    out = {path: dict(ms_per_day=[], decode_only_ms_per_day=[]) for path in ("native", "zlib")}
+    saved = os.environ.get("SBGM_ZARR_CODEC_DISABLE")
+    try:
+        for _ in range(DECODE_ROUNDS):
+            for path, disable in (("native", None), ("zlib", "1")):
+                if disable:
+                    os.environ["SBGM_ZARR_CODEC_DISABLE"] = disable
+                else:
+                    os.environ.pop("SBGM_ZARR_CODEC_DISABLE", None)
+                native_codec.reset()
+                out[path]["path_taken"] = native_codec.decode_path()
+                t0 = time.perf_counter()
+                load_days(dataset, days)
+                t1 = time.perf_counter()
+                for date in days:
+                    for src, group, day_map in sources:
+                        extract_2d(group, day_map[date], src.name)
+                t2 = time.perf_counter()
+                out[path]["ms_per_day"].append(1e3 * (t1 - t0) / len(days))
+                out[path]["decode_only_ms_per_day"].append(1e3 * (t2 - t1) / len(days))
+        for path in out:
+            out[path]["median_ms_per_day"] = float(np.median(out[path]["ms_per_day"]))
+            out[path]["median_decode_only_ms_per_day"] = float(
+                np.median(out[path]["decode_only_ms_per_day"]))
+    finally:
+        if saved is None:
+            os.environ.pop("SBGM_ZARR_CODEC_DISABLE", None)
+        else:
+            os.environ["SBGM_ZARR_CODEC_DISABLE"] = saved
+        native_codec.reset()
+    return out
+
+
+def _pinned_copy_gb_s(loader, repeats: int = 5) -> dict:
+    """The window's pinned host buffer copied to a card tensor of its shape
+    (``non_blocking``, on a side stream, as the stager copies): the median of
+    ``repeats`` copies timed with CUDA events."""
+    src = loader._host
+    dst = torch.empty_like(loader._slots[0])
+    stream = torch.cuda.Stream()
+    times = []
+    with torch.cuda.stream(stream):
+        for _ in range(repeats):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            dst.copy_(src, non_blocking=True)
+            end.record(stream)
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    ms = float(np.median(times))
+    nbytes = src.numel() * src.element_size()
+    return dict(bytes=nbytes, ms=ms, gb_s=nbytes / ms / 1e6, pinned=bool(src.is_pinned()))
+
+
+def phase_windowed(dev, tmp):
+    """The rotating-window loader (``data/windowed_data.py``) on the flagship
+    path, on ``train_data``'s stores: ``data_handling.device_window_days`` 6
+    over the 22 train days (4 windows), bf16 staging, ``fused_steps`` 25,
+    ``training.async_checkpointing`` on, built by ``make_loaders`` and
+    trained by ``TrainingPipeline.train``:
+
+    1. at construction, the card slots equal the host days after the bf16
+       cast, bit for bit;
+    2. two epochs in fixed mode (``device_window_steps`` 25: one fused chunk a
+       window, 100 steps an epoch, 3 swaps an epoch), then one epoch of the
+       same loader in swap-on-ready mode (``window_steps`` 0): every window
+       visited each epoch, ``n_swaps``, ``stall_s``, finite losses, at most
+       two fused-step graphs (one a card slot) after two epochs and the same
+       graphs, replayed, after the third: no capture after the first epoch;
+    3. K1's launches on the run (the eval steps', ``train=False``) against
+       the count the run's validations call for (``eval_evaluations``: the
+       valid batches of each epoch and each eval graph's warm-ups), then the
+       trained UNet at the eval step's batch against ``plain_k1()``;
+    4. each asynchronous save of the run (written by the worker while the
+       next epoch trained) against a blocking host copy of what it saves,
+       taken at the save;
+    5. the resident loader's fused step on the same stores (its second
+       epoch, 100 steps) against the windowed second epoch: samples/s;
+    6. a windowed sample at fixed draws, fp32 staging, one window over the
+       split, against the resident loader's: bit for bit;
+    7. the host's decode ms a day on the native codec and on zlib, the
+       pinned copy's GB/s, and from them a projection of the stager for a
+       30-year archive."""
+    import gc
+
+    from sbgm_danra_tpu_torch.data import native_codec
+    from sbgm_danra_tpu_torch.data.factory import make_dataset, make_loaders
+    from sbgm_danra_tpu_torch.data.windowed_data import WindowedDeviceLoader
+    from sbgm_danra_tpu_torch.training.checkpointing import state_tree
+    from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
+
+    start = time.perf_counter()
+    cfg = data_config(tmp, steps_per_epoch=None, async_checkpointing=True)
+    cfg.data_handling.device_window_days = WINDOW_DAYS
+    cfg.data_handling.device_window_steps = FUSED_K
+    cfg.paths.checkpoint_dir = os.path.join(tmp, "windowed", "ckpt")
+    cfg.paths.sample_dir = os.path.join(tmp, "windowed", "samples")
+    train, valid, _ = make_loaders(cfg, device=dev)
+    check(isinstance(train, WindowedDeviceLoader) and train.n_windows == 4
+          and train.dtype == torch.bfloat16, f"make_loaders built {type(train).__name__}")
+    slots_at_start = _slots_equal_host(train)
+
+    pipe = TrainingPipeline(cfg, train, valid, device=dev)
+    blocks, walls, swaps, refs = [], [], [], {}
+    fused, batches = pipe._fused, pipe.train_batches
+
+    def fused_call(*args):  # the window each chunk ran on
+        blocks[-1].append(train.current_block)
+        return fused(*args)
+
+    def train_batches(max_steps=None):
+        blocks.append([])
+        before = train.n_swaps
+        out, s = timed(lambda: batches(max_steps))
+        walls.append(s)
+        swaps.append(train.n_swaps - before)
+        return out
+
+    manager, save = pipe.checkpoints, pipe.checkpoints.save
+
+    def save_and_copy(step, state, meta=None, scheduler=None, early_stop=None, block=True):
+        # what a blocking save would write, copied to the host now; then the
+        # asynchronous save, written by the worker while the next epoch trains
+        refs[step] = (block, _host_copy(state_tree(state, scheduler, early_stop, meta)))
+        return save(step, state, meta, scheduler, early_stop, block=block)
+
+    manager.save = save_and_copy
+    pipe._fused, pipe.train_batches = fused_call, train_batches
+    losses = recorded_losses(pipe)
+    with watched_validations() as validations:
+        reset_counts()  # the windowed run starts here
+        pipe.train(epochs=2)
+        graphs_two_epochs = graph_stats("fused")
+        train.window_steps = 0  # the same loader, swap-on-ready
+        stall_before = train.stall_s
+        pipe.train(epochs=1)
+        k1c = k1_counts()
+    graphs_three_epochs = graph_stats("fused")
+    ready_stall_s = train.stall_s - stall_before
+    slots_at_end = _slots_equal_host(train)
+
+    saved = {}
+    for step, (block, ref) in refs.items():
+        if step in pipe.checkpoints._index:
+            _, tree = pipe.checkpoints.load_tree(step)
+            saved[step] = dict(block=block, **{k: _same_tree(tree[k], ref[k]) for k in ref})
+
+    # the trained UNet at the eval step's batch: K1 against the plain chain
+    k1_fwd = k1_vs_plain_forward(pipe.model, next(iter(valid)), dev, "bfloat16", seed=8)
+    history = pipe.history
+    pipe.checkpoints.close()
+    host_copy = _pinned_copy_gb_s(train)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the resident loader on the same stores: its second epoch of 100 steps
+    rcfg = data_config(tmp, steps_per_epoch=None)
+    rcfg.paths.checkpoint_dir = os.path.join(tmp, "windowed", "resident_ckpt")
+    resident, _, _ = make_loaders(rcfg, device=dev)
+    rpipe = TrainingPipeline(rcfg, resident, device=dev)
+    _, resident_first_s = timed(lambda: rpipe.train_batches(FUSED_K))  # the capture
+    _, resident_s = timed(lambda: rpipe.train_batches(len(blocks[1]) * FUSED_K))
+    del rpipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one fp32 window over the split against the resident stacks, same draws
+    one = WindowedDeviceLoader(make_dataset(cfg, "train"), cfg.training.batch_size,
+                               window_days=10**6, seed=0, dtype=torch.float32,
+                               cfg_dropout_prob=cfg.classifier_free_guidance.drop_prob,
+                               device=dev)
+    draws = one.draws(torch.Generator(dev).manual_seed(13))
+    a, b = one.sample_from(*draws), resident.sample_from(*draws)
+    one_window_unequal = [k for k in a if not torch.equal(a[k], b[k])]
+    del one, resident, a, b
+
+    decode = _decode_ms_per_day(train.dataset, list(train._block_dates(0)))
+    day_bytes = host_copy["bytes"] / train.window_days
+    window_step_s = walls[1] / (len(blocks[1]) * FUSED_K)  # fixed mode, second epoch
+    ready_step_s = walls[2] / (len(blocks[2]) * FUSED_K)  # swap-on-ready
+    resident_step_s = resident_s / (len(blocks[1]) * FUSED_K)
+    projection = {}
+    for w in (WINDOW_DAYS, 365):
+        stage_s = w * (min(decode[p]["median_ms_per_day"] for p in decode) / 1e3) + w * day_bytes / (
+            host_copy["gb_s"] * 1e9)
+        projection[f"window_{w}_days"] = dict(
+            windows=-(-ARCHIVE_30Y_DAYS // w), stage_s=stage_s,
+            slot_gib=w * day_bytes / 2**30,
+            train_steps_to_hide_staging=stage_s / ready_step_s)
+    finite = all(np.isfinite(float(v)) for v in losses)
+    evaluations = eval_evaluations(validations)
+    result = dict(
+        windows=train.n_windows, window_days=train.window_days, dtype="bfloat16",
+        days=len(train.dates), slots_equal_host_at_start=slots_at_start,
+        slots_equal_host_at_end=slots_at_end, blocks_by_epoch=blocks,
+        swaps_by_epoch=swaps, epoch_s=walls, steps_by_epoch=[len(b) * FUSED_K for b in blocks],
+        ready_mode_stall_s=ready_stall_s, stall_s=train.stall_s, n_swaps=train.n_swaps,
+        host_load_s_by_window=train.load_s, losses_finite=finite, history=history,
+        fused_graphs_after_two_epochs=graphs_two_epochs,
+        fused_graphs_after_three_epochs=graphs_three_epochs,
+        k1_launches=list(k1c), validation_batches=validations, eval_evaluations=evaluations,
+        k1_vs_plain_chain=k1_fwd,
+        async_saves_equal_blocking=saved, fixed_step_s=window_step_s,
+        ready_step_s=ready_step_s, resident_step_s=resident_step_s,
+        resident_first_chunk_s=resident_first_s,
+        fixed_vs_resident_step=window_step_s / resident_step_s,
+        ready_vs_resident_step=ready_step_s / resident_step_s,
+        fixed_samples_per_s=cfg.training.batch_size / window_step_s,
+        ready_samples_per_s=cfg.training.batch_size / ready_step_s,
+        resident_samples_per_s=cfg.training.batch_size / resident_step_s,
+        fixed_mode_stall_s=train.stall_s - ready_stall_s,
+        one_window_fp32_vs_resident_unequal_keys=one_window_unequal,
+        decode=decode, decode_path=native_codec.decode_path(), host_cores=os.cpu_count(),
+        zlib_h=os.path.exists("/usr/include/zlib.h"), pinned_copy=host_copy,
+        chunked_upload="not used: one copy a window (the 64 MiB slices of the JAX "
+                       "loader would be one slice of this 17 MB window)",
+        projection_30y=dict(note="projection, not a measurement: the faster path's decode "
+                                 "ms a day x days a window + the window's bytes at the pinned "
+                                 "copy's rate, against the swap-on-ready step time",
+                            archive_days=ARCHIVE_30Y_DAYS, **projection),
+        total_s=time.perf_counter() - start)
+    emit(phase="windowed", settings="configs/flagship_synth.yaml (bf16 UNet, batch 128, "
+         "128x128 crops inside [170, 350, 340, 520] of 589x789, SDF, CFG 0.1, fused_steps "
+         f"25), 22 train days in windows of {WINDOW_DAYS} (bf16 staging), "
+         "async_checkpointing", **result)
+    fixed = blocks[:2]
+    check(slots_at_start and all(slots_at_start.values()) and all(slots_at_end.values()),
+          f"card slots differ from the host days: {slots_at_start} {slots_at_end}")
+    check(all(sorted(set(b)) == list(range(train.n_windows)) for b in blocks),
+          f"not every window visited: {blocks}")
+    check(swaps == [train.n_windows - 1] * 3 and all(len(b) == train.n_windows for b in fixed),
+          f"swaps {swaps}, chunks {blocks}")
+    check(len(graphs_two_epochs) <= 2 and [g["capture_s"] for g in graphs_three_epochs]
+          == [g["capture_s"] for g in graphs_two_epochs],
+          f"fused graphs {graphs_two_epochs} -> {graphs_three_epochs}")
+    check(finite and all(np.isfinite(history["train_loss"] + history["val_loss"])),
+          f"windowed losses {history}")
+    check(validations == [len(valid)] * 3, f"windowed validations {validations}")
+    check_k1(k1c, evaluations, "windowed run's eval steps")
+    check_k1_forward(k1_fwd, "trained UNet at the windowed eval batch")
+    check(saved and all(not v["block"] and all(x for k, x in v.items() if k != "block")
+                        for v in saved.values()),
+          f"async saves against blocking copies: {saved}")
+    check(not one_window_unequal, f"one fp32 window vs the resident loader: {one_window_unequal}")
+    check(decode["native"]["path_taken"] == "native" and decode["zlib"]["path_taken"] == "zlib",
+          f"decode paths {decode}")
+    return {name: k1c[i] for i, name in enumerate(("conv3x3_stats", "gn_apply"))}
+
+
+SWEEP_TRIALS = 2
+SWEEP_GROWTH = 1.05  # reserved memory after trial 2 against trial 1
+
+
+def phase_sweep(dev, tmp):
+    """``sweep/run_sweep.py`` on the card: 2 trials of
+    ``configs/sweep_tpu.yaml``'s model (its sampler, model, training,
+    guidance and evaluation sections: fp32, 32x32 crops, batch 8, 1 epoch of
+    its 8 steps each, GP sampler, SuccessiveHalving) on ``train_data``'s
+    flagship stores (589x789, crop region [170, 350, 340, 520], the card
+    loader), a sqlite study under ``tmp``. Each trial is a new architecture
+    in this process; the card's reserved memory after each trial (once its
+    memory is released, ``run_sweep.release_trial_memory``) is printed, and
+    trial 2 may end at most 5% above trial 1. K1 (fp32) launches on the
+    trials' eval steps are held against the count their validations call for
+    (``eval_evaluations``), and after each validation, while the trial's
+    pipeline lives, its UNet at the eval batch against ``plain_k1()``
+    (``K1_FWD_TOL``, TF32 off as in the eval step)."""
+    import dataclasses
+    import json as json_
+
+    import yaml
+
+    from sbgm_danra_tpu_torch.sweep.run_sweep import run_sweep
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                           "sweep_tpu.yaml")) as f:
+        sweep = yaml.safe_load(f)
+    flagship = json_.loads(json_.dumps(dataclasses.asdict(data_config(tmp))))
+    base = {k: flagship[k] for k in ("paths", "highres", "lowres", "data_handling",
+                                     "stationary_conditions", "transforms")}
+    base.update({k: sweep[k] for k in ("experiment", "sampler", "model", "training",
+                                        "classifier_free_guidance", "evaluation",
+                                        "visualization")})
+    base["highres"]["data_size"] = sweep["highres"]["data_size"]
+    root = os.path.join(tmp, "sweep")
+    base["paths"].update(checkpoint_dir=os.path.join(root, "ckpt"),
+                         sample_dir=os.path.join(root, "samples"))
+    reserved = []
+
+    def after_trial(trial):
+        torch.cuda.synchronize()
+        reserved.append(dict(trial=trial.trial_id, params=dict(trial.params),
+                             reserved_bytes=torch.cuda.memory_reserved(dev),
+                             allocated_bytes=torch.cuda.memory_allocated(dev),
+                             at_s=time.perf_counter() - t0))
+
+    os.makedirs(root, exist_ok=True)
+    config_path = os.path.join(root, "base.yaml")
+    with open(config_path, "w") as f:
+        yaml.safe_dump(base, f)
+    k1_fwd = []
+
+    def k1_at_eval_batch(pipe):  # the trial's UNet at the shapes its eval step ran
+        k1_fwd.append(k1_vs_plain_forward(pipe.model, next(iter(pipe.valid_loader)), dev,
+                                          pipe.cfg.model.compute_dtype, seed=40 + len(k1_fwd)))
+
+    before = torch.cuda.memory_reserved(dev)
+    with watched_validations(k1_at_eval_batch) as validations:
+        reset_counts()  # the sweep's run starts here
+        t0 = time.perf_counter()
+        study = run_sweep(config_path, os.path.join(root, "study.db"), n_trials=SWEEP_TRIALS,
+                          epochs=1, steps_per_epoch=sweep["training"]["steps_per_epoch"],
+                          device=dev, after_trial=after_trial)
+        wall = time.perf_counter() - t0
+        k1c = k1_counts()
+    trials = study.trials
+    evaluations = eval_evaluations(validations)
+    growth = reserved[1]["reserved_bytes"] / max(reserved[0]["reserved_bytes"], 1)
+    emit(phase="sweep", settings="configs/sweep_tpu.yaml's sampler/model/training sections "
+         "(fp32, 32x32 crops, batch 8, 8 steps, 1 epoch) on the flagship stores, GP sampler, "
+         "SuccessiveHalving", trials=trials, reserved_before_bytes=before,
+         reserved_after_trial=reserved, growth_trial2_over_trial1=growth,
+         growth_limit=SWEEP_GROWTH, wall_s=wall, k1_fp32_launches=list(k1c),
+         validation_batches=validations, eval_evaluations=evaluations,
+         k1_vs_plain_chain=k1_fwd)
+    check(len(trials) == SWEEP_TRIALS and all(t["state"] in ("complete", "pruned")
+                                               for t in trials), f"sweep trials {trials}")
+    check(len(reserved) == SWEEP_TRIALS and growth <= SWEEP_GROWTH,
+          f"reserved memory grew from trial 1 to trial 2: {reserved}")
+    check(len(validations) == sum(len(t["intermediate"]) for t in trials) == len(k1_fwd),
+          f"sweep validations {validations}, trials {trials}")
+    check_k1(k1c, evaluations, "sweep trials' eval steps")
+    for i, row in enumerate(k1_fwd):
+        check_k1_forward(row, f"sweep validation {i}'s UNet at the eval batch")
+    return {name: k1c[i] for i, name in enumerate(("conv3x3_stats", "gn_apply"))}
+
+
 def _plain_k2():
     """Swap the plain attention (autograd through the dense fp32 version) in
     for K2 (restore by calling the result)."""
@@ -2228,6 +2728,8 @@ def main() -> int:
         train_data = run("train_data", phase_train_data, dev, tmp)
         generate = run("generate", phase_generate, dev, tmp)
         data_prep = run("data_prep", phase_data_prep, dev, tmp)
+        windowed = run("windowed", phase_windowed, dev, tmp)
+        sweep = run("sweep", phase_sweep, dev, tmp)
     train_bf16 = run("train_full_domain_bf16", phase_train_full_domain, dev, "bfloat16",
                      TRAIN_FULL["steps"], compare=True)
     train_fp32 = run("train_full_domain_fp32", phase_train_full_domain, dev, "float32", 1,
@@ -2295,6 +2797,7 @@ def main() -> int:
                                  "serving/eager": serving["eager"][name],
                                  "train_128/ema_eval_step": train_128["eval_k1"][
                                      name == "gn_apply"],
+                                 "windowed/eval_steps": windowed[name],
                                  **{f"samplers/{k}": v for k, v in samplers.items()}},
             **_k1_summary(k1_rows, name, "bfloat16"),
         })
@@ -2306,7 +2809,8 @@ def main() -> int:
             "replaces": "sbgm_danra_tpu/ops/fused_conv_gn.py:66",
             "launches": fp32[name],
             "launches_by_path": {"fp32_full_domain": fp32[name],
-                                 "fp32_full_domain/eager": fp32["eager"][name]},
+                                 "fp32_full_domain/eager": fp32["eager"][name],
+                                 "sweep/eval_steps": sweep[name]},
             **_k1_summary(k1_rows, name, "float32"),
         })
     check(all(k["launches"] > 0 for k in kernels),

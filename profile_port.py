@@ -80,6 +80,17 @@ each of 20 steps and ``torch.profiler`` over steps 5-8 (idle share,
 launches); with graphs, ``training.fused_steps`` = 25 through
 ``training/fused.py`` (``train_data_rows``).
 
+``--paths windowed`` trains the flagship on the rotating-window loader
+(``data/windowed_data.py``: 6-day bf16 windows of the ``--days`` stores'
+train split, fixed mode, 25 steps a window, fused 25) for 3 epochs, four
+times, with ``training.async_checkpointing`` on, off, off, on
+(``windowed_rows``): each epoch's training seconds, the fixed-mode stall and
+the host loads, and each checkpoint save's seconds on the training thread
+and its write's. ``--paths host_decode`` times the host's chunk decode on the
+native codec and on zlib at 1, 4 and 8 threads: the threaded host loader's
+samples/s and a window's decode split over a thread pool
+(``host_decode_rows``).
+
 ``--paths k2`` times K2 alone (``flash_attention_cuda`` on contiguous
 seeded inputs, which every version takes) in ``--dtype`` at the full-domain
 shape and at the card tests' shapes: mean device ms of 20 launches
@@ -864,6 +875,144 @@ def train_data_rows(torch, dev, args, smi, modes=("eager",), has_graphs=False) -
     return rows
 
 
+WINDOW_DAYS = 6  # the windowed flagship: 22 train days in 4 windows
+WINDOWED_EPOCHS = 3
+ASYNC_ORDER = (True, False, False, True)  # on, off, off, on: drift cancels in the pairs
+
+
+def windowed_rows(torch, dev, args, smi, tmp) -> list:
+    """The windowed flagship (``data_config``, ``device_window_days`` 6 over
+    the stores' train split, bf16 staging, fused 25, fixed mode at 25 steps a
+    window) trained ``WINDOWED_EPOCHS`` epochs by ``TrainingPipeline.train``,
+    once a run, with ``training.async_checkpointing`` in ``ASYNC_ORDER``.
+    Per run: each epoch's training seconds (``train_batches``, steps and the
+    stager's stalls inside) and steps, the fixed-mode stall and swaps it had,
+    each staged window's host load seconds, and each checkpoint save's
+    seconds on the training thread (the call), its ``torch.save``'s seconds
+    and, when asynchronous, the worker's seconds (its host copy and write),
+    and the whole ``train`` call."""
+    import gc
+
+    from sbgm_danra_tpu_torch.data.factory import make_loaders
+    from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
+
+    rows = []
+    for i, on in enumerate(ASYNC_ORDER):
+        cfg = data_config(tmp, steps_per_epoch=None, async_checkpointing=on)
+        cfg.data_handling.device_window_days = WINDOW_DAYS
+        cfg.data_handling.device_window_steps = FUSED_K
+        cfg.paths.checkpoint_dir = os.path.join(tmp, f"windowed_{i}", "ckpt")
+        cfg.paths.sample_dir = os.path.join(tmp, f"windowed_{i}", "samples")
+        train, valid, _ = make_loaders(cfg, device=dev)
+        pipe = TrainingPipeline(cfg, train, valid, device=dev)
+        manager, batches = pipe.checkpoints, pipe.train_batches
+        save, write, worker = manager.save, manager._write, manager._write_snapshot
+        epochs, saves, writes, worker_s = [], [], [], []
+
+        def timed(record, fn):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                record.append(time.perf_counter() - t0)
+                return out
+            return call
+
+        def train_batches(max_steps=None):
+            stall, swaps = train.stall_s, train.n_swaps
+            t0 = time.perf_counter()
+            loss = batches(max_steps)  # the losses read: the card finished the epoch
+            epochs.append(dict(train_s=time.perf_counter() - t0, stall_s=train.stall_s - stall,
+                               swaps=train.n_swaps - swaps))
+            return loss
+
+        manager.save, manager._write = timed(saves, save), timed(writes, write)
+        manager._write_snapshot = timed(worker_s, worker)
+        pipe.train_batches = train_batches
+        t0 = time.perf_counter()
+        pipe.train(epochs=WINDOWED_EPOCHS)
+        train_s = time.perf_counter() - t0
+        steps = len(train)
+        rows.append(dict(
+            label=args.label, root=args.root, card=smi, path="windowed/async_checkpointing",
+            run=i, async_checkpointing=on, train_call_s=train_s, epochs=epochs,
+            steps_per_epoch=steps,
+            step_s_after_epoch_0=[e["train_s"] / steps for e in epochs[1:]],
+            fixed_stall_s=train.stall_s, n_swaps=train.n_swaps, load_s=train.load_s,
+            save_call_s=saves, write_s=writes, worker_s=worker_s, history=pipe.history))
+        print(json.dumps(rows[-1]), flush=True)
+        pipe.checkpoints.close()
+        del pipe, train, valid, manager, save, write, worker
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+DECODE_ROUNDS = 3
+DECODE_WORKERS = (1, 4, 8)
+
+
+def host_decode_rows(torch, args, smi, tmp) -> list:
+    """The host's chunk decode on the native codec and on ``zlib``
+    (``SBGM_ZARR_CODEC_DISABLE``), ``DECODE_ROUNDS`` rounds alternating the
+    two, at ``DECODE_WORKERS`` threads, on the stores' train split (the days
+    in the page cache after the first round):
+
+    - the threaded host loader (``data/loader.py``'s ``DataLoader`` over
+      ``RepeatedDays``, batch 128, shuffled): samples/s of one batch (each
+      sample the HR and LR crops read through ``zarrlite``, transformed, the
+      EDT SDF);
+    - a 6-day window's full-domain decode (``load_days``, a day a task on a
+      thread pool, as a threaded stager would split it): ms a day."""
+    import concurrent.futures as cf
+
+    from sbgm_danra_tpu_torch.data import native_codec
+    from sbgm_danra_tpu_torch.data.device_data import load_days
+    from sbgm_danra_tpu_torch.data.factory import make_dataset
+    from sbgm_danra_tpu_torch.data.loader import DataLoader
+
+    dataset = make_dataset(data_config(tmp), "train")
+    days = list(dataset.common_dates[:WINDOW_DAYS])
+    timings = {(kind, path, n): [] for kind in ("loader_samples_per_s", "window_ms_per_day")
+               for path in ("native", "zlib") for n in DECODE_WORKERS}
+    taken = {}
+    saved = os.environ.get("SBGM_ZARR_CODEC_DISABLE")
+    try:
+        for r in range(DECODE_ROUNDS):
+            for path in ("native", "zlib"):
+                if path == "zlib":
+                    os.environ["SBGM_ZARR_CODEC_DISABLE"] = "1"
+                else:
+                    os.environ.pop("SBGM_ZARR_CODEC_DISABLE", None)
+                native_codec.reset()
+                taken[path] = native_codec.decode_path()
+                for n in DECODE_WORKERS:
+                    loader = DataLoader(RepeatedDays(dataset, 128), batch_size=128, shuffle=True,
+                                        num_workers=n, seed=r)
+                    t0 = time.perf_counter()
+                    next(iter(loader))
+                    timings[("loader_samples_per_s", path, n)].append(
+                        128 / (time.perf_counter() - t0))
+                    with cf.ThreadPoolExecutor(max_workers=n) as pool:
+                        t0 = time.perf_counter()
+                        list(pool.map(lambda d: load_days(dataset, [d]), days))
+                    timings[("window_ms_per_day", path, n)].append(
+                        1e3 * (time.perf_counter() - t0) / len(days))
+    finally:
+        if saved is None:
+            os.environ.pop("SBGM_ZARR_CODEC_DISABLE", None)
+        else:
+            os.environ["SBGM_ZARR_CODEC_DISABLE"] = saved
+        native_codec.reset()
+    rows = []
+    for (kind, path, n), values in timings.items():
+        rows.append(dict(label=args.label, root=args.root, card=smi, path=f"host_decode/{kind}",
+                         decode_path=path, path_taken=taken[path], threads=n,
+                         host_cores=os.cpu_count(), values=values,
+                         median=float(sorted(values)[len(values) // 2])))
+        print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
@@ -871,14 +1020,14 @@ def main() -> int:
     p.add_argument("--label", default="change")
     p.add_argument("--paths", default="full_domain,serving",
                    help="comma-separated: full_domain, serving, k1, k2, k2bwd, train, "
-                        "train_data")
+                        "train_data, windowed, host_decode")
     p.add_argument("--k1-sweep", action="store_true",
                    help="with k1: also time every launch shape the plan could choose")
     p.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"),
                    help="the working dtype of full_domain, k1 and k2")
     p.add_argument("--repeats", type=int, default=3)
     p.add_argument("--days", type=int, default=DATA_DAYS,
-                   help="synthetic days of train_data")
+                   help="synthetic days of train_data, windowed and host_decode")
     p.add_argument("--capture", default="eager", choices=("eager", "graph", "both"),
                    help="full_domain, serving, train, train_data: the eager loop, the CUDA "
                         "graphs, or both in turn (a checkout without graphs runs eager only)")
@@ -999,6 +1148,17 @@ def main() -> int:
                     f"{backend}, remat {remat}, {mode}", make)
     if "train_data" in args.paths.split(","):
         results += train_data_rows(torch, dev, args, smi, modes, has_graphs)
+    if {"windowed", "host_decode"} & set(args.paths.split(",")):
+        import tempfile
+
+        from sbgm_danra_tpu_torch.cli.main_app import synthetic_data
+
+        tmp = tempfile.mkdtemp()
+        synthetic_data(data_config(tmp), args.days, no_all_split=True)
+        if "windowed" in args.paths.split(","):
+            results += windowed_rows(torch, dev, args, smi, tmp)
+        if "host_decode" in args.paths.split(","):
+            results += host_decode_rows(torch, args, smi, tmp)
     for path, (what, make) in runs.items():  # make() builds the path's call
         import gc
 

@@ -6,7 +6,8 @@ graph (``torch.cuda.CUDAGraph``) and replayed: one launch from the host for
 the whole call, with the hand-written kernels (K1, K2) among its nodes.
 
 ``Graph(fn, inputs)`` follows PyTorch's recipe: ``warmup`` eager calls of
-``fn(*inputs)`` on a side stream (cuDNN's algorithm choice, the kernels'
+``fn(*inputs)`` on the device's capture stream (``capture_stream``: one
+side stream shared by every capture; cuDNN's algorithm choice, the kernels'
 packed weights and ticket counters, the allocator's blocks all happen there),
 then the capture of one call on that stream into the graph's private memory
 pool. ``inputs`` are the graph's static input tensors: the caller copies each
@@ -94,6 +95,23 @@ def kernel_names(launches: Dict[str, int]) -> Dict[str, int]:
     return out
 
 
+_capture_streams: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def capture_stream(dev) -> "torch.cuda.Stream":
+    """The side stream every capture on ``dev`` runs on, one a device (as
+    ``torch.cuda.graph``'s default capture stream): cuBLAS keeps a workspace
+    for each stream it has run on, so a stream of its own per capture would
+    leave a workspace on the card behind every graph (a sweep's trials grew
+    the card's memory so)."""
+    index = torch.device(dev).index
+    index = torch.cuda.current_device() if index is None else index
+    stream = _capture_streams.get(index)
+    if stream is None:
+        stream = _capture_streams[index] = torch.cuda.Stream(index)
+    return stream
+
+
 class Graph:
     """One captured call of ``fn(*inputs)``; see the module's notes.
 
@@ -118,7 +136,7 @@ class Graph:
         self._tickets: dict = {}
         self._hits: List[tuple] = []
         current = torch.cuda.current_stream(dev)
-        stream = torch.cuda.Stream(dev)
+        stream = capture_stream(dev)
         try:
             stream.wait_stream(current)
             with torch.cuda.stream(stream), k1.capture_scope(self._tickets, None):

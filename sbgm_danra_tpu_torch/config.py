@@ -132,8 +132,25 @@ class DataHandlingConfig:
     # the whole split resident on the card, batches put together there
     # (data/device_data.py); needs resize_factor 1 and LR on the HR grid
     device_dataset: bool = False
-    # > 0: the rotating-window variant, not ported yet (make_loaders raises)
+    # > 0 enables the rotating-window variant (data/windowed_data.py) for the
+    # TRAIN split: archives larger than the card keep only window_days days
+    # resident (two preallocated card slots: active + staged), refilled by a
+    # background host thread. The valid split stays fully resident.
     device_window_days: int = 0
+    # Batches trained per window: 0 = swap as soon as the next window is
+    # staged (throughput mode); k > 0 = exactly k (reproducible mode).
+    device_window_steps: int = 0
+    # Staging dtype for window buffers ("float32" | "bfloat16"). bfloat16
+    # halves the host-to-card copy and the resident bytes per window; its
+    # rounding is ~0.4% of a z-scored field's std, the precision the forward
+    # pass already uses when model.compute_dtype is bfloat16.
+    device_window_dtype: str = "bfloat16"
+    # Window composition: "consecutive" (contiguous archive days: sequential
+    # host reads, but seasonally correlated windows) or "strided" (each
+    # window spans the whole archive with stride n_windows: the per-step
+    # distribution approximates global i.i.d. sampling; the same bytes read
+    # per window with daily zarr groups).
+    device_window_layout: str = "consecutive"
 
 
 @dataclass
@@ -197,8 +214,10 @@ class EarlyStoppingParams:
 @dataclass
 class TrainingConfig:
     """The fields of the JAX reader's training section that the port's trainer
-    and serving engine act on; the reader skips the others (profiling,
-    ``async_checkpointing``), which the port does not do yet (ROADMAP).
+    and serving engine act on; the reader skips the others (profiling).
+    ``async_checkpointing``: checkpoint writes leave the training loop (a
+    snapshot on the device, then the copy to the host and ``torch.save`` on a
+    worker thread; ``training/checkpointing.py``).
     ``checkpoint_min_interval_epochs``: best-validation checkpoint writes at
     most every N epochs; an improvement inside the window is held as a
     snapshot on the device and written at the next eligible epoch or at the
@@ -231,6 +250,7 @@ class TrainingConfig:
     skip_nonfinite_updates: bool = False
     fused_steps: int = 0
     checkpoint_min_interval_epochs: int = 1
+    async_checkpointing: bool = False
     load_checkpoint: bool = False
     verbose: bool = True
     monitor_extremes: bool = True

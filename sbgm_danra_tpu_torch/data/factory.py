@@ -4,8 +4,9 @@
 builds the same three loaders as JAX: with ``data_handling.device_dataset``
 the train and valid splits live on ``device`` (``DeviceDataLoader``), else
 they are host ``DataLoader``s; the gen loader over the test split is a host
-loader either way. The rotating-window residency of
-``device_window_days > 0`` is not ported yet (ROADMAP Queue 1) and raises.
+loader either way. With ``device_window_days > 0`` the train split rotates
+through two card windows (``WindowedDeviceLoader``, for archives larger than
+the card) and the valid split stays fully resident.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import logging
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from sbgm_danra_tpu_torch import transforms as T
 from sbgm_danra_tpu_torch.data.dataset import DanraDataset, VariableSource
@@ -186,18 +188,34 @@ def make_loaders(cfg, device="cuda") -> Tuple:
         from sbgm_danra_tpu_torch.data.device_data import DeviceDataLoader
 
         if dh.device_window_days > 0:
-            raise NotImplementedError(
-                "data_handling.device_window_days > 0 (data/windowed_data.py) is not ported "
-                "to sbgm_danra_tpu_torch yet: ROADMAP Queue 1, item 'the data path' (windowed "
-                "residency); set it to 0 to keep the whole split on the card")
-        train = DeviceDataLoader(
-            make_dataset(cfg, "train"),
-            batch_size=t.batch_size,
-            steps_per_epoch=t.steps_per_epoch,
-            seed=t.seed,
-            cfg_dropout_prob=cfg.classifier_free_guidance.drop_prob,
-            device=device,
-        )
+            # an archive larger than the card: rotating windows for the train
+            # split (data/windowed_data.py); valid below stays fully resident
+            from sbgm_danra_tpu_torch.data.windowed_data import WindowedDeviceLoader
+
+            if dh.device_window_dtype not in ("float32", "bfloat16"):
+                raise ValueError("data_handling.device_window_dtype must be 'float32' or "
+                                 f"'bfloat16', got {dh.device_window_dtype!r}")
+            train = WindowedDeviceLoader(
+                make_dataset(cfg, "train"),
+                batch_size=t.batch_size,
+                window_days=dh.device_window_days,
+                steps_per_epoch=t.steps_per_epoch,
+                window_steps=dh.device_window_steps,
+                seed=t.seed,
+                cfg_dropout_prob=cfg.classifier_free_guidance.drop_prob,
+                dtype=getattr(torch, dh.device_window_dtype),
+                layout=dh.device_window_layout,
+                device=device,
+            )
+        else:
+            train = DeviceDataLoader(
+                make_dataset(cfg, "train"),
+                batch_size=t.batch_size,
+                steps_per_epoch=t.steps_per_epoch,
+                seed=t.seed,
+                cfg_dropout_prob=cfg.classifier_free_guidance.drop_prob,
+                device=device,
+            )
         valid = DeviceDataLoader(
             make_dataset(cfg, "valid"),
             batch_size=t.batch_size,

@@ -11,8 +11,9 @@ the data path needs:
 - partial reads: ``arr[a:b, c:d]`` touches only the chunks that intersect the
   requested window.
 
-The JAX package's native decoder (``data/native_codec.py``, a locally built
-shared library) is not copied: it changes only the host's speed (ROADMAP).
+A 2-D chunk is read through the native codec (``data/native_codec.py``: read,
+inflate and crop in one C call with the GIL released) where its policy asks
+for it, else through ``zlib``; both give the same array.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import zlib
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+
+from sbgm_danra_tpu_torch.data import native_codec
 
 _ZGROUP = ".zgroup"
 _ZARRAY = ".zarray"
@@ -135,6 +138,16 @@ class ZArray:
                     s_hi = min(hi, c0 + c)
                     src_sel.append(slice(s_lo - c0, s_hi - c0))
                     dst_sel.append(slice(s_lo - lo, s_hi - lo))
+                # native path: a 2-D chunk's read + inflate + crop in one C call
+                p = self._chunk_path(idx)
+                if self.ndim == 2 and native_codec.available() and os.path.exists(p):
+                    window = (src_sel[0].start, src_sel[0].stop,
+                              src_sel[1].start, src_sel[1].stop)
+                    cropped = native_codec.decompress_crop(
+                        p, self.compressor is not None, self.chunks, self.dtype, window)
+                    if cropped is not None:
+                        out[tuple(dst_sel)] = cropped
+                        return
                 chunk = self._read_chunk(idx)
                 out[tuple(dst_sel)] = chunk[tuple(src_sel)]
                 return

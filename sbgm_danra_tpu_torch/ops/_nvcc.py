@@ -1,4 +1,4 @@
-"""Build a CUDA source of ``sbgm_danra_tpu_torch/csrc`` into a shared library and load it.
+"""Build a source of ``sbgm_danra_tpu_torch/csrc`` into a shared library and load it.
 
 Each kernel source exports a plain C interface: its launch functions return
 ``cudaGetLastError()`` and ``sbgm_cuda_error_string`` turns that code into
@@ -7,7 +7,8 @@ text. The source is compiled with ``nvcc`` for ``sm_90a`` at first use into
 that hashes the source, the headers of ``csrc`` it includes and the flags, so
 an edited source or header builds anew and an unchanged one is loaded as it
 is. The library is loaded with ``ctypes``; the kernel modules set their
-functions' argument types.
+functions' argument types. ``build_host`` does the same for a host-only C++
+source (the chunk codec) with the system C++ compiler.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
 
 
 class BuiltLibrary(NamedTuple):
@@ -55,19 +57,28 @@ def find_nvcc() -> str:
     )
 
 
-def digest(source: Path) -> str:
+def find_cxx() -> str:
+    for name in (os.environ.get("CXX"), "c++", "g++"):
+        found = name and shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no C++ compiler found ($CXX, c++, g++ on PATH): the chunk codec is "
+                       f"compiled from {CSRC_DIR} at first use")
+
+
+def digest(source: Path, flags=NVCC_FLAGS) -> str:
     """Hash of ``source``, the local headers it includes (``#include "..."``,
     beside it) and the flags."""
     text = source.read_bytes()
     headers = re.findall(rb'^#include "([^"]+)"', text, re.M)
     parts = [text, *((source.parent / h.decode()).read_bytes() for h in headers)]
-    return hashlib.sha256(b"\0".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return hashlib.sha256(b"\0".join(parts) + " ".join(flags).encode()).hexdigest()
 
 
-def build(source: Path, name: str) -> BuiltLibrary:
-    """Compile ``source`` into ``_build/lib<name>_<hash>.so`` unless it is there; load it."""
-    nvcc = find_nvcc()
-    path = BUILD_DIR / f"lib{name}_{digest(source)[:16]}.so"
+def _compile(compiler: str, flags, libs, source: Path, name: str) -> BuiltLibrary:
+    """Compile ``source`` into ``_build/lib<name>_<hash>.so`` unless it is
+    there; load it. A failed compile raises with the compiler's output."""
+    path = BUILD_DIR / f"lib{name}_{digest(source, (*flags, *libs))[:16]}.so"
     log = ""
     t0 = time.perf_counter()
     compiled = not path.exists()
@@ -77,20 +88,33 @@ def build(source: Path, name: str) -> BuiltLibrary:
         os.close(fd)
         try:
             proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, str(source)],
+                [compiler, *flags, "-o", tmp, str(source), *libs],
                 capture_output=True, text=True, timeout=600,
             )
             log = proc.stdout + proc.stderr
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source}:\n{log}")
+                raise RuntimeError(f"{os.path.basename(compiler)} failed ({proc.returncode}) "
+                                   f"on {source}:\n{log}")
             os.replace(tmp, path)
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
     lib = ctypes.CDLL(str(path))
-    lib.sbgm_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.sbgm_cuda_error_string.restype = ctypes.c_char_p
     return BuiltLibrary(lib, path, compiled, time.perf_counter() - t0, log)
+
+
+def build(source: Path, name: str) -> BuiltLibrary:
+    """Compile a CUDA ``source`` with nvcc for sm_90a (unless built); load it."""
+    built = _compile(find_nvcc(), NVCC_FLAGS, (), source, name)
+    built.lib.sbgm_cuda_error_string.argtypes = [ctypes.c_int]
+    built.lib.sbgm_cuda_error_string.restype = ctypes.c_char_p
+    return built
+
+
+def build_host(source: Path, name: str, libs=()) -> BuiltLibrary:
+    """Compile a host C++ ``source`` with the system compiler, linking
+    ``libs`` (unless built); load it."""
+    return _compile(find_cxx(), CXX_FLAGS, tuple(libs), source, name)
 
 
 def check_launch(built: BuiltLibrary, rc: int, what: str) -> None:

@@ -21,10 +21,23 @@ scheduler's and early stopping's states: a rate-limited best checkpoint
 (``training.checkpoint_min_interval_epochs``) is held so until it is written,
 and ``CheckpointManager.save`` takes it in place of the state. It must be a
 copy: the train step, captured or not, writes the state's tensors in place.
+
+``save(..., block=False)`` (``training.async_checkpointing``) keeps the write
+out of the training loop: the state is snapshotted on its device (one clone
+of each tensor on the training stream, then an event recorded after the
+clones), and a single worker thread waits on that event, copies the snapshot
+to the host on a side stream and writes it. The event matters: the clones are
+asynchronous, and the next replay writes the live state in place
+(``capture.Graph.writes``), so a worker that read before the clones ran would
+write a later step's weights. At most one save is in flight (a second waits
+for the first, bounding the extra card memory at one snapshot); ``wait()``
+re-raises the worker's error (a checkpoint the caller believes written must
+not vanish silently). Reading the index or a checkpoint waits first.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import json
 import os
@@ -114,9 +127,18 @@ def restore_into(state: TrainState, tree: Dict, scheduler=None, early_stop=None)
     return dict(tree.get("meta") or {})
 
 
+def _device(tree: Dict) -> torch.device:
+    """The device of a snapshot's tensors (the CPU for an empty one)."""
+    for entry in _CPU_ENTRIES:
+        for v in (tree.get(entry) or {}).values():
+            return v.device
+    return torch.device("cpu")
+
+
 class CheckpointManager:
     """Writes ``ckpt_<step>.pt`` under ``directory`` and tracks the best
-    validation loss; keeps the ``max_to_keep`` newest and the best."""
+    validation loss; keeps the ``max_to_keep`` newest and the best. Saves
+    block unless asked not to (see the module's notes)."""
 
     def __init__(self, directory: str, max_to_keep: int = 3):
         self.directory = os.path.abspath(directory)
@@ -127,20 +149,52 @@ class CheckpointManager:
         if os.path.exists(self._index_path):
             with open(self._index_path) as f:
                 self._index = {int(k): float(v) for k, v in json.load(f).items()}
+        self._executor: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        self._pending: Optional[concurrent.futures.Future] = None
+        self._stream = None  # the worker's copy stream on a CUDA device
 
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt_{step:08d}.pt")
 
     def save(self, step: int, state: Union[TrainState, Dict], meta: Optional[Dict] = None,
-             scheduler=None, early_stop=None) -> str:
-        """Write ``state`` (or a ``snapshot_state``) as step ``step``."""
+             scheduler=None, early_stop=None, block: bool = True) -> str:
+        """Write ``state`` (or a ``snapshot_state``) as step ``step``; with
+        ``block=False`` on the worker thread, from a snapshot taken now."""
         meta = dict(meta or {})
+        self.wait()
+        if block:
+            return self._write(step, state_tree(state, scheduler, early_stop, meta), meta)
+        snap = state if isinstance(state, dict) else snapshot_state(state, scheduler, early_stop)
+        device = _device(snap)
+        done = None
+        if device.type == "cuda":  # the clones are queued on the training stream
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(device))
+        if self._executor is None:
+            self._executor = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="ckpt-save")
+        self._pending = self._executor.submit(self._write_snapshot, step, snap, meta, done,
+                                              device)
+        return self.path(step)
+
+    def _write_snapshot(self, step: int, snap: Dict, meta: Dict, done, device) -> str:
+        """The worker's part: wait for the snapshot's clones, copy it to the
+        host off the training stream, write it."""
+        if done is None:
+            return self._write(step, state_tree(snap, meta=meta), meta)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+        with torch.cuda.stream(self._stream):  # torch.save copies the optimizer's tensors
+            self._stream.wait_event(done)
+            return self._write(step, state_tree(snap, meta=meta), meta)
+
+    def _write(self, step: int, tree: Dict, meta: Dict) -> str:
         final = self.path(step)
         tmp = final + ".tmp"
-        torch.save(state_tree(state, scheduler, early_stop, meta), tmp)
+        torch.save(tree, tmp)
         os.replace(tmp, final)
         self._index[step] = float(meta.get("val_loss", float("inf")))
-        best = self.best_step()
+        best = self._best()
         for old in sorted(self._index)[:-self.max_to_keep]:
             if old != best:
                 self._index.pop(old)
@@ -151,15 +205,34 @@ class CheckpointManager:
         os.replace(self._index_path + ".tmp", self._index_path)
         return final
 
-    def latest_step(self) -> Optional[int]:
-        return max(self._index) if self._index else None
+    def wait(self) -> None:
+        """Block until an in-flight ``block=False`` save is written; re-raises
+        the worker's error."""
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            pending.result()
 
-    def best_step(self) -> Optional[int]:
+    def close(self) -> None:
+        self.wait()
+        if self._executor is not None:
+            self._executor.shutdown(wait=True)
+            self._executor = None
+
+    def _best(self) -> Optional[int]:
         if not self._index:
             return None
         return min(self._index, key=lambda s: (self._index[s], -s))
 
+    def latest_step(self) -> Optional[int]:
+        self.wait()
+        return max(self._index) if self._index else None
+
+    def best_step(self) -> Optional[int]:
+        self.wait()
+        return self._best()
+
     def load_tree(self, step: Optional[int] = None, best: bool = False) -> Tuple[int, Dict]:
+        self.wait()
         if step is None:
             step = self.best_step() if best else self.latest_step()
         if step is None:

@@ -16,8 +16,12 @@ loss's.
 On the card (``capture=True``) one graph of one step (sampler and train
 step) is replayed K times from a host loop that copies each step's draws
 into its inputs. One graph of all K steps ran no faster a step and took K
-times as long to capture (``PERF.md``). On the CPU the K steps run eagerly
-on the same draws.
+times as long to capture (``PERF.md``). The graph reads the stacks by
+address, so it is kept per set of stacks (their ``data_ptr``), at most
+``DATA_SLOTS`` of them: the resident loader has one, the windowed loader
+(``data/windowed_data.py``) two card slots used in turn, so its swaps never
+capture again after each slot's first chunk. On the CPU the K steps run
+eagerly on the same draws.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from sbgm_danra_tpu_torch.training.state import TrainState
 from sbgm_danra_tpu_torch.training.train_step import StateGraphs, make_train_step
 
 MODEL_KEYS = ("x", "y", "cond_img", "lsm_cond", "topo_cond", "sdf")
+DATA_SLOTS = 2  # sets of stacks with a graph each: the windowed loader's two card slots
 
 
 def step_draws(generator: Optional[torch.Generator], x_shape: Sequence[int], k: int,
@@ -58,7 +63,7 @@ def make_fused_train_step(model, sde, sample_fn: Callable, t_eps: float = 1e-3,
         return {"loss": metrics["loss"],
                 "finite": metrics.get("finite", torch.isfinite(metrics["loss"]))}
 
-    cache = StateGraphs()
+    caches: Dict[tuple, StateGraphs] = {}  # by the stacks' addresses, oldest first
 
     def fused(state: TrainState, draws: Sequence[torch.Tensor], sdraws: Sequence[torch.Tensor],
               stacks: Sequence[torch.Tensor]) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -68,6 +73,11 @@ def make_fused_train_step(model, sde, sample_fn: Callable, t_eps: float = 1e-3,
                    for i in range(k)]
             return state, {key: torch.stack([o[key] for o in out]) for key in ("loss", "finite")}
         extra = tuple(s.data_ptr() for s in stacks)
+        cache = caches.get(extra)
+        if cache is None:
+            if len(caches) >= DATA_SLOTS:  # the oldest stacks' graph and pool go first
+                caches.pop(next(iter(caches)))
+            cache = caches[extra] = StateGraphs()
         out = {"loss": torch.empty(k, device=draws[0].device),
                "finite": torch.empty(k, dtype=torch.bool, device=draws[0].device)}
         graph, static = cache.entry("fused step", lambda *v: one(state, *v, stacks), state,

@@ -13,7 +13,11 @@ steps, the scheduler, early stopping and the port's checkpoints:
   the device and written at the next eligible epoch or at the loop's end,
   early stopping included), early stopping, and the loss history written to
   ``{paths.sample_dir}/losses_{model_string}.json``;
-- ``save`` / ``load``: the port's checkpoints with an exact resume;
+- ``save`` / ``load``: the port's checkpoints with an exact resume; with
+  ``training.async_checkpointing`` each write runs on the checkpoint
+  manager's worker thread from a snapshot on the device (``save(...,
+  block=False)``), and the trainer waits for it before ``load`` and at the
+  end of ``train``;
 - ``score_fn(use_ema, image_hw)``: the sampling closure over the (EMA)
   weights; with ``image_hw`` on a model built for that size (``inference_spec``)
   that shares this model's tensors;
@@ -41,14 +45,18 @@ on the CPU they run eagerly.
 
 ``training.fused_steps = K > 0`` (a device train loader, no mesh: JAX's
 guards) runs K steps per dispatch (``training/fused.py``), as JAX's
-``_run_train_fused``: per chunk of ``DeviceDataLoader.iter_chunks``, the K
+``_run_train_fused``: per chunk of the loader's ``iter_chunks``
+(``DeviceDataLoader``'s, or ``WindowedDeviceLoader``'s, whose swaps fall
+between chunks), the K
 steps' DSM draws from the trainer's generator in the eager order, one
 ``fused`` call (each step's batch drawn on the card), one read of the K
 losses (and, with ``detect_anomaly``, of the K finite flags, naming the
 step offsets that failed). An epoch of ``steps_per_epoch`` steps runs
 ceil(steps / K) chunks; the sentinel is skipped there (the batches are
-drawn inside the graph), with a warning, as in JAX. Asynchronous checkpoint
-writes and meshes wait for ROADMAP Queue 1.
+drawn inside the graph), with a warning, as in JAX. The read of each chunk's
+losses is also the windowed loader's backpressure: without it the host would
+run ahead of the card and pace the window swaps on host time. Meshes wait
+for ROADMAP Queue 1.
 """
 
 from __future__ import annotations
@@ -261,13 +269,15 @@ class TrainingPipeline:
 
     def save(self, val_loss: float) -> str:
         return self.checkpoints.save(self.state.step, self.state, self._meta(val_loss),
-                                     self.scheduler, self.early_stopping)
+                                     self.scheduler, self.early_stopping,
+                                     block=not self.cfg.training.async_checkpointing)
 
     def _flush_pending(self, pending: tuple) -> None:
         step, snapshot, meta = pending
         logger.info("flushing rate-limited best checkpoint (epoch %d, val %.4f)",
                     meta["epoch"], meta["val_loss"])
-        self.checkpoints.save(step, snapshot, meta)
+        self.checkpoints.save(step, snapshot, meta,
+                              block=not self.cfg.training.async_checkpointing)
 
     def _dump_history(self) -> None:
         path = os.path.join(self.cfg.paths.sample_dir, f"losses_{self.model_string}.json")
@@ -335,6 +345,7 @@ class TrainingPipeline:
                 break
         if pending is not None:  # held past the last eligible epoch, or an early stop
             self._flush_pending(pending)
+        self.checkpoints.wait()  # an asynchronous save is on disk when train returns
         self._dump_history()
         return self.history
 

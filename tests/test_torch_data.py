@@ -311,7 +311,8 @@ def test_cli_data_prep_modes(tmp_path, mode):
 def test_fused_steps_guard_and_windowed_residency(data):
     """fused_steps needs a device train loader, as in JAX, and then runs K
     steps per dispatch (one chunk of 4 steps where 1 is asked: JAX's ceil);
-    a window of days raises, naming the ROADMAP item."""
+    a window of days builds the rotating-window train loader (the valid split
+    stays resident), which the fused steps take as well."""
     d = config_dict(data, training={"fused_steps": 4})
     mine_host = factory.make_loaders(from_dict(d), device="cpu")[0]
     with pytest.raises(ValueError, match="device-resident"):
@@ -321,10 +322,17 @@ def test_fused_steps_guard_and_windowed_residency(data):
     pipe = TrainingPipeline(from_dict(dd), train, device="cpu")
     assert np.isfinite(pipe.train_batches(1))
     assert pipe.state.step == 4 and train.epoch == 1
-    windowed = config_dict(data, data_handling={"device_dataset": True,
-                                                "device_window_days": 4})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        factory.make_loaders(from_dict(windowed), device="cpu")
+    from sbgm_danra_tpu_torch.data.device_data import DeviceDataLoader
+    from sbgm_danra_tpu_torch.data.windowed_data import WindowedDeviceLoader
+
+    windowed = config_dict(data, training={"fused_steps": 4},
+                           data_handling={"device_dataset": True, "device_window_days": 4})
+    train, valid, _ = factory.make_loaders(from_dict(windowed), device="cpu")
+    assert isinstance(train, WindowedDeviceLoader) and isinstance(valid, DeviceDataLoader)
+    assert train.n_windows == 2 and train.window_days == 4
+    pipe = TrainingPipeline(from_dict(windowed), train, device="cpu")
+    assert np.isfinite(pipe.train_batches(1))
+    assert pipe.state.step == 4 and train.epoch == 1
 
 
 @pytest.mark.parametrize("shape,key", [((30, 40), "data"), ((1, 30, 40), "tp"),

@@ -498,6 +498,109 @@ class TestCheckpoints:
         assert all(torch.equal(sd[k], v) for k, v in state.ema_params.items())
 
 
+def _same_tree(a, b) -> bool:
+    """Checkpoint trees equal: every tensor bit for bit, every other value =="""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(
+            _same_tree(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+class TestAsyncCheckpoints:
+    """``CheckpointManager.save(..., block=False)`` and
+    ``training.async_checkpointing``: a snapshot now, the write on the
+    manager's worker thread."""
+
+    def _trained(self, jax_run):
+        batches = [_tb(b) for b in jax_run["batches"]]
+        draws = [_jax_draws(r, b["x"].shape) for r, b in zip(jax_run["rngs"], batches)]
+        state = _port_state(jax_run["variables"])
+        step = make_train_step(state.model, VESDE())
+        for b, (t, z) in zip(batches[:2], draws[:2]):
+            step(state, b, t=t, z=z)
+        return state
+
+    def test_the_worker_writes_the_snapshot_not_the_live_state(self, jax_run, tmp_path,
+                                                              monkeypatch):
+        """The state changes in place before the worker writes (its
+        ``torch.save`` held until then): the file holds the state from
+        before the change. A worker's error surfaces at ``wait()``, once."""
+        import threading
+
+        state = self._trained(jax_run)
+        before = {k: v.clone() for k, v in state.model.state_dict().items()}
+        ema = {k: v.clone() for k, v in state.ema_params.items()}
+        gate, real_save = threading.Event(), torch.save
+
+        def held(obj, path):
+            assert gate.wait(60)
+            real_save(obj, path)
+
+        monkeypatch.setattr(torch, "save", held)
+        manager = CheckpointManager(str(tmp_path / "ckpt"))
+        manager.save(state.step, state, {"val_loss": 0.5}, block=False)
+        with torch.no_grad():
+            for t in (*state.model.parameters(), *state.ema_params.values()):
+                t.add_(1.0)
+        gate.set()
+        step, tree = manager.load_tree()  # waits for the worker
+        assert step == 2 and manager.best_step() == 2
+        sd = model_state_dict(tree)
+        assert all(torch.equal(sd[k], v) for k, v in before.items())
+        assert all(torch.equal(tree["ema_params"][k], v) for k, v in ema.items())
+        assert not torch.equal(next(state.model.parameters()), sd[next(iter(
+            dict(state.model.named_parameters())))])
+
+        def failing(obj, path):
+            raise OSError("disk full")
+
+        monkeypatch.setattr(torch, "save", failing)
+        manager.save(3, state, {"val_loss": 0.4}, block=False)  # returns at once
+        with pytest.raises(OSError, match="disk full"):
+            manager.wait()
+        manager.wait()  # re-raised once; nothing in flight
+        assert manager.latest_step() == 2
+        manager.close()
+
+    def test_async_and_blocking_saves_write_equal_checkpoints(self, jax_run, tmp_path):
+        state = self._trained(jax_run)
+        sched = schedulers.ReduceLROnPlateau(LR, patience=0)
+        sched.step(1.0)
+        trees = []
+        for block in (True, False):
+            manager = CheckpointManager(str(tmp_path / f"block_{block}"))
+            manager.save(state.step, state, {"val_loss": 0.5, "epoch": 2}, scheduler=sched,
+                         block=block)
+            trees.append(manager.load_tree()[1])
+            manager.close()
+        assert _same_tree(*trees) and trees[0]["step"] == 2 and trees[0]["scheduler"]
+
+    def test_async_checkpointing_in_the_epoch_loop_writes_what_blocking_writes(
+            self, tmp_path, monkeypatch):
+        """The rate-limited cadence of ``TestCheckpointCadence`` (validation
+        10, 2, 8, 9, interval 3: live writes, a held best flushed later) with
+        ``training.async_checkpointing`` on and off: the same steps on disk,
+        each checkpoint with the same contents; ``train`` returns with the
+        last write done."""
+        written = {}
+        for on in (False, True):
+            cfg = _run_cfg(tmp_path / str(on), checkpoint_min_interval_epochs=3,
+                           async_checkpointing=on)
+            pipe = _scripted(cfg, monkeypatch, [10.0, 2.0, 8.0, 9.0])
+            pipe.train(epochs=4)
+            assert pipe.checkpoints._pending is None
+            index = dict(pipe.checkpoints._index)
+            written[on] = {s: pipe.checkpoints.load_tree(s)[1] for s in index}
+        assert sorted(written[True]) == sorted(written[False]) == [1, 2]
+        for s in written[True]:
+            assert _same_tree(written[True][s], written[False][s]), s
+
+
 class TestPipeline:
     def test_epoch_loop_with_raw_batches(self, tmp_path):
         """Any iterable of collated dataset samples trains (extract_batch maps
