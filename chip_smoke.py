@@ -148,6 +148,18 @@ times, and the graph's output against the eager route's on the same draws
    each trial (trial 2 at most 5% above trial 1), K1 fp32 on the eval steps
    (as many launches as the validations call for) and each trial's UNet at
    its eval batch against the plain chain;
+5d*. parallel: ``sbgm_danra_tpu_torch/parallel/`` with its ranks as child
+   processes (``parallel.launch.spawn``; ``phase_parallel``): (a) NCCL on one
+   rank, the train-128 DP step on its CUDA graph (the all-reduce captured)
+   against the single-device step's graph, and both steps' times; (b) two
+   gloo ranks on the one card (CUDA tensors staged through pinned host
+   memory; NCCL refuses two ranks on one device), eager: the train-128 and
+   full-domain DP steps against one device (2 K2 forward and 1 backward
+   launch a rank), the member-sharded ensemble (8 members, 4 a rank,
+   dpmpp-25 CFG w=3: 192 K1 launches a rank, rows against the one-card
+   call), ring attention at [2, 7600, 4, 32] and the full-domain UNet with
+   attention 'ring' (the layers that ran ring-sharded), TP on {model: 2} and
+   the day-sharded windows through one DP step; each route on its line;
 5e. train_full_domain: 5c's step at 589x789 -> 608x800, batch 2, attention
    'pallas', remat, on the step's graph: bf16, a capture and 3 replays with
    2 K2 forward and 1 K2 backward launch each (decoder block 1 at [2, 7600,
@@ -2321,6 +2333,580 @@ def phase_sweep(dev, tmp):
         check_k1_forward(row, f"sweep validation {i}'s UNet at the eval batch")
     return {name: k1c[i] for i, name in enumerate(("conv3x3_stats", "gn_apply"))}
 
+# -- parallel: the parallel layer on the one card --------------------------------
+
+PAR_RANKS = 2  # gloo ranks sharing the card (NCCL refuses two ranks on one device)
+PAR_ENSEMBLE = 8  # members at 128 px, 4 a rank (configs/flagship_synth.yaml: n_repeats 8)
+PAR_WINDOW_DAYS = 22  # the windowed phase's 22 train days, one window, 11 a rank
+PAR_TP_BATCH = 8  # the DP+TP step's global batch at 128 px
+# the flagship's (ModelSpec(in_channels=6, num_classes=4)) fraction of parameter
+# elements that the tensor-parallel rules shard; tests/test_torch_parallel.py
+# holds it equal to JAX's sharded_param_fraction on the same model
+TP_FLAGSHIP_FRACTION = 0.9624762141711297
+PAR_LOSS_TOL = {"nccl_graph": 1e-3, "gloo_eager": 1e-3, "full_domain": 1e-2, "tp": 1e-2}
+# one Adam step of the two-rank step against one device's: a gradient that is 0
+# in exact arithmetic (the key third of a qkv bias) is float noise on both, and
+# Adam turns its sign into +-lr; the first run read 0.224 over the parameters
+# (the worst tensor encoder.attn4.qkv.bias, 0.84) and 6e-4 over the BatchNorm
+# statistics, which keep STATE_DRIFT_TOL; the gradients themselves are held to
+# PAR_GRAD_TOL
+PAR_DRIFT_TOL = 0.5
+# each gradient (part) of a DP step against one device's, of its max |ref|: the
+# one-rank NCCL step is the same computation (read 0); two bf16 gloo ranks split
+# the batch, so cuDNN sums in another order: the first run read 6.7e-2 at worst
+# (encoder.layer4.block0.conv1.weight), median 4.1e-3 (a bf16 ulp is 3.9e-3);
+# the single step's own repeat (``single_repeat_grad_err_*``) is reported beside
+PAR_GRAD_TOL = 0.1
+PAR_FP32_BATCH = 16  # the fp32 comparison's global batch, 8 rows a rank
+PAR_GRAD_TOL_FP32 = 1e-3  # its gradients (parts), of max |ref|
+PAR_ROWS_TOL = 5e-2  # ensemble rows, 4 a rank against 8 in one call: of max |ref| (bf16)
+RING_TOL = {"bfloat16": BF16_TOLERANCE, "float32": "fp32: |err| <= 2e-5 + 2e-5 |ref| against "
+            "the plain version with TF32 off"}
+
+
+def _par_setup():
+    """A rank's device and the imports every parallel body uses."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    from sbgm_danra_tpu_torch.ops import cuda_attention, fused_conv_gn
+
+    for m in (cuda_attention, fused_conv_gn):  # built by the parent: loaded here
+        m.build_library()
+    return dev
+
+
+def _grads(model) -> dict:
+    """Each parameter's gradient after a step (the all-reduced mean on a
+    mesh; 0 where the loss reads none, as the step fills it in)."""
+    return {k: p.grad.detach().float().clone() for k, p in model.named_parameters()}
+
+
+def _grad_err(got: dict, ref: dict) -> dict:
+    """max |got - ref| / max |ref| of each gradient part (``_grad_parts``)."""
+    got, ref = _grad_parts(got), _grad_parts(ref)
+    return {k: (got[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+            for k, g in ref.items()}
+
+
+def _dp_step_vs_single(dev, tmp, mesh, cfg, batch, seed: int, steps: int, t_eps=1e-3):
+    """One step of ``TrainingPipeline(mesh=mesh)`` on this rank's rows of
+    ``batch`` against the single-device pipeline's step on the whole batch
+    (rank 0 computes it; the same seeded weights, batch, t and z), then
+    ``steps`` timed steps of the DP pipeline on the same batch. Returns the
+    DP step's loss, route, step times and K2 counts, and on rank 0 the
+    comparison: the losses, the trained states (``state_drift``) and each
+    parameter's gradient, max |DP - single| over max |single|."""
+    from sbgm_danra_tpu_torch.sde import dsm_draws
+    from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
+
+    g = torch.Generator(dev).manual_seed(seed)
+    t, z = dsm_draws(batch["x"], g, t_eps)  # the global batch's draws
+    pipe = TrainingPipeline(cfg, [], device=dev, mesh=mesh)
+    before, _ = _snapshot(pipe.state)
+    local = pipe.shard(batch)
+    reset_counts()
+    dp_loss = pipe._train_step(pipe.state, local, t=t, z=z)["loss"].item()
+    k2f, k2b = k2_counts(), k2_bwd_counts()
+    dp_after, dp_ema = _snapshot(pipe.state)
+    dp_grads = _grads(pipe.model)
+    out = dict(loss=dp_loss, route=pipe._train_step.route, rows=int(local["x"].shape[0]),
+               k2_fwd=sum(k2f.values()), k2_bwd=sum(k2b.values()), k2_fwd_by_variant=k2f)
+    if steps:
+        loader = TimedBatches([batch] * steps)
+        pipe.train_loader = loader
+        pipe.train_batches(steps)
+        out["step_s"] = loader.step_s()
+        if out["route"]["graphs"]:
+            out["graph"] = graph_stats("dp train step")
+    del pipe
+    torch.cuda.empty_cache()
+    if mesh.rank == 0:
+        single = TrainingPipeline(cfg, [], device=dev, capture=out["route"]["graphs"])
+        s_loss, s_grads, saved = _step_grads(single, batch, t, z, single._train_step)
+        s_after, s_ema = _snapshot(single.state)
+        _restore(single, saved)  # the single step again: its own run-to-run spread
+        _, again, _ = _step_grads(single, batch, t, z, single._train_step)
+        grad_err, noise = _grad_err(dp_grads, s_grads), _grad_err(again, s_grads)
+        if steps:
+            loader = TimedBatches([batch] * steps)
+            single.train_loader = loader
+            single.train_batches(steps)
+            out["single_step_s"] = loader.step_s()
+        worst = max(grad_err, key=grad_err.get)
+        out.update(single_loss=s_loss, loss_rel_diff=abs(dp_loss - s_loss) / abs(s_loss),
+                   state_drift=state_drift(before, {"after": dp_after, "ema": dp_ema},
+                                           {"after": s_after, "ema": s_ema}),
+                   grad_err_max=grad_err[worst], grad_err_worst=worst,
+                   grad_err_median=float(np.median(list(grad_err.values()))),
+                   single_repeat_grad_err_max=max(noise.values()),
+                   single_repeat_grad_err_median=float(np.median(list(noise.values()))))
+        del single
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_nccl_rank(p):
+    """(a) NCCL on one rank: the flagship train-128 DP step on its CUDA graph
+    (the all-reduce captured) against the single-device step's graph."""
+    dev = _par_setup()
+    from sbgm_danra_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(device=dev)
+    spec = TRAIN_128
+    batch = train_batches(torch, 1, spec["batch"], spec["hw"], dev, seed=30)[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = _dp_step_vs_single(dev, tmp, mesh, train_config(tmp, "bfloat16", "xla", False),
+                                 batch, seed=5, steps=spec["steps"])
+    out.update(backend=mesh.backend, route_collectives=mesh.route(),
+               nccl_collectives=_one_rank_collectives(dev, mesh))
+    return out
+
+
+def _one_rank_collectives(dev, mesh) -> dict:
+    """Each NCCL call of ``parallel/collectives.py`` on a one-rank group, on
+    the card: the identity, so each must give its input back."""
+    from sbgm_danra_tpu_torch.parallel import collectives as C
+
+    x = torch.randn(4, 6, 3, generator=torch.Generator(dev).manual_seed(9), device=dev)
+    group = mesh.world
+    return {"route": C.route(group, x),
+            "all_reduce": bool(torch.equal(C.all_reduce_(x.clone(), group, "mean"), x)),
+            "broadcast": bool(torch.equal(C.broadcast_(x.clone(), 0, group), x)),
+            "all_gather": bool(torch.equal(C.all_gather(x, group, 1), x)),
+            "reduce_scatter": bool(torch.equal(C.reduce_scatter_mean(x, group, 1), x))}
+
+
+def _ensemble(dev, mesh):
+    """(b3) 8 members at 128 px, 4 a rank, dpmpp-25 with CFG w=3, on the
+    sampler's graph (a capture, then a replay counted) against the one-card
+    call of 8 (rank 0), and K1 against the plain chain at the rank's batch."""
+    from sbgm_danra_tpu_torch.models.unet import build_score_model
+    from sbgm_danra_tpu_torch.parallel.ensemble import generate_ensemble
+    from sbgm_danra_tpu_torch.sampling import graphs
+    from sbgm_danra_tpu_torch.sampling.samplers import SamplerConfig
+
+    model = build_score_model(flagship_spec(compute_dtype="bfloat16"),
+                              generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    config = SamplerConfig(num_steps=GEN_STEPS, guidance_scale=3.0)
+    cond = make_cond(1, SERVE_HW, dev, 21)
+
+    def call(m):
+        return generate_ensemble(model, torch.Generator(dev).manual_seed(22), PAR_ENSEMBLE,
+                                 (*SERVE_HW, 1), cond=cond, sampler="dpmpp_sampler",
+                                 config=config, mesh=m)
+
+    with torch.inference_mode():
+        call(mesh)  # the capture
+        reset_counts()  # this rank's ensemble run: one replay
+        rows, wall = timed(lambda: call(mesh))
+        counts = k1_counts()
+    per = PAR_ENSEMBLE // mesh.size
+    batch = make_cond(2 * per, SERVE_HW, dev, 23)  # CFG doubles the rank's members
+    batch["x"] = torch.randn(2 * per, *SERVE_HW, 1, generator=torch.Generator(dev).manual_seed(24),
+                             device=dev)
+    k1_row = k1_vs_plain_forward(model, batch, dev, "bfloat16", seed=25)
+    out = dict(members=PAR_ENSEMBLE, members_a_rank=per, k1_launches=list(counts),
+               unet_evaluations=GEN_STEPS - 1, wall_s=wall, k1_vs_plain=k1_row,
+               finite=bool(torch.isfinite(rows).all()), shape=list(rows.shape),
+               distinct_members=len({r.float().cpu().numpy().tobytes() for r in rows}))
+    if mesh.rank == 0:
+        with torch.inference_mode():
+            call(None)
+            one, one_wall = timed(lambda: call(None))
+        out.update(one_card_wall_s=one_wall, rows_rel_err=_rel(rows, one),
+                   rows_bit_identical=bool(torch.equal(rows, one)))
+    graphs.clear()
+    return out
+
+
+def _ring(dev, mesh):
+    """(b4) ring attention at [2, 7600, 4, 32] in bf16 and fp32 against K2
+    and the plain version on one card; the full-domain UNet forward with
+    attention 'ring' against 'pallas', and which layers ran ring-sharded."""
+    from sbgm_danra_tpu_torch.evaluate.full_domain import padded_dims
+    from sbgm_danra_tpu_torch.models.unet import build_score_model
+    from sbgm_danra_tpu_torch.ops import cuda_attention
+    from sbgm_danra_tpu_torch.parallel import collectives as C
+    from sbgm_danra_tpu_torch.parallel import ring_attention as ra
+
+    out = {"route": None, "kernels": []}
+    group = mesh.group("data")
+    shape = K2_MAIN[0]
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(dev).manual_seed(31)
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(3))
+        out["route"] = C.route(group, q)
+        blocks = ra.ring_self_attention(q, k, v, mesh)
+        whole = C.all_gather(blocks, group, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            ra.ring_self_attention(q, k, v, mesh)
+        torch.cuda.synchronize()
+        ring_ms = (time.perf_counter() - t0) / 3 * 1e3
+        row = dict(shape=list(shape), dtype=dtype_name(dtype), ring_ms=ring_ms,
+                   tolerance=RING_TOL[dtype_name(dtype)])
+        if mesh.rank == 0:  # TF32 is off for cuBLAS by PyTorch's default
+            ref = cuda_attention.flash_attention_reference(q.float(), k.float(), v.float())
+            k2 = cuda_attention.flash_attention_cuda(q, k, v)
+            err = (whole.float() - ref).abs()
+            if dtype == torch.bfloat16:
+                bound = 2 ** -8 * ref.abs() + 2 ** -8 * ref.abs().max()
+            else:
+                bound = 2e-5 + 2e-5 * ref.abs()
+            row.update(max_abs_err=err.max().item(), worst_err_over_tolerance=(err / bound).max()
+                       .item(), vs_k2_max_abs=(whole.float() - k2.float()).abs().max().item(),
+                       k2_ms=cuda_ms(lambda: cuda_attention.flash_attention_cuda(q, k, v), 10))
+        out["kernels"].append(row)
+    hw = padded_dims(*FULL_DOMAIN)
+    batch = train_batches(torch, 1, 1, FULL_DOMAIN, dev, seed=32)[0]
+    t = torch.full((1,), 0.4, device=dev)
+    cond = {k: batch[k] for k in ("y", "cond_img", "lsm_cond", "topo_cond")}
+    models = {b: build_score_model(flagship_spec(compute_dtype="bfloat16", attention_backend=b),
+                                   generator=torch.Generator().manual_seed(0)).to(dev).eval()
+              for b in ("ring", "pallas")}
+    ra.reset_ring_stats(models["ring"])
+    with torch.no_grad():
+        with ra.ring_context(mesh):
+            got = models["ring"](batch["x"], t, **cond)
+        ref = models["pallas"](batch["x"], t, **cond)
+    out.update(full_domain_hw=list(hw), forward_rel_err=_rel(got, ref),
+               forward_finite=bool(torch.isfinite(got).all()),
+               ring_stats=ra.ring_stats(models["ring"]))
+    return out
+
+
+def _tp(dev, mesh_tp, mesh_dp):
+    """(b5) TP on {model: 2}: the flagship 128-px forward against the
+    unsharded one, the sharded fraction, and one DP+TP step against flat DP."""
+    from sbgm_danra_tpu_torch.models.unet import build_score_model
+    from sbgm_danra_tpu_torch.parallel import tp
+    from sbgm_danra_tpu_torch.parallel.train import make_parallel_steps
+    from sbgm_danra_tpu_torch.sde import VESDE, dsm_draws
+    from sbgm_danra_tpu_torch.training.state import create_train_state
+
+    def flagship():
+        return build_score_model(flagship_spec(compute_dtype="bfloat16"),
+                                 generator=torch.Generator().manual_seed(0))
+
+    batch = train_batches(torch, 1, PAR_TP_BATCH, SERVE_HW, dev, seed=33)[0]
+    cond = {k: batch[k] for k in ("y", "cond_img", "lsm_cond", "topo_cond")}
+    t = torch.linspace(0.1, 0.9, PAR_TP_BATCH, device=dev)
+    model = flagship().to(dev).eval()
+    fraction = tp.sharded_param_fraction(model)
+    with torch.no_grad():
+        ref = model(batch["x"], t, **cond)
+        specs = tp.shard_params(model, mesh_tp)
+        got = model(batch["x"], t, **cond)
+    parts = sum(p.numel() for p in tp.sharded_parts(model))
+    out = dict(sharded_param_fraction=fraction, forward_rel_err=_rel(got, ref),
+               forward_bit_identical=bool(torch.equal(got, ref)),
+               sharded_weights=sum(1 for s in specs.values() if s), part_elements=parts)
+    del model
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = train_config(tmp, "bfloat16", "xla", False)
+        tz = dsm_draws(batch["x"], torch.Generator(dev).manual_seed(34))
+        for name, mesh, use_tp in (("flat_dp", mesh_dp, False), ("dp_tp", mesh_tp, True)):
+            model = flagship()  # the state made on the CPU, then moved, as the trainer does
+            state = create_train_state(cfg, model, torch.Generator().manual_seed(0))
+            model.to(dev)
+            state.to(dev)
+            step, evaluate, state, shard = make_parallel_steps(model, VESDE(), cfg, state, mesh,
+                                                               tp=use_tp)
+            local = shard(batch)
+            loss = step(state, local, t=tz[0], z=tz[1])["loss"].item()
+            after = evaluate(state, local, t=tz[0], z=tz[1])["loss"].item()
+            out[name] = dict(loss=loss, eval_after=after, rows=int(local["x"].shape[0]),
+                             route=step.route)
+            del model, state, step, evaluate
+            torch.cuda.empty_cache()
+    return out
+
+
+def _windowed(dev, tmp, mesh):
+    """(b6) the windowed stacks of the train split (one 22-day window),
+    day-sharded, sampled per rank, each row checked against the rank's own
+    days of the whole window, and one DP step on them."""
+    from sbgm_danra_tpu_torch.data.factory import make_dataset
+    from sbgm_danra_tpu_torch.data.windowed_data import WindowedDeviceLoader
+    from sbgm_danra_tpu_torch.parallel import windowed_dp as wdp
+    from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
+
+    cfg = data_config(tmp, fused_steps=0)  # a mesh trains one step a dispatch
+    loader = WindowedDeviceLoader(make_dataset(cfg, "train"), batch_size=cfg.training.batch_size,
+                                  window_days=PAR_WINDOW_DAYS, device=dev)
+    whole = loader.buffers()
+    fields, statics, classifier = wdp.day_sharded_buffers(whole, mesh)
+    n_days = fields.shape[0] * mesh.size
+    sampler = wdp.make_dp_batch_sampler(
+        mesh, n_days, loader.full_hw, loader.crop_hw, loader.cutout_domains,
+        cfg.training.batch_size, cfg_dropout_prob=loader.cfg_dropout_prob, seed=cfg.training.seed)
+    batch = sampler(0, 0, fields, statics, classifier)
+    day, ox, oy, _ = sampler.draws(0, 0, dev)
+    first = mesh.rank * fields.shape[0]
+    ch, cw = loader.crop_hw
+    own = torch.stack([whole[0][first + int(d), int(a):int(a) + ch, int(b):int(b) + cw, :1]
+                       for d, a, b in zip(day, ox, oy)])
+    rows_own = bool(torch.equal(batch["x"], own))
+    keys = ("x", "y", "cond_img", "lsm_cond", "topo_cond", "sdf")
+    pipe = TrainingPipeline(cfg, [], device=dev, mesh=mesh)
+    loss = pipe._train_step(pipe.state, {k: batch[k] for k in keys if k in batch},
+                            torch.Generator(dev).manual_seed(35))["loss"].item()
+    out = dict(window_days=loader.window_days, days_a_rank=int(fields.shape[0]),
+               trimmed_days=n_days, rows=int(batch["x"].shape[0]), rows_from_own_days=rows_own,
+               local_days_drawn=sorted({int(d) for d in day}), loss=loss,
+               first_param_sum=float(next(pipe.model.parameters()).double().sum()))
+    del pipe, loader
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_gloo_rank(p):
+    """(b) two gloo ranks on the one card (CUDA tensors, collectives staged
+    through pinned host memory): the train-128 and full-domain DP steps
+    against one device, the member-sharded ensemble, ring attention, TP and
+    the day-sharded windows; each part's seconds."""
+    dev = _par_setup()
+    from sbgm_danra_tpu_torch.parallel import collectives as C
+    from sbgm_danra_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh({"data": PAR_RANKS}, device=dev)
+    mesh_tp = make_mesh({"data": 1, "model": PAR_RANKS}, device=dev)
+    out, seconds = {"rank": mesh.rank, "backend": mesh.backend}, {}
+
+    def part(name, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        seconds[name] = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = TRAIN_128
+        batch = train_batches(torch, 1, spec["batch"], spec["hw"], dev, seed=30)[0]
+        part("train_128", _dp_step_vs_single, dev, tmp, mesh,
+             train_config(tmp, "bfloat16", "xla", False), batch, 5, 3)
+        grads = torch.zeros(p["n_params"], device=dev)  # the all-reduce of a step's gradients
+        C.flat_all_reduce_mean([grads], mesh.world)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            C.flat_all_reduce_mean([grads], mesh.world)
+        torch.cuda.synchronize()
+        out["train_128"]["grad_all_reduce_s"] = (time.perf_counter() - t0) / 3
+        # the same comparison in fp32 (TF32 off in both steps), at 8 rows a rank:
+        # what the batch split costs without bf16's rounding
+        small = train_batches(torch, 1, PAR_FP32_BATCH, spec["hw"], dev, seed=36)[0]
+        part("train_128_fp32", _dp_step_vs_single, dev, tmp, mesh,
+             train_config(tmp, "float32", "xla", False), small, 7, 0)
+        full = train_batches(torch, 1, TRAIN_FULL["batch"], FULL_DOMAIN, dev, seed=40)[0]
+        part("train_full_domain", _dp_step_vs_single, dev, tmp, mesh,
+             train_config(tmp, "bfloat16", "pallas", True), full, 6, 0)
+    part("ensemble", _ensemble, dev, mesh)
+    part("ring", _ring, dev, mesh)
+    part("tp", _tp, dev, mesh_tp, mesh)
+    part("windowed", _windowed, dev, p["tmp"], mesh)
+    out["seconds"] = seconds
+    return out
+
+
+def phase_parallel(dev, tmp):
+    """The parallel layer (``sbgm_danra_tpu_torch/parallel/``) with its ranks
+    as child processes of this script (``parallel.launch.spawn``: a
+    rendezvous on a free localhost port, results back through files):
+
+    a. NCCL, one rank: the flagship train-128 DP step (bf16, batch 128, Adam,
+       EMA) on its CUDA graph, the all-reduce captured, against the
+       single-device pipeline's step on its graph (same weights, batch, t and
+       z): loss within ``PAR_LOSS_TOL``, parameters, BatchNorm statistics and
+       EMA within ``STATE_DRIFT_TOL`` of what the step moved them; 5 timed
+       steps of each;
+    b. gloo, two ranks on the one card (CUDA tensors; NCCL refuses two ranks
+       on one device), each step eager (gloo cannot be captured):
+       - the same train-128 step, 64 rows a rank, against the single-device
+         step at batch 128 (global-batch BatchNorm, the gradient mean: the
+         loss, each gradient, the states), the host-staged all-reduce of the
+         flagship's gradients alone, and the comparison again in fp32 at 8
+         rows a rank (TF32 off), without bf16's rounding;
+       - the full-domain DP step (608x800, 'pallas', remat, batch 2: one row a
+         rank): 2 K2 forward and 1 backward launch on each rank, the loss
+         against the single-device step;
+       - the member-sharded ensemble (8 members at 128 px, 4 a rank,
+         dpmpp-25, CFG w=3) on each rank's sampler graph against the one-card
+         call of 8, K1 launches = 8 x 24 evaluations a rank, K1 against the
+         plain chain at the rank's batch;
+       - ring attention at [2, 7600, 4, 32] in bf16 and fp32 against the plain
+         version and K2, the full-domain UNet with attention 'ring' against
+         'pallas', and the layers that ran ring-sharded (every attention
+         layer whose token count divides 2);
+       - TP on {model: 2}: the flagship forward against the unsharded one,
+         ``sharded_param_fraction``, one DP+TP step against flat DP;
+       - windowed_dp: the 22 train days of ``train_data``'s stores as one
+         window, 11 a rank, each rank's 64 rows from its own days, one DP
+         step.
+    """
+    from sbgm_danra_tpu_torch.models.unet import build_score_model
+    from sbgm_danra_tpu_torch.parallel.launch import spawn
+
+    t0 = time.perf_counter()
+    n_params = sum(p.numel() for p in build_score_model(flagship_spec()).parameters())
+    nccl = spawn("chip_smoke:parallel_nccl_rank", 1, {}, backend="nccl", device="cuda",
+                 timeout=400, threads=4)[0]
+    nccl_s = time.perf_counter() - t0
+    ranks = spawn("chip_smoke:parallel_gloo_rank", PAR_RANKS, {"tmp": tmp, "n_params": n_params},
+                  backend="gloo", device="cuda", timeout=600, threads=4)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    smi = nvidia_smi()
+
+    # (a)
+    a_median = float(np.median(nccl["step_s"]))
+    a_single = float(np.median(nccl["single_step_s"]))
+    emit(phase="parallel", part="nccl_one_rank", route=dict(backend=nccl["backend"],
+         collectives=nccl["route_collectives"], graphs=nccl["route"]["graphs"]),
+         loss=nccl["loss"], single_loss=nccl["single_loss"],
+         loss_rel_diff=nccl["loss_rel_diff"], loss_tolerance=PAR_LOSS_TOL["nccl_graph"],
+         state_drift=nccl["state_drift"], state_drift_tolerance=STATE_DRIFT_TOL,
+         dp_step_s=nccl["step_s"], dp_step_s_median=a_median, single_step_s=nccl["single_step_s"],
+         single_step_s_median=a_single, dp_over_single=a_median / a_single,
+         grad_err_max=nccl["grad_err_max"], grad_err_worst=nccl["grad_err_worst"],
+         single_repeat_grad_err_max=nccl["single_repeat_grad_err_max"],
+         grad_tolerance=PAR_GRAD_TOL, nccl_collectives=nccl["nccl_collectives"],
+         graph=nccl.get("graph"), card=smi)
+    check(nccl["route"] == {"collectives": "nccl", "graphs": True},
+          f"NCCL one-rank route {nccl['route']}")
+    check(nccl["nccl_collectives"]["route"] == "nccl"
+          and all(v for k, v in nccl["nccl_collectives"].items() if k != "route"),
+          f"NCCL one-rank collectives: {nccl['nccl_collectives']}")
+    check(nccl["loss_rel_diff"] <= PAR_LOSS_TOL["nccl_graph"]
+          and nccl["grad_err_max"] <= PAR_GRAD_TOL
+          and all(d["ratio"] <= STATE_DRIFT_TOL for d in nccl["state_drift"].values()),
+          f"NCCL one-rank DP step vs single device: {nccl['loss_rel_diff']}, "
+          f"{nccl['state_drift']}")
+
+    # (b) train-128
+    tr = [r["train_128"] for r in ranks]
+    b_median = float(np.median(tr[0]["step_s"]))
+    emit(phase="parallel", part="gloo_train_128", route=tr[0]["route"],
+         rows_a_rank=[t["rows"] for t in tr], loss=[t["loss"] for t in tr],
+         single_loss=tr[0]["single_loss"], loss_rel_diff=tr[0]["loss_rel_diff"],
+         loss_tolerance=PAR_LOSS_TOL["gloo_eager"], grad_err_max=tr[0]["grad_err_max"],
+         grad_err_worst=tr[0]["grad_err_worst"], grad_err_median=tr[0]["grad_err_median"],
+         single_repeat_grad_err_max=tr[0]["single_repeat_grad_err_max"],
+         single_repeat_grad_err_median=tr[0]["single_repeat_grad_err_median"],
+         grad_tolerance=PAR_GRAD_TOL, state_drift=tr[0]["state_drift"],
+         state_drift_tolerance=PAR_DRIFT_TOL,
+         step_s=tr[0]["step_s"], step_s_median=b_median, single_eager_step_s=tr[0][
+             "single_step_s"], grad_all_reduce_s=[t["grad_all_reduce_s"] for t in tr],
+         grad_elements=n_params, all_reduce_share=tr[0]["grad_all_reduce_s"] / b_median)
+    check(all(t["route"] == {"collectives": "gloo-host-staged", "graphs": False} for t in tr),
+          f"gloo route {[t['route'] for t in tr]}")
+    check(tr[0]["loss"] == tr[1]["loss"] and tr[0]["loss_rel_diff"] <= PAR_LOSS_TOL["gloo_eager"]
+          and tr[0]["grad_err_max"] <= PAR_GRAD_TOL
+          and tr[0]["state_drift"]["bn_stats"]["ratio"] <= STATE_DRIFT_TOL
+          and all(d["ratio"] <= PAR_DRIFT_TOL for d in tr[0]["state_drift"].values()),
+          f"gloo train-128 DP vs single device: {tr}")
+
+    f32 = [r["train_128_fp32"] for r in ranks]
+    emit(phase="parallel", part="gloo_train_128_fp32", route=f32[0]["route"],
+         rows_a_rank=[f["rows"] for f in f32], loss=[f["loss"] for f in f32],
+         single_loss=f32[0]["single_loss"], loss_rel_diff=f32[0]["loss_rel_diff"],
+         grad_err_max=f32[0]["grad_err_max"], grad_err_worst=f32[0]["grad_err_worst"],
+         grad_err_median=f32[0]["grad_err_median"],
+         single_repeat_grad_err_max=f32[0]["single_repeat_grad_err_max"],
+         grad_tolerance=PAR_GRAD_TOL_FP32, state_drift=f32[0]["state_drift"])
+    check(f32[0]["loss"] == f32[1]["loss"] and f32[0]["loss_rel_diff"] <= 1e-5
+          and f32[0]["grad_err_max"] <= PAR_GRAD_TOL_FP32,
+          f"gloo fp32 train-128 DP vs single device: {f32[0]}")
+
+    # (b) full domain
+    fd = [r["train_full_domain"] for r in ranks]
+    emit(phase="parallel", part="gloo_train_full_domain", route=fd[0]["route"],
+         rows_a_rank=[f["rows"] for f in fd], loss=[f["loss"] for f in fd],
+         single_loss=fd[0]["single_loss"], loss_rel_diff=fd[0]["loss_rel_diff"],
+         loss_tolerance=PAR_LOSS_TOL["full_domain"], grad_err_max=fd[0]["grad_err_max"],
+         grad_err_worst=fd[0]["grad_err_worst"], grad_err_median=fd[0]["grad_err_median"],
+         single_repeat_grad_err_max=fd[0]["single_repeat_grad_err_max"],
+         grad_tolerance=PAR_GRAD_TOL,
+         k2_fwd_by_rank=[f["k2_fwd"] for f in fd], k2_bwd_by_rank=[f["k2_bwd"] for f in fd],
+         k2_fwd_by_variant=fd[0]["k2_fwd_by_variant"])
+    check(all(f["k2_fwd"] == 2 and f["k2_bwd"] == 1 and f["k2_fwd_by_variant"]["tc_bf16"] == 2
+              for f in fd), f"full-domain DP step K2 launches {fd}")
+    check(fd[0]["loss"] == fd[1]["loss"] and fd[0]["loss_rel_diff"] <= PAR_LOSS_TOL["full_domain"]
+          and fd[0]["grad_err_max"] <= PAR_GRAD_TOL,
+          f"full-domain DP step vs single device: {fd}")
+
+    # (b) ensemble
+    en = [r["ensemble"] for r in ranks]
+    emit(phase="parallel", part="gloo_ensemble", members=PAR_ENSEMBLE,
+         members_a_rank=en[0]["members_a_rank"], k1_launches_by_rank=[e["k1_launches"] for e in en],
+         unet_evaluations=en[0]["unet_evaluations"], rows_rel_err=en[0]["rows_rel_err"],
+         rows_tolerance=PAR_ROWS_TOL, rows_bit_identical=en[0]["rows_bit_identical"],
+         wall_s=[e["wall_s"] for e in en], one_card_wall_s=en[0]["one_card_wall_s"],
+         k1_vs_plain=[e["k1_vs_plain"] for e in en], distinct_members=en[0]["distinct_members"])
+    for rank, e in enumerate(en):
+        check_k1(tuple(e["k1_launches"]), GEN_STEPS - 1, f"ensemble rank {rank} (replay)")
+        check_k1_forward(e["k1_vs_plain"], f"ensemble rank {rank}'s UNet at its batch")
+        check(e["finite"] and e["shape"] == [PAR_ENSEMBLE, *SERVE_HW, 1],
+              f"ensemble rank {rank}: {e['shape']} finite {e['finite']}")
+    check(en[0]["rows_rel_err"] <= PAR_ROWS_TOL and en[0]["distinct_members"] == PAR_ENSEMBLE,
+          f"sharded ensemble vs one card: {en[0]['rows_rel_err']}")
+
+    # (b) ring
+    ring = r0["ring"]
+    ring_layers = {k: v for k, v in ring["ring_stats"].items()}
+    even = {k for k, v in ring_layers.items() if v["tokens"] % PAR_RANKS == 0}
+    emit(phase="parallel", part="gloo_ring", hop=ring["route"], kernels=ring["kernels"],
+         full_domain_hw=ring["full_domain_hw"], forward_rel_err=ring["forward_rel_err"],
+         forward_tolerance=K1_FWD_TOL["bfloat16"], ring_layers=ring_layers,
+         ring_sharded=sorted(k for k, v in ring_layers.items() if v["ring"]))
+    check(ring["route"] == "gloo-host-staged", f"ring hop route {ring['route']}")
+    check(all(row["worst_err_over_tolerance"] <= 1 for row in ring["kernels"]),
+          f"ring attention vs the plain version: {ring['kernels']}")
+    check(ring["forward_finite"] and ring["forward_rel_err"] <= K1_FWD_TOL["bfloat16"],
+          f"full-domain 'ring' forward vs 'pallas': {ring['forward_rel_err']}")
+    check(even and all((v["ring"], v["dense"]) == ((1, 0) if k in even else (0, 1))
+                       for k, v in ring_layers.items()), f"ring-sharded layers {ring_layers}")
+
+    # (b) TP
+    tps = [r["tp"] for r in ranks]
+    emit(phase="parallel", part="gloo_tp", mesh={"data": 1, "model": PAR_RANKS},
+         sharded_param_fraction=tps[0]["sharded_param_fraction"],
+         expected_fraction=TP_FLAGSHIP_FRACTION, forward_rel_err=[t["forward_rel_err"] for t in tps],
+         forward_bit_identical=[t["forward_bit_identical"] for t in tps],
+         sharded_weights=tps[0]["sharded_weights"], part_elements=tps[0]["part_elements"],
+         flat_dp=tps[0]["flat_dp"], dp_tp=tps[0]["dp_tp"],
+         dp_tp_loss_rel_diff=abs(tps[0]["dp_tp"]["loss"] - tps[0]["flat_dp"]["loss"])
+         / abs(tps[0]["flat_dp"]["loss"]), loss_tolerance=PAR_LOSS_TOL["tp"])
+    for t in tps:
+        check(t["sharded_param_fraction"] == TP_FLAGSHIP_FRACTION,
+              f"sharded fraction {t['sharded_param_fraction']}")
+        check(t["forward_rel_err"] <= 1e-3, f"TP forward vs unsharded {t['forward_rel_err']}")
+        for key in ("loss", "eval_after"):
+            rel = abs(t["dp_tp"][key] - t["flat_dp"][key]) / abs(t["flat_dp"][key])
+            check(rel <= PAR_LOSS_TOL["tp"], f"DP+TP {key} vs flat DP: {rel}")
+
+    # (b) windowed
+    wd = [r["windowed"] for r in ranks]
+    emit(phase="parallel", part="gloo_windowed_dp", window_days=wd[0]["window_days"],
+         days_a_rank=wd[0]["days_a_rank"], rows_a_rank=[w["rows"] for w in wd],
+         rows_from_own_days=[w["rows_from_own_days"] for w in wd],
+         local_days_drawn=[w["local_days_drawn"] for w in wd], loss=[w["loss"] for w in wd])
+    check(all(w["rows_from_own_days"] and w["rows"] == 64 for w in wd)
+          and wd[0]["loss"] == wd[1]["loss"] and np.isfinite(wd[0]["loss"])
+          and wd[0]["first_param_sum"] == wd[1]["first_param_sum"],
+          f"windowed DP: {wd}")
+
+    emit(phase="parallel", part="timing", wall_s=wall, nccl_s=nccl_s,
+         gloo_rank_seconds=[r["seconds"] for r in ranks],
+         routes={"nccl_one_rank": "nccl, captured (CUDA graphs)",
+                 "gloo_two_ranks": "gloo-host-staged, eager",
+                 "ring_hop": ring["route"]})
+    return {"ensemble": [e["k1_launches"][0] for e in en],
+            "ensemble_gn": [e["k1_launches"][1] for e in en],
+            "train_full_domain": [f["k2_fwd"] for f in fd],
+            "train_full_domain_bwd": [f["k2_bwd"] for f in fd]}
+
 
 def _plain_k2():
     """Swap the plain attention (autograd through the dense fp32 version) in
@@ -2730,6 +3316,7 @@ def main() -> int:
         data_prep = run("data_prep", phase_data_prep, dev, tmp)
         windowed = run("windowed", phase_windowed, dev, tmp)
         sweep = run("sweep", phase_sweep, dev, tmp)
+        parallel = run("parallel", phase_parallel, dev, tmp)
     train_bf16 = run("train_full_domain_bf16", phase_train_full_domain, dev, "bfloat16",
                      TRAIN_FULL["steps"], compare=True)
     train_fp32 = run("train_full_domain_fp32", phase_train_full_domain, dev, "float32", 1,
@@ -2750,7 +3337,9 @@ def main() -> int:
                                       "train_data/full_domain": train_data["k2"]["tc_bf16"],
                                       "generate/full_domain": generate["k2"]["tc_bf16"],
                                       "fp32_full_domain": fp32["k2"]["tc_bf16"],
-                                      "train_full_domain_tc_bf16": train_bf16["k2_fwd"]}),
+                                      "train_full_domain_tc_bf16": train_bf16["k2_fwd"],
+                                      **{f"parallel/train_full_domain_rank{r}": n for r, n in
+                                         enumerate(parallel["train_full_domain"])}}),
         _k2_summary(attention_rows, "fp32", "tf32x3 (mma.sync)", launches=fp32["k2"]["fp32"],
                     launches_by_path={"full_domain": k2["fp32"],
                                       "fp32_full_domain": fp32["k2"]["fp32"],
@@ -2768,7 +3357,10 @@ def main() -> int:
             "source": "sbgm_danra_tpu_torch/csrc/flash_attention.cu",
             "replaces": "sbgm_danra_tpu/ops/pallas_attention.py:143",
             "launches": run["k2_bwd"],
-            "launches_by_path": {f"train_full_domain_{variant}": run["k2_bwd"]},
+            "launches_by_path": {f"train_full_domain_{variant}": run["k2_bwd"],
+                                 **({f"parallel/train_full_domain_rank{r}": n for r, n in
+                                     enumerate(parallel["train_full_domain_bwd"])}
+                                    if variant == "tc_bf16" else {})},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "worst_err_over_tolerance": max(r["worst_err_over_tolerance"] for r in mine),
             **{key: at[key] for key in ("ms", "kernel_ms", "kernel_ms_by_kernel", "plain_ms",
@@ -2798,7 +3390,10 @@ def main() -> int:
                                  "train_128/ema_eval_step": train_128["eval_k1"][
                                      name == "gn_apply"],
                                  "windowed/eval_steps": windowed[name],
-                                 **{f"samplers/{k}": v for k, v in samplers.items()}},
+                                 **{f"samplers/{k}": v for k, v in samplers.items()},
+                                 **{f"parallel/ensemble_rank{r}": n for r, n in enumerate(
+                                     parallel["ensemble" if name == "conv3x3_stats"
+                                              else "ensemble_gn"])}},
             **_k1_summary(k1_rows, name, "bfloat16"),
         })
         kernels.append({

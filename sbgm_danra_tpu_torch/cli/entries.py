@@ -21,9 +21,23 @@
   artifacts of each gen type (numpy on the host).
 
 ``device`` is the card unless the caller asks for the CPU; a CUDA device on a
-machine without one raises. A figure needs matplotlib and the frozen config
-PyYAML, both imported only when used: where one is missing (the card machine
-has no matplotlib) that file is skipped with a log line.
+machine without one raises.
+
+Meshes (``_maybe_mesh``, JAX's ``sbgm_danra_tpu/cli/entries.py:60-77``): the
+process group is joined from the launcher's variables
+(``parallel/mesh.initialize_distributed``), and a mesh exists when the run
+has more than one process or ``parallel.mesh_shape`` is set. A batch that
+does not divide, or a shape that needs other ranks than the run has, logs a
+warning and runs on one device, as JAX does, in a one-process run; a
+multi-process run raises instead (each rank would train alone). Training
+takes the mesh (``TrainingPipeline(mesh=...)``, rank 0 writing the files);
+generation passes it to ``SampleGenerator`` (member-sharded ensembles).
+Launch several ranks with ``python -m torch.distributed.run --nproc_per_node
+N -m sbgm_danra_tpu_torch.cli.main_app --mode train|generate ...``.
+
+A figure needs matplotlib and the frozen config PyYAML, both imported only
+when used: where one is missing (the card machine has no matplotlib) that
+file is skipped with a log line.
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ from sbgm_danra_tpu_torch.data.factory import make_dataset, make_gen_loader, mak
 from sbgm_danra_tpu_torch.data.loader import DataLoader
 from sbgm_danra_tpu_torch.evaluate.evaluation import Evaluation
 from sbgm_danra_tpu_torch.evaluate.generation import SampleGenerator
+from sbgm_danra_tpu_torch.parallel.mesh import initialize_distributed, mesh_from_config, rank_device
 from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
 from sbgm_danra_tpu_torch.transforms import back_transforms_for_config
 from sbgm_danra_tpu_torch.utils.logging_utils import setup_logger
@@ -56,10 +71,38 @@ def _gen_types(cfg):
     return (gen_types,) if isinstance(gen_types, str) else tuple(gen_types)
 
 
+def _maybe_mesh(cfg, device):
+    """The run's mesh, or None for one device (see the module's notes)."""
+    n = initialize_distributed(device=device)
+    if cfg.parallel.mesh_shape is None and n <= 1:
+        return None
+    if cfg.training.batch_size % n != 0:
+        if n > 1:
+            raise ValueError(f"batch_size {cfg.training.batch_size} does not split over "
+                             f"{n} processes")
+        logger.warning(
+            "batch_size %d not divisible by %d devices; running single-device "
+            "(set parallel.mesh_shape or a divisible batch for DP)",
+            cfg.training.batch_size, n)
+        return None
+    try:
+        return mesh_from_config(cfg, rank_device(device))
+    except ValueError as e:
+        if n > 1:
+            raise
+        logger.warning("Mesh construction failed (%s); running single-device.", e)
+        return None
+
+
 def train_main(cfg, device="cuda") -> TrainingPipeline:
     device = require_device(device)
-    setup_logger(log_dir=os.path.join(cfg.paths.sample_dir, "logs"))
-    cfg.dump(os.path.join(cfg.paths.sample_dir, f"config_{get_model_string(cfg)}.yaml"))
+    mesh = _maybe_mesh(cfg, device)
+    if mesh is not None:
+        device = mesh.device
+    main = mesh is None or mesh.rank == 0
+    if main:  # the run's files are rank 0's
+        setup_logger(log_dir=os.path.join(cfg.paths.sample_dir, "logs"))
+        cfg.dump(os.path.join(cfg.paths.sample_dir, f"config_{get_model_string(cfg)}.yaml"))
     train_loader, valid_loader, gen_loader = make_loaders(cfg, device=device)
 
     if cfg.training.verbose:
@@ -71,7 +114,7 @@ def train_main(cfg, device="cuda") -> TrainingPipeline:
             logger.info("loader probe: %.3f s/batch over %d batches",
                         (time.time() - t0) / n_probe, n_probe)
     vis = cfg.visualization
-    if vis.plot_initial_sample:
+    if vis.plot_initial_sample and main:
         # the loader's first batch as it comes: {var}_hr, {var}_lr, lsm, topo, sdf columns
         fig_dir = os.path.join(cfg.paths.sample_dir, "figures")
         os.makedirs(fig_dir, exist_ok=True)
@@ -82,7 +125,8 @@ def train_main(cfg, device="cuda") -> TrainingPipeline:
 
     pipeline = TrainingPipeline(cfg, train_loader, valid_loader, device=device,
                                 back_transforms=back_transforms_for_config(cfg),
-                                gen_loader=gen_loader if vis.preview_every else None)
+                                gen_loader=gen_loader if vis.preview_every else None,
+                                mesh=mesh)
     n_params = sum(p.numel() for p in pipeline.model.parameters())
     logger.info("model %s: %s params", pipeline.model_string, f"{n_params:,}")
     if cfg.training.load_checkpoint:
@@ -92,7 +136,7 @@ def train_main(cfg, device="cuda") -> TrainingPipeline:
         except FileNotFoundError:
             logger.info("no checkpoint to resume from; training from scratch")
     pipeline.train()
-    if vis.plot_losses:
+    if vis.plot_losses and main:
         plot_or_skip("losses", plot_losses, pipeline.history,
                      os.path.join(cfg.paths.sample_dir, f"losses_{pipeline.model_string}.png"))
     return pipeline
@@ -119,11 +163,11 @@ def generation_main(cfg, device="cuda") -> Dict:
     on the card its warm-ups, capture and one replay) and ``SampleGenerator``
     (each keeps its graphs while it lives: call a mode again to replay)."""
     device = require_device(device)
-    if cfg.parallel.mesh_shape is not None:
-        raise NotImplementedError(
-            "parallel.mesh_shape: member-sharded generation is not ported to "
-            "sbgm_danra_tpu_torch yet: ROADMAP Queue 1 item 7 (parallel/ on torch.distributed)")
-    setup_logger(log_dir=os.path.join(cfg.paths.sample_dir, "logs"))
+    mesh = _maybe_mesh(cfg, device)
+    if mesh is not None:
+        device = mesh.device
+    if mesh is None or mesh.rank == 0:
+        setup_logger(log_dir=os.path.join(cfg.paths.sample_dir, "logs"))
     t0 = time.perf_counter()
     pipeline, gen_loader = _load_pipeline_for_sampling(cfg, device)
     load_s = time.perf_counter() - t0
@@ -131,7 +175,7 @@ def generation_main(cfg, device="cuda") -> Dict:
     back_transforms = back_transforms_for_config(cfg)
     use_ema = cfg.training.load_ema
     generator = SampleGenerator(cfg, pipeline.score_fn(use_ema=use_ema), gen_loader,
-                                back_transforms=back_transforms, device=device)
+                                back_transforms=back_transforms, device=device, mesh=mesh)
     generators, mode_s = {}, {}
     for gen_type in _gen_types(cfg):
         logger.info("generation mode: %s", gen_type)
@@ -152,13 +196,15 @@ def generation_main(cfg, device="cuda") -> Dict:
             score = pipeline.score_fn(use_ema=use_ema,
                                       image_hw=tuple(cfg.highres.full_domain_dims))
             generators[gen_type] = SampleGenerator(cfg, score, fd_loader,
-                                                   back_transforms=back_transforms, device=device)
+                                                   back_transforms=back_transforms, device=device,
+                                                   mesh=mesh)
             generators[gen_type].generate_full_domain()
         else:
             raise ValueError(f"Unknown gen_type: {gen_type}")
         mode_s[gen_type] = time.perf_counter() - t0
         logger.info("%s: %.3f s", gen_type, mode_s[gen_type])
-    return {"pipeline": pipeline, "load_s": load_s, "mode_s": mode_s, "generators": generators}
+    return {"pipeline": pipeline, "load_s": load_s, "mode_s": mode_s, "generators": generators,
+            "mesh": mesh}
 
 
 def evaluation_main(cfg) -> Dict[str, Dict[str, Dict]]:

@@ -226,9 +226,11 @@ def make_sample_fn(crop_hw: Tuple[int, int], with_sdf: bool = True):
     return sample
 
 
-def step_generator(device: torch.device, seed: int, epoch: int, step: int) -> torch.Generator:
-    """A generator on ``device`` seeded by (seed, epoch, step) alone."""
-    state = np.random.SeedSequence((seed, epoch, step)).generate_state(2, np.uint32)
+def step_generator(device: torch.device, seed: int, epoch: int, step: int,
+                   *stream: int) -> torch.Generator:
+    """A generator on ``device`` seeded by (seed, epoch, step) alone, and by
+    ``stream`` where given (a data-parallel rank, ``parallel/windowed_dp.py``)."""
+    state = np.random.SeedSequence((seed, epoch, step, *stream)).generate_state(2, np.uint32)
     return torch.Generator(device).manual_seed(int(state[0]) << 32 | int(state[1]))
 
 

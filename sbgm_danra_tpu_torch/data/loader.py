@@ -96,11 +96,15 @@ def _to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
 
 
 def device_prefetch(iterator: Iterator[Dict], depth: int = 2,
-                    device="cuda") -> Iterator[Dict]:
+                    device="cuda", shard=None) -> Iterator[Dict]:
     """Copy each batch of ``iterator`` to ``device`` ``depth`` batches ahead of
     the consumer (see the module's notes); on a CPU device, the batches as
-    they come."""
+    they come. ``shard``: a function of a global batch giving this rank's
+    rows (``parallel/mesh.shard_batch``; JAX's batch sharding), applied
+    before the copy, so a rank copies only its rows."""
     device = torch.device(device)
+    if shard is not None:
+        iterator = (shard(batch) for batch in iterator)
     if device.type != "cuda":
         yield from iterator
         return

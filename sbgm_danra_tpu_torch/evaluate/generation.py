@@ -16,8 +16,10 @@ shape) and does not capture anew. A ``torch.Generator`` on the device,
 seeded from ``evaluation.seed``, draws every call's noise in turn (ROADMAP
 F4: the streams differ from JAX's key splits). ``generate_repeated`` is one
 sampler call of ``n_repeats`` rows of one condition
-(``parallel/ensemble.py``) with ``evaluation.spread_calibration`` applied in
-normalised space before the back-transform; ``generate_full_domain`` runs
+(``parallel/ensemble.py``; with a ``mesh`` the members are sharded over its
+ranks, and rank 0 writes the artifacts) with
+``evaluation.spread_calibration`` applied in normalised space before the
+back-transform; ``generate_full_domain`` runs
 ``evaluate/full_domain.py::sample_full_domain`` on a loader of whole-domain
 samples. A float32 model's calls run with TF32 off (``precision.exact_fp32``).
 With ``evaluation.save_figs`` each mode writes the conditions, truth and
@@ -130,7 +132,15 @@ class SampleGenerator:
             cond_img = np.stack(chans, axis=-1)
         return x, generated, cond_img
 
+    @property
+    def is_main(self) -> bool:
+        """Whether this process writes the artifacts: rank 0, or no mesh (every
+        rank of a mesh computes the same fields)."""
+        return self.mesh is None or self.mesh.rank == 0
+
     def _save_npz(self, data: Dict[str, Optional[np.ndarray]], suffix: str) -> None:
+        if not self.is_main:
+            return
         for key, value in data.items():
             if value is None:
                 continue
@@ -139,7 +149,7 @@ class SampleGenerator:
             logger.info("Saved %s_%s to %s", key, suffix, path)
 
     def _plot(self, batch, generated, suffix: str) -> None:
-        if not self.cfg.evaluation.save_figs:
+        if not self.cfg.evaluation.save_figs or not self.is_main:
             return
         try:
             plot_or_skip(f"gen_samples_{suffix}", plot_samples_and_generated, batch, generated,

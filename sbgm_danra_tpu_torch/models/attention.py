@@ -9,7 +9,12 @@ A pre-LayerNorm transformer block on an NHWC feature map:
 
 The LayerNorms are Flax's: eps 1e-6, computed and returned in fp32. Backends:
 'xla' is dense attention (SDPA), 'pallas' goes through the flash dispatcher
-(``ops/flash_attention.py``), whose long-sequence path is the CUDA kernel.
+(``ops/flash_attention.py``), whose long-sequence path is the CUDA kernel,
+and 'ring' is ``parallel/ring_attention.ring_attention_inline``: the token
+axis split over the ranks of the ambient ``ring_context``, dense without one
+(JAX ``sbgm_danra_tpu/models/attention.py:82-85``). A 'ring' layer counts
+its calls that ran ring-sharded and dense (``ring_calls``, ``dense_calls``,
+``last_tokens``; ``ring_attention.ring_stats(model)`` reads them by layer).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from torch import nn
 
 from sbgm_danra_tpu_torch.models.layers import LayerNorm, Linear, flax_gelu
 from sbgm_danra_tpu_torch.ops.flash_attention import dense_attention, flash_attention
+from sbgm_danra_tpu_torch.parallel import ring_attention
 
 BACKENDS = ("xla", "pallas", "ring")
 
@@ -34,6 +40,8 @@ class SpatialSelfAttention(nn.Module):
         if backend not in BACKENDS:
             raise ValueError(f"unknown attention backend {backend!r}; options {BACKENDS}")
         self.n_heads, self.backend = n_heads, backend
+        self.ring_calls = self.dense_calls = 0
+        self.last_tokens = None
         self.ln1 = LayerNorm(channels)
         self.qkv = Linear(channels, 3 * channels, compute_dtype)
         self.out_proj = Linear(channels, channels, compute_dtype)
@@ -56,10 +64,12 @@ class SpatialSelfAttention(nn.Module):
         if self.backend == "pallas":
             out = flash_attention(q, k, v)
         elif self.backend == "ring":
-            raise NotImplementedError(
-                "attention backend 'ring' (sequence-sharded ring attention) is not ported "
-                "yet: ROADMAP queue 1 item 7 (parallel/ on torch.distributed)"
-            )
+            if ring_attention.ring_shards(s):
+                self.ring_calls += 1
+            else:
+                self.dense_calls += 1
+            self.last_tokens = s
+            out = ring_attention.ring_attention_inline(q, k, v)
         else:
             out = dense_attention(q, k, v)
         return self.out_proj(out.reshape(b, s, c))

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sbgm_danra_tpu_torch.models.embeddings import GaussianFourierEmbedding
+from sbgm_danra_tpu_torch.parallel.collectives import GlobalSum
 
 
 class Conv2d(nn.Conv2d):
@@ -87,6 +88,15 @@ class BatchNorm(nn.Module):
     as Flax uses; ``F.batch_norm`` would take the unbiased one). A remat
     recompute of the forward records the same statistics again, and nothing
     is updated twice.
+
+    ``group`` (a process group, None by default): the statistics of the
+    global batch, every rank's rows, as JAX's data-parallel step takes them
+    (GSPMD's mean crosses the shards; Flax's ``axis_name``). Each rank's
+    [sum, sum of squares, count] per channel go through one differentiable
+    all-reduce (``parallel/collectives.GlobalSum``, whose backward all-reduces
+    the gradient), and the running update keeps the biased variance
+    (``torch.nn.SyncBatchNorm`` would fold in the unbiased one, F2).
+    ``parallel/train.py`` sets it on every BatchNorm of a data-parallel model.
     """
 
     momentum = 0.9  # Flax's: the running statistics keep 0.9 of themselves
@@ -99,6 +109,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
         self.batch_stats = None  # (mean, var) of the last train-mode forward
+        self.group = None  # a process group: global-batch statistics
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if not train:
@@ -106,12 +117,25 @@ class BatchNorm(nn.Module):
                              self.bias, False, 0.0, 1e-5)
             return y.to(self.out_dtype)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if self.group is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        else:
+            mean, var = self._global_moments(xf)
         self.batch_stats = (mean.detach(), var.detach())
         mul = torch.rsqrt(var + 1e-5) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(self.out_dtype)
+
+    def _global_moments(self, xf: torch.Tensor):
+        """Mean and biased one-pass variance over every rank's rows of ``group``."""
+        c = xf.shape[1]
+        count = torch.full((1,), xf.numel() // c, dtype=xf.dtype, device=xf.device)
+        local = torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), count])
+        total = GlobalSum.apply(local, self.group)
+        n = total[-1]
+        mean = total[:c] / n
+        return mean, torch.clamp(total[c:2 * c] / n - mean * mean, min=0.0)
 
     @torch.no_grad()
     def update_running_stats(self) -> None:

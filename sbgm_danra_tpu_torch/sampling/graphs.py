@@ -73,9 +73,13 @@ def _name(fn, config, shape) -> str:
 
 def sample(sampler, score_fn, rng: S.Rng, shape: Sequence[int], sde=VESDE(),
            config: S.SamplerConfig = S.SamplerConfig(),
-           cond: Optional[Dict[str, Optional[torch.Tensor]]] = None, **kw) -> torch.Tensor:
+           cond: Optional[Dict[str, Optional[torch.Tensor]]] = None,
+           draws: Optional[torch.Tensor] = None, **kw) -> torch.Tensor:
     """The sampler's call (``sampler``: a registry name or a sampler function)
-    as a replay of its captured graph; see the module's notes."""
+    as a replay of its captured graph; see the module's notes. ``draws``: the
+    call's noise made already (``[n_draws, *shape]``, e.g. a rank's rows of an
+    ensemble's noise, ``parallel/ensemble.py``) in place of drawing it from
+    ``rng``."""
     fn = S.get_sampler(sampler) if isinstance(sampler, str) else sampler
     shape = tuple(shape)
     cond = {k: v for k, v in (cond or {}).items()}
@@ -92,8 +96,11 @@ def sample(sampler, score_fn, rng: S.Rng, shape: Sequence[int], sde=VESDE(),
         entry = None
     rk45 = fn is S.ode_sampler and config.ode_method == "rk45"
     n = 1 if rk45 else S.n_draws(fn, config)
+    if draws is not None and (draws.shape[0] != n or tuple(draws.shape[1:]) != shape):
+        raise ValueError(f"draws of shape {tuple(draws.shape)}; the sampler takes "
+                         f"{(n, *shape)}")
     if entry is None:
-        draws = S.draw_noise(rng, shape, n)
+        draws = S.draw_noise(rng, shape, n) if draws is None else draws.clone()
         static = {k: capture.static_like(cond[k]) for k in present}
         for k in present:
             static[k].copy_(cond[k])
@@ -109,6 +116,8 @@ def sample(sampler, score_fn, rng: S.Rng, shape: Sequence[int], sde=VESDE(),
                                   [draws, *(static[k] for k in present)])
             entry = _Entry(graph, draws, static)
         cache[(fkey, key)] = entry
+    elif draws is not None:
+        entry.draws.copy_(draws)
     else:
         S.draw_noise(rng, shape, n, out=entry.draws)
         for k in present:
@@ -121,13 +130,13 @@ def sample(sampler, score_fn, rng: S.Rng, shape: Sequence[int], sde=VESDE(),
 def call(sampler, score_fn, rng: S.Rng, shape: Sequence[int], sde=VESDE(),
          config: S.SamplerConfig = S.SamplerConfig(),
          cond: Optional[Dict[str, Optional[torch.Tensor]]] = None, graph: bool = True,
-         **kw) -> torch.Tensor:
+         draws: Optional[torch.Tensor] = None, **kw) -> torch.Tensor:
     """``sample`` when ``graph`` (an entry point's ``capture.use_graphs``
     route), else the sampler's eager loop on the same arguments."""
     if graph:
-        return sample(sampler, score_fn, rng, shape, sde, config, cond, **kw)
+        return sample(sampler, score_fn, rng, shape, sde, config, cond, draws=draws, **kw)
     fn = S.get_sampler(sampler) if isinstance(sampler, str) else sampler
-    return fn(score_fn, rng, tuple(shape), sde, config, cond=cond, **kw)
+    return fn(score_fn, rng, tuple(shape), sde, config, cond=cond, draws=draws, **kw)
 
 
 def _capture_rk45(fn, score_fn, shape, sde, config, draws, static, nulls) -> _Entry:

@@ -43,6 +43,18 @@ On a CUDA device the train and eval steps replay their CUDA graphs
 rate a tensor on the card) unless ``capture=False`` asks for the eager steps;
 on the CPU they run eagerly.
 
+With a ``mesh`` (``parallel/mesh.py``; JAX's mesh routes,
+``sbgm_danra_tpu/training/pipeline.py:106-117``, ``:153-157``, ``:197-211``)
+the steps come from ``parallel/train.make_parallel_steps`` (the state
+replicated from rank 0, global-batch BatchNorm, the gradients all-reduced;
+graphs over NCCL, eager over gloo), a host loader's batch that does not
+split over the ``data`` ranks is dropped (the valid loader's ragged tail),
+``device_prefetch`` copies each rank its rows, and a device loader's batch
+is cut to the rank's rows. Every rank steps alike (the losses are global
+means, so the scheduler and early stopping decide alike); checkpoints, the
+loss history and previews are written by rank 0 only, and the other ranks
+wait for it at a barrier.
+
 ``training.fused_steps = K > 0`` (a device train loader, no mesh: JAX's
 guards) runs K steps per dispatch (``training/fused.py``), as JAX's
 ``_run_train_fused``: per chunk of the loader's ``iter_chunks``
@@ -55,8 +67,8 @@ step offsets that failed). An epoch of ``steps_per_epoch`` steps runs
 ceil(steps / K) chunks; the sentinel is skipped there (the batches are
 drawn inside the graph), with a warning, as in JAX. The read of each chunk's
 losses is also the windowed loader's backpressure: without it the host would
-run ahead of the card and pace the window swaps on host time. Meshes wait
-for ROADMAP Queue 1.
+run ahead of the card and pace the window swaps on host time. A mesh
+with ``fused_steps`` raises, as in JAX.
 """
 
 from __future__ import annotations
@@ -70,6 +82,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sbgm_danra_tpu_torch.capture import use_graphs
 from sbgm_danra_tpu_torch.config import get_model_string
@@ -120,8 +133,10 @@ class TrainingPipeline:
     def __init__(self, cfg, train_loader: Iterable[Dict],
                  valid_loader: Optional[Iterable[Dict]] = None, device: str = "cuda",
                  capture: Optional[bool] = None, back_transforms: Optional[Dict] = None,
-                 gen_loader: Optional[Iterable[Dict]] = None):
+                 gen_loader: Optional[Iterable[Dict]] = None, mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
+        self.shard = None
         self.train_loader = train_loader
         self.valid_loader = valid_loader
         self.back_transforms = back_transforms or {}
@@ -136,31 +151,41 @@ class TrainingPipeline:
         self.model.to(self.device)
         # the optimizer was built on the CPU tensors: .to moved them in place
         self.state.to(self.device)
-        self.capture = use_graphs(capture, self.device)
-        if self.capture:
-            self.state.make_capturable()
         self.model_string = get_model_string(cfg)
         self.generator = torch.Generator(self.device).manual_seed(t.seed)
         eps = cfg.sampler.t_eps
         precision = exact_fp32(self.spec.compute_dtype)
-        step = make_train_step(
-            self.model, self.sde, t_eps=eps, use_sdf_weights=t.sdf_weighted_loss,
-            detect_anomaly=t.detect_anomaly, remat=t.remat,
-            skip_nonfinite_updates=t.skip_nonfinite_updates)
-        # the eager step stays at hand: the card check's reference and the A/B
-        self.eager_train_step = precision(step)
-        self._train_step = (precision(CapturedStep(step, eps, "train step")) if self.capture
-                            else self.eager_train_step)
-        self._eval_step = precision(make_eval_step(self.model, self.sde, t_eps=eps,
-                                                   use_sdf_weights=t.sdf_weighted_loss,
-                                                   capture=self.capture))
+        if mesh is not None:
+            from sbgm_danra_tpu_torch.parallel.train import make_parallel_steps, route
+
+            self.capture = route(mesh, capture)["graphs"]
+            if self.capture:
+                self.state.make_capturable()
+            self._train_step, self._eval_step, self.state, self.shard = make_parallel_steps(
+                self.model, self.sde, cfg, self.state, mesh, capture=self.capture)
+            self.eager_train_step = None
+        else:
+            self.capture = use_graphs(capture, self.device)
+            if self.capture:
+                self.state.make_capturable()
+            step = make_train_step(
+                self.model, self.sde, t_eps=eps, use_sdf_weights=t.sdf_weighted_loss,
+                detect_anomaly=t.detect_anomaly, remat=t.remat,
+                skip_nonfinite_updates=t.skip_nonfinite_updates)
+            # the eager step stays at hand: the card check's reference and the A/B
+            self.eager_train_step = precision(step)
+            self._train_step = (precision(CapturedStep(step, eps, "train step"))
+                                if self.capture else self.eager_train_step)
+            self._eval_step = precision(make_eval_step(self.model, self.sde, t_eps=eps,
+                                                       use_sdf_weights=t.sdf_weighted_loss,
+                                                       capture=self.capture))
         self._fused = None
         if t.fused_steps > 0:
             if not getattr(train_loader, "is_device_loader", False):
                 raise ValueError(
                     "training.fused_steps requires a device-resident train "
                     "loader (data_handling.device_dataset: true)")
-            if cfg.parallel.mesh_shape is not None:
+            if mesh is not None or cfg.parallel.mesh_shape is not None:
                 raise ValueError(
                     "training.fused_steps is a single-device path; mesh "
                     "training already amortizes dispatch via parallel steps")
@@ -181,18 +206,43 @@ class TrainingPipeline:
         self.history: Dict[str, List[float]] = {"train_loss": [], "val_loss": [], "lr": []}
         self.epoch = 0
 
+    @property
+    def is_main(self) -> bool:
+        """Whether this process writes the run's files: rank 0, or no mesh."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _wait_for_main(self) -> None:
+        """The other ranks wait here while rank 0 writes."""
+        if self.mesh is not None and self.mesh.world is not None:
+            dist.barrier(group=self.mesh.world)
+
     def _batches(self, loader: Iterable[Dict]) -> Iterable[Dict[str, torch.Tensor]]:
         if getattr(loader, "is_device_loader", False):
             for batch in loader:
-                yield {k: batch[k] for k in _MODEL_KEYS if batch.get(k) is not None}
+                batch = {k: batch[k] for k in _MODEL_KEYS if batch.get(k) is not None}
+                yield batch if self.shard is None else self.shard(batch)
             return
         hr_var = self.cfg.highres.variable
         kwargs = ({k: batch[k] for k in _MODEL_KEYS if batch.get(k) is not None}
                   for batch in (raw if "x" in raw else extract_batch(raw, hr_var)
                                 for raw in loader))
+        if self.mesh is not None:
+            kwargs = self._divisible(kwargs)
         for batch in device_prefetch(kwargs, self.cfg.data_handling.prefetch_depth,
-                                     self.device):
+                                     self.device, shard=self.shard):
             yield {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+
+    def _divisible(self, batches):
+        """The batches that split over the data ranks: a ragged one (the valid
+        loader keeps its partial last batch) is dropped, as in JAX."""
+        from sbgm_danra_tpu_torch.parallel.mesh import DATA_AXIS
+
+        n = self.mesh.axis_size(DATA_AXIS)
+        for b in batches:
+            if b["x"].shape[0] % n:
+                logger.debug("dropping ragged batch of %d (mesh size %d)", b["x"].shape[0], n)
+                continue
+            yield b
 
     def train_batches(self, max_steps: Optional[int] = None) -> float:
         """One epoch of optimizer steps; the mean training loss."""
@@ -267,23 +317,35 @@ class TrainingPipeline:
                 "history": {k: list(v) for k, v in self.history.items()},
                 "model_string": self.model_string}
 
-    def save(self, val_loss: float) -> str:
-        return self.checkpoints.save(self.state.step, self.state, self._meta(val_loss),
-                                     self.scheduler, self.early_stopping,
-                                     block=not self.cfg.training.async_checkpointing)
+    def _blocking_saves(self) -> bool:
+        # a mesh's saves block: the barrier after one means "on disk"
+        return self.mesh is not None or not self.cfg.training.async_checkpointing
+
+    def save(self, val_loss: float) -> Optional[str]:
+        """The checkpoint (rank 0 only; the other ranks wait for it)."""
+        path = None
+        if self.is_main:
+            path = self.checkpoints.save(self.state.step, self.state, self._meta(val_loss),
+                                         self.scheduler, self.early_stopping,
+                                         block=self._blocking_saves())
+        self._wait_for_main()
+        return path
 
     def _flush_pending(self, pending: tuple) -> None:
         step, snapshot, meta = pending
-        logger.info("flushing rate-limited best checkpoint (epoch %d, val %.4f)",
-                    meta["epoch"], meta["val_loss"])
-        self.checkpoints.save(step, snapshot, meta,
-                              block=not self.cfg.training.async_checkpointing)
+        if self.is_main:
+            logger.info("flushing rate-limited best checkpoint (epoch %d, val %.4f)",
+                        meta["epoch"], meta["val_loss"])
+            self.checkpoints.save(step, snapshot, meta, block=self._blocking_saves())
+        self._wait_for_main()
 
     def _dump_history(self) -> None:
-        path = os.path.join(self.cfg.paths.sample_dir, f"losses_{self.model_string}.json")
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        with open(path, "w") as f:
-            json.dump(self.history, f)
+        if self.is_main:
+            path = os.path.join(self.cfg.paths.sample_dir, f"losses_{self.model_string}.json")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "w") as f:
+                json.dump(self.history, f)
+        self._wait_for_main()
 
     def load(self, best: bool = False) -> None:
         meta = self.checkpoints.restore(self.state, best=best, scheduler=self.scheduler,
@@ -336,7 +398,7 @@ class TrainingPipeline:
                 pending = None
             self.state.with_learning_rate(self.scheduler.step(monitored))
             every = cfg.visualization.preview_every
-            if every and self.epoch % every == 0:
+            if every and self.epoch % every == 0 and self.is_main:
                 self.generate_previews()
             if on_epoch_end is not None:
                 on_epoch_end(self, self.epoch, train_loss, val_loss)

@@ -25,6 +25,13 @@ route on the card, as JAX runs its step as one program).
   is False (parameters, optimizer state, EMA, BatchNorm statistics and the
   step counter), as the JAX step selects its old state.
 
+- ``reduce(loss, params)`` (data parallelism, ``parallel/train.py``): called
+  after the backward on the detached loss and the parameters that have a
+  gradient; it brings the loss and the gradients to their global means (one
+  all-reduce) and returns the loss. The zero-gradient fill-in, the finite
+  flag and the optimizer come after it, so every rank keeps or drops the
+  same update.
+
 ``t`` and ``z`` of the DSM loss may be given (the parity tests hand both
 packages the same draws); otherwise they are drawn on ``generator``
 (``sde.dsm_draws``; a captured step draws them before its replay).
@@ -57,6 +64,7 @@ def make_train_step(
     detect_anomaly: bool = False,
     remat: bool = False,
     skip_nonfinite_updates: bool = False,
+    reduce: Optional[Callable] = None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``train_step(state, batch, generator=None, t=None, z=None) -> metrics``
     (``CapturedStep(train_step, t_eps, name)`` replays it as a CUDA graph)."""
@@ -78,15 +86,18 @@ def make_train_step(
                         t_eps=t_eps, sdf=batch.get("sdf") if use_sdf_weights else None,
                         **_cond_kwargs(batch))
         loss.backward()
+        loss = loss.detach()
+        if reduce is not None:
+            loss = reduce(loss, [p for p in model.parameters() if p.grad is not None])
         for p in model.parameters():
             # a parameter the loss never reads (the final block's time
             # projection) has gradient 0 in JAX, and its weight decay still
             # moves it; torch's optimizers skip a None gradient
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        metrics = {"loss": loss.detach()}
+        metrics = {"loss": loss}
         if detect_anomaly or skip_nonfinite_updates:
-            finite = torch.isfinite(loss.detach())
+            finite = torch.isfinite(loss)
             for g in (p.grad for p in model.parameters()):
                 finite = finite & torch.isfinite(g).all()
             metrics["finite"] = finite
@@ -200,11 +211,13 @@ def _apply(model, params, x, t, **cond):
 
 
 def make_eval_step(model, sde, t_eps: float = 1e-3, use_sdf_weights: bool = True,
-                   use_ema: bool = False, capture: bool = False
+                   use_ema: bool = False, capture: bool = False,
+                   reduce: Optional[Callable] = None
                    ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Validation loss (``train=False``: running statistics, K1 on the card) on
     the parameters or the EMA: ``eval_step(state, batch, generator=None, t=None,
-    z=None) -> {"loss"}``; with ``capture`` a ``CapturedStep`` of it."""
+    z=None) -> {"loss"}``; with ``capture`` a ``CapturedStep`` of it.
+    ``reduce(loss)``: the global mean of the ranks' losses (data parallelism)."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch, generator: Optional[torch.Generator] = None,
@@ -217,7 +230,7 @@ def make_eval_step(model, sde, t_eps: float = 1e-3, use_sdf_weights: bool = True
         loss = dsm_loss(score_fn, batch["x"], t=t, z=z, generator=generator, sde=sde,
                         t_eps=t_eps, sdf=batch.get("sdf") if use_sdf_weights else None,
                         **_cond_kwargs(batch))
-        return {"loss": loss}
+        return {"loss": loss if reduce is None else reduce(loss)}
 
     if capture:
         return CapturedStep(eval_step, t_eps, "eval step", updates_state=False)

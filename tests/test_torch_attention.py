@@ -263,9 +263,24 @@ class TestSpatialSelfAttention:
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
     def test_ring_backend_not_ported(self):
+        """The 'ring' backend (ported: ``parallel/ring_attention.py``) without a
+        ring context, and inside a one-rank mesh's, is dense attention, the
+        'xla' module's output, counted as dense; ring-sharded runs are in
+        tests/test_torch_ring_attention.py."""
+        from sbgm_danra_tpu_torch.parallel import mesh as pmesh
+        from sbgm_danra_tpu_torch.parallel.ring_attention import ring_context, ring_stats
+
         module = SpatialSelfAttention(8, 2, "ring")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            module(torch.zeros(1, 2, 2, 8))
+        dense = SpatialSelfAttention(8, 2, "xla")
+        dense.load_state_dict(module.state_dict())
+        x = torch.from_numpy(np.random.default_rng(0).normal(size=(1, 2, 2, 8)).astype(np.float32))
+        with torch.no_grad():
+            want = dense(x)
+            torch.testing.assert_close(module(x), want, rtol=0, atol=0)
+            with ring_context(pmesh.make_mesh(device="cpu")):
+                torch.testing.assert_close(module(x), want, rtol=0, atol=0)
+        assert ring_stats(torch.nn.Sequential(module)) == {
+            "0": {"ring": 0, "dense": 2, "tokens": 4}}
 
 
 class TestBackwardPlainVersion:

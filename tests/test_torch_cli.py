@@ -182,10 +182,34 @@ def test_modes_on_a_card_request_without_one(cli_env):
         main_app.main(["--config_path", cli_env["path"], "--mode", "generate"])
 
 
-def test_ensemble_mesh_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+def test_ensemble_mesh_raises(cli_env, caplog):
+    """``generation_main`` with ``parallel.mesh_shape``: {data: 1} makes a
+    one-rank mesh in this one process, and the repeated mode's members run
+    over it (the same call as without one); {data: 2} needs more ranks than
+    the run has: ``make_mesh`` raises, and ``generation_main`` logs JAX's
+    warning and runs on one device."""
+    from sbgm_danra_tpu_torch.parallel import mesh as pmesh
+
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         ensemble.generate_ensemble(lambda x, t, **c: x, torch.Generator(), 2, (4, 4, 1),
-                                   mesh=object())
+                                   mesh=pmesh.make_mesh({"data": 2}, device="cpu"))
+    gens = {}
+    for name, shape in (("one_rank", {"data": 1, "model": 1}), ("too_big", {"data": 2})):
+        d = dict(cli_env["d"], parallel={"mesh_shape": shape},
+                 evaluation={**cli_env["d"]["evaluation"], "gen_type": ["repeated"]},
+                 paths={**cli_env["d"]["paths"],
+                        "sample_dir": os.path.join(cli_env["root"], f"mesh_{name}")})
+        path = _write(cli_env["root"], d, f"cfg_mesh_{name}.yaml")
+        with caplog.at_level("WARNING"):
+            out = main_app.main(["--config_path", path, "--mode", "generate", "--device", "cpu"])
+        gens[name] = out
+        dirs = glob.glob(os.path.join(d["paths"]["sample_dir"], "generation", "*",
+                                      "generated_samples", "gen_samples_repeated_4.npz"))
+        gen = np.load(dirs[0])["arr_0"]
+        assert gen.shape == (4, 32, 32) and np.isfinite(gen).all()
+    assert gens["one_rank"]["mesh"].shape == {"data": 1, "model": 1}
+    assert gens["too_big"]["mesh"] is None
+    assert "Mesh construction failed" in caplog.text
 
 
 def test_each_mode_writes_every_artifact(cli_env):

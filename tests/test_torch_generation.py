@@ -344,7 +344,11 @@ def test_repeat_condition_equals_jax():
 
 
 def test_generate_ensemble_one_sampler_call_and_mesh_raises():
-    """n members of one condition are one call of n rows; mesh raises."""
+    """n members of one condition are one call of n rows, with or without a
+    one-rank mesh (the same rows); a mesh whose shape needs more ranks than
+    the run has raises."""
+    from sbgm_danra_tpu_torch.parallel import mesh as pmesh
+
     seen = []
 
     def score(x, t, **c):
@@ -356,8 +360,14 @@ def test_generate_ensemble_one_sampler_call_and_mesh_raises():
                                      cond=cond, sampler="dpmpp_sampler",
                                      config=qs.SamplerConfig(num_steps=3), capture=False)
     assert out.shape == (6, 4, 4, 1) and seen == [(6, 6), (6, 6)]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ensemble.generate_ensemble(score, torch.Generator(), 6, (4, 4, 1), mesh="data")
+    meshed = ensemble.generate_ensemble(score, torch.Generator().manual_seed(0), 6, (4, 4, 1),
+                                        cond=cond, sampler="dpmpp_sampler",
+                                        config=qs.SamplerConfig(num_steps=3), capture=False,
+                                        mesh=pmesh.make_mesh(device="cpu"))
+    assert torch.equal(meshed, out) and seen[2:] == [(6, 6), (6, 6)]
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        ensemble.generate_ensemble(score, torch.Generator(), 6, (4, 4, 1),
+                                   mesh=pmesh.make_mesh({"data": 2}, device="cpu"))
 
 
 def test_new_config_fields_keep_jax_defaults():

@@ -1,6 +1,8 @@
 """Torch port: no module of sbgm_danra_tpu_torch imports JAX, and the path
 chip_smoke.py drives imports nothing of the JAX package (nor PyYAML, nor
-matplotlib, which the card machine lacks).
+matplotlib, which the card machine lacks), nor does the entry its parallel
+phase's worker processes run (``parallel/launch.py``), nor the CPU tests'
+worker bodies (``tests/torch_parallel_cases.py``).
 
 A source scan reads every import statement of the port and of chip_smoke.py,
 those inside functions included. The run checks use a fresh interpreter that
@@ -90,8 +92,31 @@ def test_chip_smoke_path_imports_nothing_of_the_jax_package(blocked_extra):
                      "sbgm_danra_tpu_torch.pipelines.correlations",
                      "sbgm_danra_tpu_torch.pipelines.preprocess",
                      "sbgm_danra_tpu_torch.pipelines.figures",
-                     "sbgm_danra_tpu_torch.utils.plotting"):
+                     "sbgm_danra_tpu_torch.utils.plotting",
+                     "sbgm_danra_tpu_torch.parallel.mesh",
+                     "sbgm_danra_tpu_torch.parallel.collectives",
+                     "sbgm_danra_tpu_torch.parallel.train",
+                     "sbgm_danra_tpu_torch.parallel.ensemble",
+                     "sbgm_danra_tpu_torch.parallel.windowed_dp",
+                     "sbgm_danra_tpu_torch.parallel.ring_attention",
+                     "sbgm_danra_tpu_torch.parallel.tp",
+                     "sbgm_danra_tpu_torch.parallel.launch"):
             importlib.import_module(name)
+        assert not [m for m in sys.modules if _blocked(m)]
+        # the parallel phase's workers' entry (``python -m
+        # sbgm_danra_tpu_torch.parallel.launch chip_smoke:<body>``): its main
+        # runs a target in this interpreter (one process: no group is made)
+        import os, tempfile, torch
+        from sbgm_danra_tpu_torch.parallel import launch
+        for key in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "COORDINATOR_ADDRESS"):
+            os.environ.pop(key, None)
+        with tempfile.TemporaryDirectory() as tmp:
+            inp, out = os.path.join(tmp, "in.pt"), os.path.join(tmp, "out.pt")
+            torch.save(None, inp)
+            assert launch._main(["sbgm_danra_tpu_torch.parallel.mesh:make_mesh", inp, out]) == 0
+            assert torch.load(out, weights_only=False).shape == {"data": 1, "model": 1}
+        for body in ("parallel_nccl_rank", "parallel_gloo_rank"):
+            assert callable(getattr(chip_smoke, body))
         assert not [m for m in sys.modules if _blocked(m)]
         """,
     )
@@ -110,7 +135,8 @@ def _imported_names(path):
 
 def test_no_source_of_the_port_imports_jax_or_the_jax_package():
     files = glob.glob(os.path.join(ROOT, "sbgm_danra_tpu_torch", "**", "*.py"), recursive=True)
-    files += [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "profile_port.py")]
+    files += [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "profile_port.py"),
+              os.path.join(ROOT, "tests", "torch_parallel_cases.py")]
     assert len(files) >= 20
     scanned = {os.path.relpath(f, ROOT) for f in files}
     for part in ("cli/main_app.py", "cli/entries.py", "data/device_data.py", "data/loader.py",
@@ -120,7 +146,9 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package():
                  "pipelines/comparison.py", "utils/sentinels.py", "utils/logging_utils.py",
                  "cli/main_data_app.py", "pipelines/splits.py", "pipelines/stats_pipeline.py",
                  "pipelines/correlations.py", "pipelines/preprocess.py", "pipelines/figures.py",
-                 "utils/plotting.py"):
+                 "utils/plotting.py", "parallel/mesh.py", "parallel/collectives.py",
+                 "parallel/train.py", "parallel/windowed_dp.py", "parallel/ring_attention.py",
+                 "parallel/tp.py", "parallel/launch.py"):
         assert os.path.join("sbgm_danra_tpu_torch", part) in scanned, part
     bad = [(os.path.relpath(f, ROOT), name) for f in files for name in _imported_names(f)
            if name.split(".")[0] in JAX_SIDE]
