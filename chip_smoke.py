@@ -95,8 +95,8 @@ times, and the graph's output against the eager route's on the same draws
    against the same sampler on the CPU with the same draws (every key equal,
    the SDF within 1e-6), its SDF against the host EDT on all 128 masks
    (1e-4), the sampler's device ms and launches, 20 flagship steps on the
-   one-step graph each on the device loader, the host loader (1 worker) and
-   random batches; ``training.fused_steps`` = 25 (K steps per dispatch,
+   one-step graph each on the device loader and random batches, 6 on the
+   host loader (1 worker); ``training.fused_steps`` = 25 (K steps per dispatch,
    each batch drawn inside the graph) against the one-step graph over two
    epochs of 25 steps on the same draws with cuDNN deterministic: per-step
    losses within ``FUSED_TOL`` (1e-6 relative), seconds a step, both routes'
@@ -118,6 +118,20 @@ times, and the graph's output against the eager route's on the same draws
    spread/skill in [0.9, 1.1]); ``generate_previews`` after captured train
    steps against the eager loop on the same draws; each mode's load,
    capture and replay seconds and pools;
+5d+. quality: on 5d's checkpoint, the port's quality scripts through their
+   ``main(argv, cfg)`` on the card (``phase_quality``): ``flagship_quality_eval``
+   (2 dates x 4 members; EDM w in {3, 0, 7}, dpmpp 25 / 35, the valid-split
+   calibration, PC-1000 on its eager route) with every JSON key and metric,
+   K1 launches = 8 x each run's UNet evaluations and K1 against the plain
+   chain at the runs' batches; ``full_domain_quality_eval``
+   (1 date, 2 members, 608x800, w in {0, 3}): K1 likewise, one ``tc_bf16`` K2
+   launch a UNet evaluation, finite in- and out-of-crop CRPS;
+   ``edm_quality_study`` (8 members, 16 truths); a 2-step flagship epoch with
+   ``training.profile_dir`` (the capture inside the profiler; the Chrome trace
+   names the graph's launches and card kernels; the throughput line; a step
+   with and without the profiler, and the trace's export); torch -> Flax ->
+   torch on the checkpoint,
+   bit-identical;
 5d''. data_prep: a raw archive to generated fields with the port alone, through
    its CLIs (``profile_port.data_config``'s flagship data, 32 days, under
    5d's temporary directory): ``--mode synthetic_data`` with the 'all'
@@ -1199,6 +1213,7 @@ def phase_train_128(dev):
 
 
 DATA_STEPS = 20  # timed flagship steps per loader
+HOST_LOADER_STEPS = 6  # the host loader's (~3.4 s a step, host-bound: a depth cut)
 FUSED_K = 25  # configs/flagship_synth.yaml: training.fused_steps
 FUSED_TOL = 1e-6  # fused vs one-step graph, cuDNN deterministic: per-step loss, relative
 SAMPLE_KEYS = ("x", "cond_img", "lsm_cond", "topo_cond", "y", "lsm_hr")
@@ -1248,8 +1263,8 @@ def phase_train_data(dev, tmp):
     with the same draws (every key equal, the SDF within 1e-6), its SDF against
     the host EDT on all 128 masks (1e-4; a mask without land is 0 on the card),
     the sampler's device time and launches, 20 flagship steps each on the
-    device loader, the host loader (``num_workers`` 1, as configured) and
-    random batches in one pipeline, ``train_main`` for one epoch of 10 steps
+    device loader and random batches and ``HOST_LOADER_STEPS`` on the host
+    loader (``num_workers`` 1, as configured) in one pipeline, ``train_main`` for one epoch of 10 steps
     with its checkpoint read back, and one EDM-18 full-domain sample
     conditioned on the first test day (``make_dataset(cfg, "test",
     full_domain=True)``) with the trained EMA weights, back-transformed to mm:
@@ -1300,7 +1315,8 @@ def phase_train_data(dev, tmp):
     for name, loader in (("device_loader", train), ("host_loader_1_worker", host),
                          ("random_batches", random)):
         step_seconds(torch, pipe, loader, 2)  # warm-up (the first step captures)
-        steps[name] = step_seconds(torch, pipe, loader, DATA_STEPS)
+        steps[name] = step_seconds(torch, pipe, loader,
+                                   HOST_LOADER_STEPS if loader is host else DATA_STEPS)
     losses_finite = all(np.isfinite(r["mean_loss"]) for r in steps.values())
     del pipe, random
     torch.cuda.empty_cache()
@@ -1703,6 +1719,277 @@ def phase_generate(dev, tmp):
                                                                     "gn_apply"))},
             **{f"previews/{name}": pv_k1[i] for i, name in enumerate(("conv3x3_stats",
                                                                     "gn_apply"))}}
+
+
+QUALITY_FLAGSHIP_ARGS = ["--n_dates", "2", "--members", "4", "--dpmpp", "--calibrate",
+                         "--pc_chunk_dates", "2"]
+QUALITY_FULL_ARGS = ["--n_dates", "1", "--members", "2", "--member_chunk", "2"]
+QUALITY_STUDY_ARGS = ["--members", "8", "--truths", "16"]
+QUALITY_TRAIN_STEPS = 2  # the traced epoch (its first step captures the train step)
+QUALITY_TIMED_STEPS = 5  # steps timed with and without the trace, on the captured graph
+K2_LAYERS_AT_FULL_DOMAIN = 1  # attention layers at >= 4096 tokens at 608x800: decoder block 1
+QUALITY_FLAGSHIP_RUNS = ("edm_w3", "edm_w0", "edm_w7", "dpmpp25_w3", "dpmpp25_w0",
+                         "dpmpp35_w3", "calibration/valid_edm_w3",
+                         "calibration/valid_dpmpp25_w3", "pc1000_w3")
+# the JSON keys tests/test_torch_quality_scripts.py holds against the JAX scripts'
+QUALITY_FLAGSHIP_KEYS = {"n_dates", "members", "image_hw", "edm_w3", "edm_w0", "edm_w7",
+                         "dpmpp25_w3", "dpmpp25_w0", "dpmpp35_w3", "calibration",
+                         "edm_w3_cal_crps", "edm_w3_cal_spread_skill", "dpmpp25_w3_cal_crps",
+                         "pc1000_w3"}
+QUALITY_FULL_KEYS = {"n_dates", "members", "domain", "padded", "sampler", "w0", "w3"}
+
+
+def _finite_tree(tree) -> bool:
+    """Every number in a JSON-like tree is finite (None counts as not)."""
+    if isinstance(tree, dict):
+        return all(_finite_tree(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(_finite_tree(v) for v in tree)
+    if isinstance(tree, str):
+        return True
+    return tree is not None and bool(np.isfinite(tree))
+
+
+def _traced_training(dev, tmp):
+    """A 2-step epoch of the flagship trainer (``data_config``, the device
+    loader, batch 128, the one-step graph) with ``training.profile_dir`` set:
+    epoch 0 runs under ``utils/profiling.trace``, its first step capturing
+    the train step inside the profiler; the Chrome trace must exist and name
+    the graph's launch and card kernels, and the throughput line must be
+    logged. Then ``QUALITY_TIMED_STEPS`` replays timed without the trace and
+    under the profiler (epoch 1, inside ``utils/profiling.trace``), and the
+    trace's export apart."""
+    import glob
+    import logging
+
+    from sbgm_danra_tpu_torch.data.factory import make_loaders
+    from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
+    from sbgm_danra_tpu_torch.utils.profiling import trace
+
+    trace_dir = os.path.join(tmp, "profile")
+    cfg = data_config(tmp, fused_steps=0, profile_dir=trace_dir)
+    train, _, _ = make_loaders(cfg, device=dev)
+    pipe = TrainingPipeline(cfg, train, device=dev)
+    lines = []
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    handler = Lines(level=logging.INFO)
+    log = logging.getLogger("sbgm_danra_tpu_torch.training.pipeline")
+    level = log.level
+    log.setLevel(logging.INFO)
+    log.addHandler(handler)
+    try:
+        _, traced_epoch_s = timed(lambda: pipe.train_batches(QUALITY_TRAIN_STEPS))
+        files = sorted(glob.glob(os.path.join(trace_dir, "*.json")))
+        first_throughput = [m for m in lines if m.startswith("epoch 0 throughput: ")]
+        pipe.epoch = 1  # not traced by the trainer
+        _, plain_s = timed(lambda: pipe.train_batches(QUALITY_TIMED_STEPS))
+        tracing = trace(os.path.join(tmp, "profile_timed"), dev)
+        tracing.__enter__()
+        _, traced_s = timed(lambda: pipe.train_batches(QUALITY_TIMED_STEPS))
+        _, export_s = timed(lambda: tracing.__exit__(None, None, None))
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+    throughput = [m for m in lines if " throughput: " in m]
+    names, kernels, graph_launches = set(), 0, 0
+    if files:
+        with open(files[0]) as f:
+            events = json.load(f).get("traceEvents", [])
+        for e in events:
+            names.add(e.get("name", ""))
+            kernels += e.get("cat") == "kernel"
+            graph_launches += e.get("name") == "cudaGraphLaunch"
+    trace_bytes = os.path.getsize(files[0]) if files else 0
+    del pipe, train
+    return dict(trace_files=[os.path.basename(f) for f in files], trace_bytes=trace_bytes,
+                trace_kernel_events=kernels, trace_graph_launches=graph_launches,
+                throughput_lines=throughput, first_epoch_throughput=first_throughput,
+                traced_epoch_s=traced_epoch_s,
+                step_s_without_trace=plain_s / QUALITY_TIMED_STEPS,
+                step_s_with_trace=traced_s / QUALITY_TIMED_STEPS, trace_export_s=export_s)
+
+
+def _convert_round_trip(tmp):
+    """``convert.flax_from_state_dicts`` on train_data's best checkpoint (its
+    EMA copy included), then back through ``state_dicts_from_flax``: every
+    tensor bit-identical."""
+    from sbgm_danra_tpu_torch.config import get_model_string
+    from sbgm_danra_tpu_torch.convert import flatten, flax_from_state_dicts, state_dicts_from_flax
+    from sbgm_danra_tpu_torch.models.unet import build_score_model, model_spec_from_config
+    from sbgm_danra_tpu_torch.training.checkpointing import CheckpointManager, model_state_dict
+
+    cfg = data_config(tmp)
+    step, tree = CheckpointManager(os.path.join(cfg.paths.checkpoint_dir,
+                                                get_model_string(cfg))).load_tree(best=True)
+    model = build_score_model(model_spec_from_config(cfg))
+    model.load_state_dict(model_state_dict(tree))
+    flax = flax_from_state_dicts(model, tree["ema_params"])
+    params, ema = state_dicts_from_flax(flax, model)
+    want = model.state_dict()
+    unequal = [k for k in want if not torch.equal(params[k], want[k])]
+    unequal += [f"ema:{k}" for k in tree["ema_params"]
+                if not torch.equal(ema[k], tree["ema_params"][k])]
+    return dict(step=step, arrays=len(flatten(flax)), tensors=len(want),
+                ema_tensors=len(tree["ema_params"]), unequal=unequal)
+
+
+def phase_quality(dev, tmp):
+    """The port's quality scripts on ``train_data``'s flagship checkpoint (full
+    width, 19.08M parameters, its EMA weights), each through its ``main(argv,
+    cfg)`` in this process on the card, then the trainer's profiler trace and
+    the weight bridge's torch -> Flax direction:
+
+    1. ``flagship_quality_eval`` with ``QUALITY_FLAGSHIP_ARGS`` (2 test dates x
+       4 members, EDM-25 w in {3, 0, 7}, dpmpp 25 / 35, the valid-split
+       calibration and PC-1000, on its eager route): every JSON key, every
+       metric finite; each run's K1 launches = 8 x the UNet evaluations it
+       ran (warm-ups and replays on a graph, the eager calls of PC-1000);
+       the trained UNet at the runs' batches (16 rows with CFG, 8 without)
+       with K1 against the plain chain (PC-1000's graph, the route not
+       taken, is measured by ``profile_port.py --paths pc1000_capture``);
+    2. ``full_domain_quality_eval`` with ``QUALITY_FULL_ARGS`` (1 test date,
+       2 members, 589x789 -> 608x800, EDM-25 w in {0, 3}): K1 as above, K2
+       ``tc_bf16`` launches = UNet evaluations x ``K2_LAYERS_AT_FULL_DOMAIN``,
+       finite in-crop and out-of-crop CRPS; the UNet at 608x800 (4 rows) with
+       K1 against the plain chain;
+    3. ``edm_quality_study`` with ``QUALITY_STUDY_ARGS`` (the whole sampler
+       grid on the five regimes, 16x16): std ratio and spread/skill finite;
+    4. ``_traced_training``; 5. ``_convert_round_trip``."""
+    import gc
+
+    from sbgm_danra_tpu_torch.cli.entries import _load_pipeline_for_sampling
+    from sbgm_danra_tpu_torch.sampling import graphs
+    from sbgm_danra_tpu_torch.scripts import edm_quality_study, flagship_quality_eval
+    from sbgm_danra_tpu_torch.scripts import full_domain_quality_eval
+
+    graphs.clear()
+    result = {}
+    cfg = data_config(tmp)
+    out_dir = os.path.join(tmp, "quality")
+
+    # 1. the flagship quality script
+    reset_counts()
+    flagship, flagship_s = timed(lambda: flagship_quality_eval.main(
+        [*QUALITY_FLAGSHIP_ARGS, "--out", os.path.join(out_dir, "flagship.json"),
+         "--device", str(dev)], cfg=cfg))
+    res, runs = flagship["results"], flagship["runs"]
+    check(set(res) == QUALITY_FLAGSHIP_KEYS, f"flagship_quality_eval keys {sorted(res)}")
+    check(_finite_tree({k: v for k, v in res.items() if k != "calibration"}),
+          "flagship_quality_eval: a metric is not finite")
+    check(set(runs) == set(QUALITY_FLAGSHIP_RUNS), f"flagship runs {sorted(runs)}")
+    for name, run in runs.items():
+        check_k1(tuple(run["k1_launches"]), run["unet_evaluations"], f"flagship {name}")
+        check(not any(run["k2_launches_by_variant"].values()),
+              f"flagship {name}: K2 launched {run['k2_launches_by_variant']}")
+    check(runs["pc1000_w3"]["route"] == "eager" and runs["edm_w3"]["route"] == "graph",
+          f"flagship routes: PC-1000 {runs['pc1000_w3']['route']}, "
+          f"EDM {runs['edm_w3']['route']}")
+    pipeline, _ = _load_pipeline_for_sampling(cfg, dev)
+    rows = res["n_dates"] * res["members"]
+    result["k1_vs_plain_chain"] = {}
+    for batch_rows in (2 * rows, rows):  # the CFG runs' UNet batch, and w=0's
+        cond = make_cond(batch_rows, SERVE_HW, dev, 40 + batch_rows)
+        batch = {"x": torch.randn(batch_rows, *SERVE_HW, 1,
+                                  generator=torch.Generator(dev).manual_seed(batch_rows),
+                                  device=dev), **cond}
+        row = k1_vs_plain_forward(pipeline.model, batch, dev, "bfloat16", 50 + batch_rows)
+        check_k1_forward(row, f"quality flagship UNet at {batch_rows} rows")
+        result["k1_vs_plain_chain"][f"128px_batch_{batch_rows}"] = row
+    result["flagship"] = dict(
+        s=flagship_s, args=QUALITY_FLAGSHIP_ARGS, keys=sorted(res), runs=runs,
+        crps_normalized={k: v["normalized"]["crps"] for k, v in res.items()
+                         if isinstance(v, dict) and "normalized" in v},
+        spread_skill_normalized={k: v["normalized"]["spread_skill"] for k, v in res.items()
+                                 if isinstance(v, dict) and "normalized" in v},
+        calibration=res["calibration"], pc1000_eager_run_s=runs["pc1000_w3"]["run_s"])
+    del flagship
+    gc.collect()
+    graphs.clear()
+    torch.cuda.empty_cache()
+
+    # 2. the full-domain quality script
+    reset_counts()
+    full, full_s = timed(lambda: full_domain_quality_eval.main(
+        [*QUALITY_FULL_ARGS, "--out", os.path.join(out_dir, "full_domain.json"),
+         "--device", str(dev)], cfg=cfg))
+    res, runs = full["results"], full["runs"]
+    check(set(res) == QUALITY_FULL_KEYS, f"full_domain_quality_eval keys {sorted(res)}")
+    for w in ("w0", "w3"):
+        run = runs[w]
+        check_k1(tuple(run["k1_launches"]), run["unet_evaluations"], f"full domain {w}")
+        expected = run["unet_evaluations"] * K2_LAYERS_AT_FULL_DOMAIN
+        check(run["k2_launches_by_variant"] == {"tc_bf16": expected, "fp32": 0},
+              f"full domain {w}: K2 launches {run['k2_launches_by_variant']}, expected "
+              f"{expected} tc_bf16")
+        check(all(np.isfinite(res[w][r]["crps"]) for r in ("overall", "in_crop", "out_of_crop")),
+              f"full domain {w}: CRPS {res[w]}")
+    from sbgm_danra_tpu_torch.models.unet import build_score_model, inference_spec
+    from sbgm_danra_tpu_torch.training.pipeline import share_tensors
+
+    big = share_tensors(build_score_model(inference_spec(pipeline.spec, FULL_DOMAIN),
+                                          pipeline.sde), pipeline.model).to(dev)
+    fd_rows = 4  # 2 members, doubled by CFG
+    cond = make_cond(fd_rows, (608, 800), dev, 61)
+    batch = {"x": torch.randn(fd_rows, 608, 800, 1, generator=torch.Generator(dev).manual_seed(62),
+                              device=dev), **cond}
+    row = k1_vs_plain_forward(big, batch, dev, "bfloat16", 63)
+    check_k1_forward(row, "quality full-domain UNet at 4 rows")
+    result["k1_vs_plain_chain"]["608x800_batch_4"] = row
+    result["full_domain"] = dict(
+        s=full_s, args=QUALITY_FULL_ARGS, keys=sorted(res), runs=runs,
+        wall_s={w: runs[w]["wall_s"] for w in ("w0", "w3")},
+        crps={w: {r: res[w][r]["crps"] for r in ("overall", "in_crop", "out_of_crop")}
+              for w in ("w0", "w3")},
+        out_of_crop_crps_penalty_pct={w: res[w]["out_of_crop_crps_penalty_pct"]
+                                      for w in ("w0", "w3")})
+    del full, big, batch, pipeline
+    gc.collect()
+    graphs.clear()
+    torch.cuda.empty_cache()
+
+    # 3. the exact-score study
+    reset_counts()
+    study, study_s = timed(lambda: edm_quality_study.main([*QUALITY_STUDY_ARGS, "--device",
+                                                            str(dev)]))
+    check(all(np.isfinite(m["std_ratio"]) and np.isfinite(m["spread_skill"])
+              for rows_ in study.values() for m in rows_.values()), "edm study: not finite")
+    result["edm_study"] = dict(
+        s=study_s, args=QUALITY_STUDY_ARGS, regimes=sorted(study),
+        std_ratio={r: {k: m["std_ratio"] for k, m in rows_.items()} for r, rows_ in study.items()},
+        spread_skill={r: {k: m["spread_skill"] for k, m in rows_.items()}
+                      for r, rows_ in study.items()},
+        k1_launches=list(k1_counts()))
+    graphs.clear()
+
+    # 4. the trainer's trace and throughput line; 5. the weight bridge
+    traced = result["traced_training"] = _traced_training(dev, tmp)
+    check(len(traced["trace_files"]) == 1 and traced["trace_kernel_events"] > 0
+          and traced["trace_graph_launches"] > 0,
+          f"training trace: {traced['trace_files']}, {traced['trace_kernel_events']} kernel "
+          f"events, {traced['trace_graph_launches']} graph launches")
+    check(len(traced["first_epoch_throughput"]) == 1 and len(traced["throughput_lines"]) == 3,
+          f"training throughput lines: {traced['throughput_lines']}")
+    gc.collect()
+    graphs.clear()
+    torch.cuda.empty_cache()
+    bridge = result["convert"] = _convert_round_trip(tmp)
+    check(not bridge["unequal"], f"torch -> Flax -> torch not bit-identical: {bridge['unequal'][:8]}")
+    emit(phase="quality", settings="the port's quality scripts on train_data's flagship "
+         "checkpoint (configs/flagship_synth.yaml's model, 32 synthetic days), the trainer's "
+         "trace and the weight bridge", **result)
+    flag, fd = result["flagship"]["runs"], result["full_domain"]["runs"]
+    return {
+        **{f"flagship_quality_eval/{name}/{k}": run["k1_launches"][i] for name, run in flag.items()
+           for i, k in enumerate(("conv3x3_stats", "gn_apply"))},
+        **{f"full_domain_quality_eval/{w}/{k}": run["k1_launches"][i] for w, run in fd.items()
+           for i, k in enumerate(("conv3x3_stats", "gn_apply"))},
+        "k2": {f"full_domain_quality_eval/{w}": run["k2_launches_by_variant"]["tc_bf16"]
+               for w, run in fd.items()},
+    }
 
 
 PREP_SPLITS = ("train", "valid", "test")
@@ -3313,6 +3600,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:  # train_data's data and checkpoint
         train_data = run("train_data", phase_train_data, dev, tmp)
         generate = run("generate", phase_generate, dev, tmp)
+        quality = run("quality", phase_quality, dev, tmp)
         data_prep = run("data_prep", phase_data_prep, dev, tmp)
         windowed = run("windowed", phase_windowed, dev, tmp)
         sweep = run("sweep", phase_sweep, dev, tmp)
@@ -3336,6 +3624,7 @@ def main() -> int:
                                       "full_domain/eager": launches["eager"]["k2"]["tc_bf16"],
                                       "train_data/full_domain": train_data["k2"]["tc_bf16"],
                                       "generate/full_domain": generate["k2"]["tc_bf16"],
+                                      **{f"quality/{k}": n for k, n in quality["k2"].items()},
                                       "fp32_full_domain": fp32["k2"]["tc_bf16"],
                                       "train_full_domain_tc_bf16": train_bf16["k2_fwd"],
                                       **{f"parallel/train_full_domain_rank{r}": n for r, n in
@@ -3384,6 +3673,8 @@ def main() -> int:
                                  "train_data/full_domain": train_data[name],
                                  **{f"generate/{mode}": generate[f"{mode}/{name}"]
                                     for mode in (*GEN_ARTIFACTS, "full_domain", "previews")},
+                                 **{f"quality/{k.rsplit('/', 1)[0]}": n
+                                    for k, n in quality.items() if k.endswith(f"/{name}")},
                                  "data_prep/generate_single": data_prep[name],
                                  "serving": serving[name],
                                  "serving/eager": serving["eager"][name],

@@ -91,6 +91,15 @@ native codec and on zlib at 1, 4 and 8 threads: the threaded host loader's
 samples/s and a window's decode split over a thread pool
 (``host_decode_rows``).
 
+``--paths quality_defaults`` runs ``sbgm_danra_tpu_torch.scripts.flagship_quality_eval``
+at its default sizes (16 dates x 32 members, ``--skip_pc``) on ``--days``
+synthetic days (107 or more for 16 test dates) and a seeded random flagship
+checkpoint: each run's seconds, graph pool and the card's peak memory
+(``quality_defaults_rows``). ``--paths pc1000_capture`` times PC-1000 at the
+quality phase's shape on the eager loop and captured into one CUDA graph
+(capture and instantiate seconds, pool, host memory, replays;
+``pc1000_capture_rows``).
+
 ``--paths k2`` times K2 alone (``flash_attention_cuda`` on contiguous
 seeded inputs, which every version takes) in ``--dtype`` at the full-domain
 shape and at the card tests' shapes: mean device ms of 20 launches
@@ -1013,6 +1022,123 @@ def host_decode_rows(torch, args, smi, tmp) -> list:
     return rows
 
 
+def _host_rss_bytes() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def pc1000_capture_rows(torch, dev, args, smi) -> list:
+    """PC-1000 at the quality phase's flagship shape (2 dates x 4 members: 8
+    rows, 16 with CFG w=3, 128 px, the flagship bf16 UNet with seeded random
+    weights): one call on the eager loop (the route
+    ``scripts/flagship_quality_eval`` takes on the card; it also makes cuDNN's
+    choices and K1's packs), then the same call captured into one CUDA graph
+    with no further warm-up (``capture.Graph(..., warmup=0)``) and replayed
+    twice on the eager call's draws: the eager call's seconds, the capture
+    and instantiate seconds, the pool, the host's resident memory grown by
+    the graph, the launches a replay, each replay's seconds and the replay
+    against the eager output."""
+    from sbgm_danra_tpu_torch import capture
+    from sbgm_danra_tpu_torch.models.unet import build_score_model
+    from sbgm_danra_tpu_torch.sampling import samplers as S
+    from sbgm_danra_tpu_torch.serve import FLAGSHIP_SYNTH
+
+    model = build_score_model(FLAGSHIP_SYNTH.spec, generator=torch.Generator().manual_seed(2))
+    model = model.to(dev)
+    shape = (8, 128, 128, 1)
+    g = torch.Generator(dev).manual_seed(16)
+    cond = {"y": torch.randint(1, 5, (8,), generator=g, device=dev),
+            "cond_img": torch.randn(8, 128, 128, 2, generator=g, device=dev),
+            "lsm_cond": (torch.rand(8, 128, 128, 2, generator=g, device=dev) > 0.5).float(),
+            "topo_cond": torch.randn(8, 128, 128, 2, generator=g, device=dev)}
+    keys = sorted(cond)
+    config = S.SamplerConfig(num_steps=1000, guidance_scale=3.0)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = S.pc_sampler(model, torch.Generator(dev).manual_seed(14), shape, config=config,
+                             cond=cond)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        draws = S.draw_noise(torch.Generator(dev).manual_seed(14), shape,
+                             S.n_draws(S.pc_sampler, config))
+
+        def call(draws, *values):
+            return S.pc_sampler(model, None, shape, config=config,
+                                cond=dict(zip(keys, values)), draws=draws)
+
+        rss0 = _host_rss_bytes()
+        t0 = time.perf_counter()
+        graph = capture.Graph("pc_sampler 1000 8x128x128", call,
+                              [draws, *(cond[k] for k in keys)], warmup=0)
+        capture_call_s = time.perf_counter() - t0
+        rss1 = _host_rss_bytes()
+        replay_s = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = graph.replay()
+            torch.cuda.synchronize()
+            replay_s.append(time.perf_counter() - t0)
+        diff = float((out.float() - eager.float()).abs().max())
+    stats = graph.stats()
+    row = dict(label=args.label, root=args.root, card=smi, path="pc1000_capture",
+               rows=shape[0], cfg=3.0, unet_evaluations=2000, eager_s=eager_s,
+               capture_call_s=capture_call_s, capture_s=stats["capture_s"],
+               instantiate_s=stats["instantiate_s"], pool_bytes=stats["pool_bytes"],
+               host_rss_growth_bytes=rss1 - rss0,
+               launches_per_replay=stats["launches_per_replay"], replay_s=replay_s,
+               replay_vs_eager_max_abs=diff,
+               max_abs_eager=float(eager.float().abs().max()),
+               finite=bool(torch.isfinite(out).all()))
+    print(json.dumps(row), flush=True)
+    del graph, out, draws
+    return [row]
+
+
+def quality_defaults_rows(torch, dev, args, smi) -> list:
+    """``scripts/flagship_quality_eval`` at its default sizes (16 test dates x
+    32 members: 512 rows a sampler call, 1,024 with CFG; ``--skip_pc``) on a
+    checkpoint of the flagship with seeded random weights (an untrained
+    ``TrainingPipeline`` saved as the best step) and ``--days`` synthetic days
+    (16 test dates need 107): each run's route, compile and run seconds,
+    capture and instantiate seconds and graph pool, and the card's peak
+    allocated and reserved memory over the script."""
+    import tempfile
+
+    from sbgm_danra_tpu_torch.cli.main_app import synthetic_data
+    from sbgm_danra_tpu_torch.scripts import flagship_quality_eval
+    from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
+
+    tmp = tempfile.mkdtemp()
+    cfg = data_config(tmp)
+    t0 = time.perf_counter()
+    synthetic_data(cfg, args.days, no_all_split=True)
+    data_s = time.perf_counter() - t0
+    pipe = TrainingPipeline(data_config(tmp, fused_steps=0), [], device=dev)
+    pipe.save(0.0)
+    pipe.checkpoints.wait()
+    del pipe
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = flagship_quality_eval.main(["--skip_pc", "--out", os.path.join(tmp, "q.json"),
+                                      "--device", str(dev)], cfg=cfg)
+    row = dict(label=args.label, root=args.root, card=smi, path="quality_defaults",
+               days=args.days, data_s=data_s, script_s=time.perf_counter() - t0,
+               n_dates=out["results"]["n_dates"], members=out["results"]["members"],
+               runs=out["runs"], peak_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               peak_reserved_gb=torch.cuda.max_memory_reserved(dev) / 1e9,
+               card_total_gb=torch.cuda.get_device_properties(dev).total_memory / 1e9,
+               crps_normalized={k: v["normalized"]["crps"] for k, v in out["results"].items()
+                                if isinstance(v, dict) and "normalized" in v})
+    print(json.dumps(row), flush=True)
+    return [row]
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
@@ -1020,7 +1146,8 @@ def main() -> int:
     p.add_argument("--label", default="change")
     p.add_argument("--paths", default="full_domain,serving",
                    help="comma-separated: full_domain, serving, k1, k2, k2bwd, train, "
-                        "train_data, windowed, host_decode")
+                        "train_data, windowed, host_decode, quality_defaults, "
+                        "pc1000_capture")
     p.add_argument("--k1-sweep", action="store_true",
                    help="with k1: also time every launch shape the plan could choose")
     p.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"),
@@ -1148,6 +1275,10 @@ def main() -> int:
                     f"{backend}, remat {remat}, {mode}", make)
     if "train_data" in args.paths.split(","):
         results += train_data_rows(torch, dev, args, smi, modes, has_graphs)
+    if "quality_defaults" in args.paths.split(","):
+        results += quality_defaults_rows(torch, dev, args, smi)
+    if "pc1000_capture" in args.paths.split(","):
+        results += pc1000_capture_rows(torch, dev, args, smi)
     if {"windowed", "host_decode"} & set(args.paths.split(",")):
         import tempfile
 

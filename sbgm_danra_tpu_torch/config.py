@@ -213,8 +213,10 @@ class EarlyStoppingParams:
 
 @dataclass
 class TrainingConfig:
-    """The fields of the JAX reader's training section that the port's trainer
-    and serving engine act on; the reader skips the others (profiling).
+    """The fields of the JAX reader's training section, all of which the port's
+    trainer and serving engine act on. ``profile_dir``: a ``torch.profiler``
+    Chrome trace of the first training epoch under that directory ('' = off;
+    ``utils/profiling.trace``).
     ``async_checkpointing``: checkpoint writes leave the training loop (a
     snapshot on the device, then the copy to the host and ``torch.save`` on a
     worker thread; ``training/checkpointing.py``).
@@ -255,6 +257,7 @@ class TrainingConfig:
     verbose: bool = True
     monitor_extremes: bool = True
     extreme_cap: float = 300.0
+    profile_dir: str = ""
 
 
 @dataclass

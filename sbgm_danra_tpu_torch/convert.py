@@ -1,4 +1,4 @@
-"""Weight bridge: the JAX package's Flax variables -> the port's ``state_dict``.
+"""Weight bridge between the JAX package's Flax variables and the port's ``state_dict``.
 
 The input is the tree ``{"params", "batch_stats", "buffers"}`` as nested dicts
 of numpy arrays (``jax.tree.map(np.asarray, variables)``), or the same tree in
@@ -18,16 +18,39 @@ Unknown or missing keys, and shape mismatches, raise. A training checkpoint's
 tree may also hold ``ema_params`` (the EMA copy of ``params``, as
 ``export_flax_checkpoint.py`` writes it): ``state_dicts_from_flax`` maps it
 onto a second state_dict with the same statistics and buffers. This module
-imports no JAX. The torch -> Flax direction is not ported yet.
+imports no JAX.
+
+The torch -> Flax direction is the exact inverse (``flax_from_state_dicts``):
+each state_dict entry's owning module decides its Flax name and layout (conv
+weights OIHW -> HWIO, a ``ConvTranspose2d``'s weight transposed back and
+un-flipped, ``Linear`` -> Dense kernel, ``Embedding`` -> ``embedding``, a norm's
+``weight`` -> ``scale``, ``running_*`` -> ``mean`` / ``var``) and every
+``layers.BatchNorm`` gets Flax's inner ``BatchNorm_0`` level back.
+``write_flax_npz`` writes the tree as the ``/``-keyed ``.npz`` that
+``export_flax_checkpoint.py`` writes, and
+
+    python -m sbgm_danra_tpu_torch.convert --to_flax --config_path CFG --out w.npz
+        [--checkpoint_dir DIR] [--best | --step N] [a.b=value ...]
+
+turns a checkpoint of the port's trainer (``training/checkpointing.py``; by
+default the latest under ``paths.checkpoint_dir/<model string>``) into that
+file, its EMA copy included. ``import_torch_checkpoint.py`` (where JAX and
+Orbax are installed) restores it into a JAX train state and writes it as the
+JAX package's best checkpoint.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import argparse
+import os
+import sys
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
+
+from sbgm_danra_tpu_torch.models.layers import BatchNorm, GroupNorm, LayerNorm
 
 _COLLECTIONS = ("params", "batch_stats", "buffers")
 
@@ -126,3 +149,111 @@ def load_flax_npz(path: str, model: nn.Module) -> nn.Module:
     """Load a bridged ``.npz`` of Flax variables into ``model`` (in place)."""
     model.load_state_dict(state_dicts_from_flax(load_npz(path), model)[0])
     return model
+
+
+_NORMS = (BatchNorm, GroupNorm, LayerNorm)
+_STAT_NAMES = {"running_mean": "mean", "running_var": "var"}
+
+
+def _flax_leaf(model: nn.Module, key: str, value: torch.Tensor, buffers) -> tuple:
+    """(collection, Flax module path, leaf name, array) of one state_dict entry,
+    the inverse of ``_convert_leaf``, decided by the module that owns it."""
+    prefix, _, name = key.rpartition(".")
+    module = model.get_submodule(prefix)
+    mods = prefix.split(".") + (["BatchNorm_0"] if isinstance(module, BatchNorm) else [])
+    arr = value.detach().cpu().numpy()
+    if name in _STAT_NAMES and key in buffers:
+        return "batch_stats", mods, _STAT_NAMES[name], arr
+    if key in buffers:
+        if name != "W":
+            raise KeyError(f"unknown buffer {key!r}")
+        return "buffers", mods, name, arr
+    if name == "bias":
+        return "params", mods, name, arr
+    if name != "weight":
+        raise KeyError(f"unknown parameter {key!r}")
+    if isinstance(module, nn.ConvTranspose2d):
+        return "params", mods, "kernel", arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+    if arr.ndim == 4:
+        return "params", mods, "kernel", arr.transpose(2, 3, 1, 0)
+    if isinstance(module, nn.Linear):
+        return "params", mods, "kernel", arr.T
+    if isinstance(module, nn.Embedding):
+        return "params", mods, "embedding", arr
+    if isinstance(module, _NORMS):
+        return "params", mods, "scale", arr
+    raise KeyError(f"no Flax place for {key!r} of {type(module).__name__}")
+
+
+def _insert(tree: Dict, collection: str, mods, leaf: str, arr: np.ndarray) -> None:
+    node = tree.setdefault(collection, {})
+    for mod in mods:
+        node = node.setdefault(mod, {})
+    node[leaf] = np.ascontiguousarray(arr)
+
+
+def flax_from_state_dicts(model: nn.Module,
+                          ema_state_dict: Optional[Mapping[str, torch.Tensor]] = None) -> Dict:
+    """``model``'s weights as the Flax tree ``{"params", "batch_stats",
+    "buffers"[, "ema_params"]}`` of nested dicts of numpy arrays, the exact
+    inverse of ``state_dicts_from_flax``. ``ema_state_dict``: the EMA copy of
+    the parameters (a full state_dict, or the parameters alone, as a port
+    checkpoint's ``ema_params`` holds them); only its parameters are read."""
+    buffers = {k for k, _ in model.named_buffers()}
+    tree: Dict = {c: {} for c in _COLLECTIONS}
+    for key, value in model.state_dict().items():
+        _insert(tree, *_flax_leaf(model, key, value, buffers))
+    if ema_state_dict is not None:
+        tree["ema_params"] = {}
+        params = {k for k, _ in model.named_parameters()}
+        missing = sorted(params - set(ema_state_dict))
+        if missing:
+            raise KeyError(f"the EMA state_dict lacks {len(missing)} parameters: {missing[:8]}")
+        for key in sorted(params):
+            _, mods, leaf, arr = _flax_leaf(model, key, ema_state_dict[key], buffers)
+            _insert(tree, "ema_params", mods, leaf, arr)
+    return tree
+
+
+def write_flax_npz(path: str, model: nn.Module,
+                   ema_state_dict: Optional[Mapping[str, torch.Tensor]] = None
+                   ) -> Dict[str, np.ndarray]:
+    """``flax_from_state_dicts(model, ema_state_dict)`` as the ``/``-keyed
+    ``.npz`` ``export_flax_checkpoint.py`` writes; returns the flat arrays."""
+    flat = flatten(flax_from_state_dicts(model, ema_state_dict))
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **flat)
+    return flat
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description="Convert a port checkpoint to Flax variables.")
+    p.add_argument("--to_flax", action="store_true", required=True,
+                   help="the port's checkpoint -> the /-keyed .npz of Flax variables")
+    p.add_argument("--config_path", required=True)
+    p.add_argument("--out", required=True, help="the .npz to write")
+    p.add_argument("--checkpoint_dir", default=None,
+                   help="default: paths.checkpoint_dir/<model string> of the config")
+    which = p.add_mutually_exclusive_group()
+    which.add_argument("--best", action="store_true", help="the best-validation checkpoint")
+    which.add_argument("--step", type=int, default=None)
+    p.add_argument("overrides", nargs="*", help="dot-key config overrides, a.b=value")
+    args = p.parse_args(argv)
+
+    from sbgm_danra_tpu_torch.config import get_model_string, load_config, parse_override
+    from sbgm_danra_tpu_torch.models.unet import build_score_model, model_spec_from_config
+    from sbgm_danra_tpu_torch.training.checkpointing import CheckpointManager, model_state_dict
+
+    cfg = load_config(args.config_path, dict(parse_override(s) for s in args.overrides))
+    directory = args.checkpoint_dir or os.path.join(cfg.paths.checkpoint_dir,
+                                                    get_model_string(cfg))
+    step, tree = CheckpointManager(directory).load_tree(step=args.step, best=args.best)
+    model = build_score_model(model_spec_from_config(cfg))
+    model.load_state_dict(model_state_dict(tree))
+    flat = write_flax_npz(args.out, model, tree.get("ema_params") or None)
+    print(f"wrote {len(flat)} arrays (step {step}) to {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

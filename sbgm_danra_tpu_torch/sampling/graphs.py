@@ -174,6 +174,14 @@ def _run_rk45(entry: _Entry, sde, config) -> torch.Tensor:
     return x.clone()
 
 
+def captured(score_fn) -> list:
+    """The graphs held for ``score_fn`` (``capture.Graph``: launches, replays,
+    capture and instantiate seconds, pool bytes)."""
+    owner = getattr(score_fn, "__self__", score_fn)
+    fkey = id(getattr(score_fn, "__func__", score_fn))
+    return [entry.graph for (f, _), entry in _caches.get(owner, {}).items() if f == fkey]
+
+
 def clear() -> None:
     """Drop every cached sampler graph (and its memory pool)."""
     _caches.clear()

@@ -26,6 +26,11 @@ steps, the scheduler, early stopping and the port's checkpoints:
   figure;
 - the extreme-precipitation sentinel (``training.monitor_extremes``) on the
   back-transformed HR batch every ``MONITOR_EVERY`` steps.
+- instrumentation, as in JAX: with ``training.profile_dir`` the first
+  epoch runs under ``utils/profiling.trace`` (a ``torch.profiler`` Chrome
+  trace, the card's kernels included; the train step's capture and its
+  replays are inside it), and every epoch logs ``epoch N throughput: S
+  steps/s (I samples/s)`` from a ``StepTimer``.
 
 ``train_loader`` and ``valid_loader`` come from ``data/factory.py::make_loaders``
 or are any iterables of batch dicts. A device loader's batches
@@ -105,6 +110,7 @@ from sbgm_danra_tpu_torch.training.train_step import (
     make_train_step,
 )
 from sbgm_danra_tpu_torch.utils.plotting import plot_or_skip, plot_samples_and_generated
+from sbgm_danra_tpu_torch.utils.profiling import StepTimer, trace
 from sbgm_danra_tpu_torch.utils.sentinels import clamp_extremes, report_precip_extremes
 
 logger = logging.getLogger(__name__)
@@ -245,13 +251,23 @@ class TrainingPipeline:
             yield b
 
     def train_batches(self, max_steps: Optional[int] = None) -> float:
-        """One epoch of optimizer steps; the mean training loss."""
+        """One epoch of optimizer steps; the mean training loss. Epoch 0 runs
+        under ``utils.profiling.trace`` when ``training.profile_dir`` is set;
+        each epoch logs its throughput from a ``StepTimer`` ticked once a step
+        (once a chunk of ``fused_steps``, folded back into steps), as JAX does."""
+        t = self.cfg.training
         losses = []
+        timer = StepTimer()
         t0 = time.perf_counter()
-        if self._fused is not None:
-            self._run_fused(max_steps, losses)
-        else:
-            self._run_steps(max_steps, losses)
+        with trace(t.profile_dir if self.epoch == 0 else "", self.device):
+            if self._fused is not None:
+                self._run_fused(max_steps, losses, timer)
+            else:
+                self._run_steps(max_steps, losses, timer)
+        k = t.fused_steps if self._fused is not None else 1
+        if timer.steps_per_sec > 0:
+            logger.info("epoch %d throughput: %.2f steps/s (%.1f samples/s)", self.epoch,
+                        timer.steps_per_sec * k, timer.items_per_sec(t.batch_size * k))
         if not losses:
             return float("nan")
         mean = float(torch.stack(losses).mean())
@@ -260,10 +276,12 @@ class TrainingPipeline:
                     len(losses) / dt)
         return mean
 
-    def _run_steps(self, max_steps: Optional[int], losses: List[torch.Tensor]) -> None:
+    def _run_steps(self, max_steps: Optional[int], losses: List[torch.Tensor],
+                   timer: StepTimer) -> None:
         for i, batch in enumerate(self._batches(self.train_loader)):
             if max_steps is not None and i >= max_steps:
                 break
+            timer.tick()
             metrics = self._train_step(self.state, batch, self.generator)
             if self.cfg.training.detect_anomaly and not bool(metrics["finite"]):
                 raise FloatingPointError(
@@ -280,7 +298,8 @@ class TrainingPipeline:
             hr_bt = self.back_transforms["generated"](x.float().cpu().numpy())
             report_precip_extremes(hr_bt, "train-HR", t.extreme_cap)
 
-    def _run_fused(self, max_steps: Optional[int], losses: List[torch.Tensor]) -> None:
+    def _run_fused(self, max_steps: Optional[int], losses: List[torch.Tensor],
+                   timer: StepTimer) -> None:
         """K steps per ``fused`` call over ``iter_chunks``; one read of each
         chunk's losses (and finite flags) on the host."""
         k = self.cfg.training.fused_steps
@@ -288,6 +307,7 @@ class TrainingPipeline:
         n_chunks = -(-max_steps // k) if max_steps else None
         x_shape = (loader.batch_size, *loader.crop_hw, 1)
         for ci, (stacks, draws) in enumerate(loader.iter_chunks(k, n_chunks)):
+            timer.tick()
             sdraws = step_draws(self.generator, x_shape, k, stacks[0].dtype, self.device,
                                 self.cfg.sampler.t_eps)
             _, traces = self._fused(self.state, draws, sdraws, stacks)

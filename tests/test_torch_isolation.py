@@ -100,7 +100,21 @@ def test_chip_smoke_path_imports_nothing_of_the_jax_package(blocked_extra):
                      "sbgm_danra_tpu_torch.parallel.windowed_dp",
                      "sbgm_danra_tpu_torch.parallel.ring_attention",
                      "sbgm_danra_tpu_torch.parallel.tp",
-                     "sbgm_danra_tpu_torch.parallel.launch"):
+                     "sbgm_danra_tpu_torch.parallel.launch",
+                     "sbgm_danra_tpu_torch.pipelines.era5",
+                     "sbgm_danra_tpu_torch.pipelines.era5.cdo_utils",
+                     "sbgm_danra_tpu_torch.pipelines.era5.config",
+                     "sbgm_danra_tpu_torch.pipelines.era5.download",
+                     "sbgm_danra_tpu_torch.pipelines.era5.stream",
+                     "sbgm_danra_tpu_torch.pipelines.era5.transfer",
+                     "sbgm_danra_tpu_torch.pipelines.era5.worker",
+                     "sbgm_danra_tpu_torch.cli.main_era5_app",
+                     "sbgm_danra_tpu_torch.utils.profiling",
+                     "sbgm_danra_tpu_torch.convert",
+                     "sbgm_danra_tpu_torch.scripts.common",
+                     "sbgm_danra_tpu_torch.scripts.flagship_quality_eval",
+                     "sbgm_danra_tpu_torch.scripts.full_domain_quality_eval",
+                     "sbgm_danra_tpu_torch.scripts.edm_quality_study"):
             importlib.import_module(name)
         assert not [m for m in sys.modules if _blocked(m)]
         # the parallel phase's workers' entry (``python -m
@@ -148,7 +162,13 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package():
                  "pipelines/correlations.py", "pipelines/preprocess.py", "pipelines/figures.py",
                  "utils/plotting.py", "parallel/mesh.py", "parallel/collectives.py",
                  "parallel/train.py", "parallel/windowed_dp.py", "parallel/ring_attention.py",
-                 "parallel/tp.py", "parallel/launch.py"):
+                 "parallel/tp.py", "parallel/launch.py", "pipelines/era5/__init__.py",
+                 "pipelines/era5/cdo_utils.py", "pipelines/era5/config.py",
+                 "pipelines/era5/download.py", "pipelines/era5/stream.py",
+                 "pipelines/era5/transfer.py", "pipelines/era5/worker.py",
+                 "cli/main_era5_app.py", "utils/profiling.py", "convert.py",
+                 "scripts/__init__.py", "scripts/common.py", "scripts/flagship_quality_eval.py",
+                 "scripts/full_domain_quality_eval.py", "scripts/edm_quality_study.py"):
         assert os.path.join("sbgm_danra_tpu_torch", part) in scanned, part
     bad = [(os.path.relpath(f, ROOT), name) for f in files for name in _imported_names(f)
            if name.split(".")[0] in JAX_SIDE]
