@@ -10,6 +10,11 @@ that layer to the CUDA flash kernel when the model's attention backend is
 (``precision.exact_fp32``). On the card the sampler runs as one replay of its
 captured CUDA graph (``sampling/graphs.py``), unless the caller asks for the
 eager loop (``capture=False``); on the CPU it runs the eager loop.
+
+Spans (``utils/profiling.span``): ``domain.field`` a call, holding
+``domain.pad``, the sampler's ``sample.inputs`` / ``sample.replay``
+(``sampling/graphs.py``), ``domain.sync`` (the host blocked until the card
+has finished) and ``domain.fetch`` (the crop and the copy out).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from sbgm_danra_tpu_torch.precision import exact_fp32
 from sbgm_danra_tpu_torch.sampling import graphs
 from sbgm_danra_tpu_torch.sampling.samplers import Rng, SamplerConfig, get_sampler
 from sbgm_danra_tpu_torch.sde import VESDE
+from sbgm_danra_tpu_torch.utils.profiling import span
 
 PYRAMID_MULTIPLE = 32  # stride of the deepest encoder stage
 
@@ -86,12 +92,18 @@ def sample_full_domain(
     loop on the CPU; False the eager loop (``capture.use_graphs``). A graph is
     kept per ``score_fn``: pass the same callable to replay it.
     """
-    target = padded_dims(*domain_hw)
-    padded = pad_conditioning(cond, target)
-    sampler_fn = get_sampler(sampler)
-    shape = (batch, target[0], target[1], 1)
-    device = rng.device if isinstance(rng, torch.Generator) else rng[0].device
-    with exact_fp32(compute_dtype), torch.inference_mode():
-        out = graphs.call(sampler_fn, score_fn, rng, shape, sde, config, cond=padded,
-                          graph=use_graphs(capture, device))
-    return out[:, : domain_hw[0], : domain_hw[1], 0].float().cpu().numpy()
+    with span("domain.field"):
+        target = padded_dims(*domain_hw)
+        with span("domain.pad"):
+            padded = pad_conditioning(cond, target)
+        sampler_fn = get_sampler(sampler)
+        shape = (batch, target[0], target[1], 1)
+        device = rng.device if isinstance(rng, torch.Generator) else rng[0].device
+        with exact_fp32(compute_dtype), torch.inference_mode():
+            out = graphs.call(sampler_fn, score_fn, rng, shape, sde, config, cond=padded,
+                              graph=use_graphs(capture, device))
+        with span("domain.sync"):
+            if device.type == "cuda":
+                torch.cuda.current_stream(device).synchronize()
+        with span("domain.fetch"):
+            return out[:, : domain_hw[0], : domain_hw[1], 0].float().cpu().numpy()

@@ -12,6 +12,10 @@ graph of the sampler's whole loop:
 2. the conditioning copied into the graph's static buffers;
 3. one replay; the output is cloned out of the graph's pool.
 
+Once captured, a call records the spans (``utils/profiling.span``)
+``sample.inputs`` (steps 1 and 2) and ``sample.replay`` (step 3; rk45's
+host loop of attempts).
+
 One graph per (sampler, config, shape, SDE, conditioning keys with shapes and
 dtypes, keyword options, the flags ``capture.flags`` lists, inference mode)
 and score function, kept while the score function lives (a bound method
@@ -45,6 +49,7 @@ import torch
 from sbgm_danra_tpu_torch import capture
 from sbgm_danra_tpu_torch.sampling import samplers as S
 from sbgm_danra_tpu_torch.sde import VESDE
+from sbgm_danra_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -116,15 +121,18 @@ def sample(sampler, score_fn, rng: S.Rng, shape: Sequence[int], sde=VESDE(),
                                   [draws, *(static[k] for k in present)])
             entry = _Entry(graph, draws, static)
         cache[(fkey, key)] = entry
-    elif draws is not None:
-        entry.draws.copy_(draws)
     else:
-        S.draw_noise(rng, shape, n, out=entry.draws)
-        for k in present:
-            entry.cond[k].copy_(cond[k])
-    if rk45:
-        return _run_rk45(entry, sde, config)
-    return entry.graph.replay().clone()
+        with span("sample.inputs"):
+            if draws is not None:
+                entry.draws.copy_(draws)
+            else:
+                S.draw_noise(rng, shape, n, out=entry.draws)
+            for k in present:
+                entry.cond[k].copy_(cond[k])
+    with span("sample.replay"):
+        if rk45:
+            return _run_rk45(entry, sde, config)
+        return entry.graph.replay().clone()
 
 
 def call(sampler, score_fn, rng: S.Rng, shape: Sequence[int], sde=VESDE(),

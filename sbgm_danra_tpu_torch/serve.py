@@ -34,6 +34,16 @@ fields stay in normalised space. With ``load_ema`` (``training.load_ema``) the
 engine loads the EMA weights of a training checkpoint: the port's own
 (``training/checkpointing.py``) or a bridged ``.npz`` holding ``ema_params/``.
 An fp32 model serves with TF32 off (``precision.exact_fp32``).
+
+Spans (``utils/profiling.span``, recorded while a ``torch.profiler`` runs):
+``serve.queued`` on each caller's thread, from a request's enqueue to the
+dispatcher's pop (the coalescer's queue wait); on the dispatcher's thread
+``serve.idle`` (the wait for arrivals on an empty queue) and one
+``serve.dispatch`` a dispatch, holding ``serve.pack`` (rows, seeds,
+generators, the conditioning's copies to the device), the sampler's
+``sample.inputs`` / ``sample.replay`` (``sampling/graphs.py``),
+``serve.sync`` (the host blocked until the card has finished) and
+``serve.fetch`` (the copy out and the split into requests).
 """
 
 from __future__ import annotations
@@ -60,6 +70,7 @@ from sbgm_danra_tpu_torch.sampling.samplers import (SamplerConfig, config_from_r
                                                    pc_sampler)
 from sbgm_danra_tpu_torch.sde import VESDE
 from sbgm_danra_tpu_torch.transforms import Transform, back_transforms_for_config
+from sbgm_danra_tpu_torch.utils.profiling import recording, span
 
 logger = logging.getLogger(__name__)
 
@@ -238,42 +249,57 @@ class InferenceEngine:
 
     def _dispatch(self, tickets: List["_Ticket"]) -> None:
         """Pack the tickets' member rows into one fixed-capacity sampler call."""
-        m = self.max_members
-        cond = {k: np.broadcast_to(v, (m, *v.shape)).copy() for k, v in self._zero_row().items()}
-        seeds = [member_seed(0, i) for i in range(m)]  # filler rows
-        i, spans = 0, []
-        for t in tickets:
-            seeds[i : i + t.n] = [member_seed(t.seed, j) for j in range(t.n)]
-            for k, v in t.row.items():
-                cond[k][i : i + t.n] = v
-            spans.append((t, i, i + t.n))
-            i += t.n
-        gens = [torch.Generator(self.device).manual_seed(s) for s in seeds]
-        cond_t = {k: torch.from_numpy(v).to(self.device) for k, v in cond.items()}
-        extra = {"per_member_step": True} if self._sampler is pc_sampler else {}
-        run = (functools.partial(graphs.sample, self._sampler) if self.capture
-               else self._sampler)
-        with exact_fp32(self.settings.spec.compute_dtype), torch.inference_mode():
-            out = run(self.score_fn, gens, (m, *self.hw, 1), self.sde, self.settings.sampler,
-                      cond=cond_t, **extra)
-            out = out[..., 0].float().cpu().numpy()
-        self.n_dispatches += 1
-        self.n_rows += i
-        for t, lo, hi in spans:
-            t.out = out[lo:hi]
+        with span("serve.dispatch"):
+            m = self.max_members
+            with span("serve.pack"):
+                cond = {k: np.broadcast_to(v, (m, *v.shape)).copy()
+                        for k, v in self._zero_row().items()}
+                seeds = [member_seed(0, i) for i in range(m)]  # filler rows
+                i, slots = 0, []
+                for t in tickets:
+                    seeds[i : i + t.n] = [member_seed(t.seed, j) for j in range(t.n)]
+                    for k, v in t.row.items():
+                        cond[k][i : i + t.n] = v
+                    slots.append((t, i, i + t.n))
+                    i += t.n
+                gens = [torch.Generator(self.device).manual_seed(s) for s in seeds]
+                cond_t = {k: torch.from_numpy(v).to(self.device) for k, v in cond.items()}
+            extra = {"per_member_step": True} if self._sampler is pc_sampler else {}
+            run = (functools.partial(graphs.sample, self._sampler) if self.capture
+                   else self._sampler)
+            with exact_fp32(self.settings.spec.compute_dtype), torch.inference_mode():
+                out = run(self.score_fn, gens, (m, *self.hw, 1), self.sde,
+                          self.settings.sampler, cond=cond_t, **extra)
+                with span("serve.sync"):
+                    if self.device.type == "cuda":
+                        torch.cuda.current_stream(self.device).synchronize()
+                with span("serve.fetch"):
+                    out = out[..., 0].float().cpu().numpy()
+                    for t, lo, hi in slots:
+                        t.out = out[lo:hi]
+            self.n_dispatches += 1
+            self.n_rows += i
 
     def close(self) -> None:
         self._batcher.close()
 
 
 class _Ticket:
-    __slots__ = ("seed", "row", "n", "event", "out", "err")
+    __slots__ = ("seed", "row", "n", "event", "popped", "out", "err")
 
     def __init__(self, seed: int, row: Dict[str, np.ndarray], n: int):
         self.seed, self.row, self.n = seed, row, n
         self.event = threading.Event()
+        # set when the dispatcher takes the ticket; made only while a
+        # profiler records, to end the caller's ``serve.queued`` span
+        self.popped: Optional[threading.Event] = None
         self.out = None
         self.err: Optional[BaseException] = None
+
+    def pop(self) -> "_Ticket":
+        if self.popped is not None:
+            self.popped.set()
+        return self
 
 
 class _Batcher:
@@ -290,15 +316,24 @@ class _Batcher:
         self._thread.start()
 
     def submit(self, ticket: _Ticket) -> np.ndarray:
+        if recording():
+            ticket.popped = threading.Event()
+            with span("serve.queued"):
+                self._enqueue(ticket)
+                ticket.popped.wait()
+        else:
+            self._enqueue(ticket)
+        ticket.event.wait()
+        if ticket.err is not None:
+            raise ticket.err
+        return ticket.out
+
+    def _enqueue(self, ticket: _Ticket) -> None:
         with self._cv:
             if self._closed:
                 raise RuntimeError("engine is closed")
             self._queue.append(ticket)
             self._cv.notify()
-        ticket.event.wait()
-        if ticket.err is not None:
-            raise ticket.err
-        return ticket.out
 
     def close(self) -> None:
         with self._cv:
@@ -309,16 +344,18 @@ class _Batcher:
     def _loop(self) -> None:
         while True:
             with self._cv:
-                while not self._queue and not self._closed:
-                    self._cv.wait()
+                if not self._queue and not self._closed:
+                    with span("serve.idle"):
+                        while not self._queue and not self._closed:
+                            self._cv.wait()
                 if self._closed:
                     for t in self._queue:
                         t.err = RuntimeError("engine closed")
-                        t.event.set()
+                        t.pop().event.set()
                     return
                 batch, cap = [], self._engine.max_members
                 while self._queue and self._queue[0].n <= cap:
-                    t = self._queue.popleft()
+                    t = self._queue.popleft().pop()
                     batch.append(t)
                     cap -= t.n
             try:

@@ -78,6 +78,7 @@ with ``fused_steps`` raises, as in JAX.
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import math
@@ -110,7 +111,7 @@ from sbgm_danra_tpu_torch.training.train_step import (
     make_train_step,
 )
 from sbgm_danra_tpu_torch.utils.plotting import plot_or_skip, plot_samples_and_generated
-from sbgm_danra_tpu_torch.utils.profiling import StepTimer, trace
+from sbgm_danra_tpu_torch.utils.profiling import StepTimer, span, trace
 from sbgm_danra_tpu_torch.utils.sentinels import clamp_extremes, report_precip_extremes
 
 logger = logging.getLogger(__name__)
@@ -301,17 +302,32 @@ class TrainingPipeline:
     def _run_fused(self, max_steps: Optional[int], losses: List[torch.Tensor],
                    timer: StepTimer) -> None:
         """K steps per ``fused`` call over ``iter_chunks``; one read of each
-        chunk's losses (and finite flags) on the host."""
+        chunk's losses (and finite flags) on the host.
+
+        Spans: ``train.chunk`` a chunk, holding ``train.draw`` (the loader's
+        chunk draws and the DSM draws), ``train.replay`` (the fused call) and
+        ``train.sync`` (the loss read). The loader's end of the epoch, found
+        by one more draw, closes a last ``train.chunk`` that holds only its
+        ``train.draw``."""
         k = self.cfg.training.fused_steps
         loader = self.train_loader
         n_chunks = -(-max_steps // k) if max_steps else None
         x_shape = (loader.batch_size, *loader.crop_hw, 1)
-        for ci, (stacks, draws) in enumerate(loader.iter_chunks(k, n_chunks)):
-            timer.tick()
-            sdraws = step_draws(self.generator, x_shape, k, stacks[0].dtype, self.device,
-                                self.cfg.sampler.t_eps)
-            _, traces = self._fused(self.state, draws, sdraws, stacks)
-            trace = traces["loss"].cpu()
+        chunks = loader.iter_chunks(k, n_chunks)
+        for ci in itertools.count():
+            with span("train.chunk"):
+                with span("train.draw"):
+                    chunk = next(chunks, None)
+                    if chunk is None:
+                        return
+                    stacks, draws = chunk
+                    timer.tick()
+                    sdraws = step_draws(self.generator, x_shape, k, stacks[0].dtype,
+                                        self.device, self.cfg.sampler.t_eps)
+                with span("train.replay"):
+                    _, traces = self._fused(self.state, draws, sdraws, stacks)
+                with span("train.sync"):
+                    trace = traces["loss"].cpu()
             if self.cfg.training.detect_anomaly:
                 finite = traces["finite"].cpu()
                 if not bool(finite.all()):

@@ -1,17 +1,31 @@
 """Tracing and throughput instrumentation (counterpart of
 ``sbgm_danra_tpu/utils/profiling.py``):
 
-- ``trace(log_dir, device)``: ``torch.profiler`` over the block,
-  CPU activity and, on a CUDA device, the card's kernels and copies (CUPTI),
-  written as one Chrome trace (``trace_<pid>_<ns>.json``, readable in
-  Perfetto or ``chrome://tracing``) under ``log_dir``; a no-op when
-  ``log_dir`` is falsy. JAX's ``jax.profiler`` writes a TensorBoard profile
-  directory instead;
-- ``StepTimer``: rolling per-step wall time, steps/s and items/s (a copy);
-- ``loader_probe``: seconds per batch over a loader's first batches (a copy).
+- ``trace(log_dir, device)``: ``torch.profiler`` over the block, on every
+  thread of the process, CPU activity and, on a CUDA device, the card's
+  kernels and copies (CUPTI), written as one Chrome trace
+  (``trace_<pid>_<ns>.json``, readable in Perfetto or ``chrome://tracing``)
+  under ``log_dir``; a no-op when ``log_dir`` is falsy. JAX's
+  ``jax.profiler`` writes a TensorBoard profile directory instead;
+- ``span(name)``: a host range ``sbgm:<name>`` (``record_function``) in
+  whatever ``torch.profiler`` is recording, on the clock of the card's
+  kernel and copy events, so that each idle gap of the card can be put down
+  to the span that was open; with no profiler on, one flag check;
+- ``StepTimer``: rolling per-step wall time, steps/s and items/s (a copy).
 
 A CUDA graph replayed inside the block shows as its kernels on the device
-timeline under one ``cudaGraphLaunch`` on the host.
+timeline under one ``cudaGraphLaunch`` on the host; no span is recorded
+inside a captured graph.
+
+How an operator sees the port's spans: training with
+``training.profile_dir`` traces epoch 0 (``train.chunk`` and its ``draw``,
+``replay`` and ``sync`` on the fused route); a serving engine, a
+``sample_full_domain`` loop or any other caller is wrapped in
+``with trace(dir, device):`` (``serve.*``, ``domain.*``, ``sample.*``).
+``torch.profiler`` records only the thread that started it unless asked
+for every thread, as ``trace`` asks: under a profiler of another's, the
+spans of threads other than its own are not recorded (a serving engine's
+``serve.queued`` lives on each caller's thread).
 """
 
 from __future__ import annotations
@@ -24,8 +38,26 @@ from collections import deque
 from typing import Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import record_function
 
 logger = logging.getLogger(__name__)
+
+SPAN_PREFIX = "sbgm:"
+_OFF = contextlib.nullcontext()
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` is on (in any thread of the process)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str):
+    """The host range ``sbgm:<name>`` while a profiler records; otherwise a
+    shared no-op context (one flag check, no ``RecordFunction``)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return record_function(SPAN_PREFIX + name)
 
 
 @contextlib.contextmanager
@@ -36,14 +68,15 @@ def trace(log_dir: Optional[str], device=None):
     if not log_dir:
         yield None
         return
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
 
     activities = [ProfilerActivity.CPU]
     if device is not None and torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
-    with profile(activities=activities) as prof:
+    every_thread = _ExperimentalConfig(profile_all_threads=True)
+    with profile(activities=activities, experimental_config=every_thread) as prof:
         yield path
     prof.export_chrome_trace(path)
     logger.info("profiler trace written to %s", path)
@@ -77,16 +110,3 @@ class StepTimer:
 
     def items_per_sec(self, items_per_step: int) -> float:
         return self.steps_per_sec * items_per_step
-
-
-def loader_probe(loader, n_batches: int = 100) -> float:
-    """Average seconds/batch over the first n batches (reference :58-63)."""
-    t0 = time.perf_counter()
-    n = 0
-    for _, _batch in zip(range(n_batches), iter(loader)):
-        n += 1
-    if n == 0:
-        return float("nan")
-    dt = (time.perf_counter() - t0) / n
-    logger.info("loader probe: %.4f s/batch over %d batches", dt, n)
-    return dt

@@ -751,6 +751,37 @@ def test_sampler_graph_replay_equals_the_eager_loop(cuda, monkeypatch, case):
     assert torch.equal(first, want[0]) and torch.equal(second, want[1])
 
 
+def test_sampler_graph_with_draws_takes_each_calls_conditioning(cuda, monkeypatch):
+    """A replay given its noise (``draws``, as a member-sharded ensemble
+    gives it) copies the call's conditioning in too, and records its
+    ``sample.inputs`` and ``sample.replay`` spans under a profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sbgm_danra_tpu_torch.sampling import graphs
+    from sbgm_danra_tpu_torch.sampling import samplers as S
+    from sbgm_danra_tpu_torch.sde import VESDE
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    config = S.SamplerConfig(num_steps=4, guidance_scale=3.0)
+    model = _tiny_unet(cuda).eval()
+    shape = (2, 64, 64, 1)
+    n = S.n_draws(S.dpmpp_sampler, config)
+    draws = torch.randn(n, *shape, generator=torch.Generator(cuda).manual_seed(5), device=cuda)
+    conds = [_card_cond(2, shape[1:3], cuda, seed) for seed in (6, 7)]
+    with torch.inference_mode():
+        graphs.sample(S.dpmpp_sampler, model, None, shape, VESDE(), config, cond=conds[0],
+                      draws=draws)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            got = graphs.sample(S.dpmpp_sampler, model, None, shape, VESDE(), config,
+                                cond=conds[1], draws=draws)
+        want = S.dpmpp_sampler(model, None, shape, VESDE(), config, cond=conds[1], draws=draws)
+    assert torch.equal(got, want)
+    names = [n for _, n in sorted((e.start_ns(), e.name())
+                                  for e in prof.profiler.kineto_results.events())]
+    assert [n for n in names if n.startswith("sbgm:")] == ["sbgm:sample.inputs",
+                                                          "sbgm:sample.replay"]
+
+
 def test_graph_launch_counts_per_replay(cuda, monkeypatch):
     """A graph records K1's and K2's launches at capture and adds them to the
     wrappers' counts at every replay: one replay counts what one eager call
