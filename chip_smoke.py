@@ -8,8 +8,8 @@ Phases, one JSON line each on stdout:
 1. device: the card's name, count and power limit, and the SFU's rate of
    exponentials (16 per clock per SM at the card's maximum SM clock), which
    K2's bound takes beside bytes and tensor-core operations;
-2. build: both CUDA sources of ``sbgm_danra_tpu_torch/csrc`` compiled with
-   nvcc for sm_90a, in parallel, into ``sbgm_danra_tpu_torch/_build/``
+2. build: the three CUDA sources of ``sbgm_danra_tpu_torch/csrc`` compiled
+   with nvcc for sm_90a, in parallel, into ``sbgm_danra_tpu_torch/_build/``
    (nvcc's ``-Xptxas -v`` report on stderr);
 3. kernel: each kernel against its plain PyTorch version on the card, with
    its time, the plain version's, the time of one PyTorch library call of the
@@ -38,6 +38,14 @@ Phases, one JSON line each on stdout:
      ``library_kernel_ms`` (the device time of the kernels that call launches,
      measured the same way); tolerances in each row. Bounds: ``profile_port.bound``
      (fp32 operations by the faster of FMAs at 67 and 3xTF32 at 495 TFLOP/s);
+   - the decoder's 2x bilinear upsample (``upsample2x``) at the final decoder
+     block of the gen cell (1,024 x 64x64x64 bf16) and of the 608x800 path
+     (2 x 304x400x64, bf16 and fp32): equal to the plain version bit for bit,
+     repeated bit for bit, one launch a call; ``ms`` (the wrapper),
+     ``kernel_ms`` (device time, cold where 20 copies fit beside each other),
+     the bound by bytes (x read once, the output written once), the plain
+     version's ms and ``F.interpolate``'s (bilinear, ``align_corners=False``,
+     on the channels_last view: the library's call, which the port never makes);
 3b. kernel (K2 backward): delta, dk/dv and dq (one ``_launch_bwd``; dk/dv and
    dq on the tensor cores, bf16 mma.sync or 3xTF32) on strided q, k, v against
    the dense plain backward in fp32, bf16 and fp32, at the full-domain shape
@@ -65,9 +73,10 @@ times, and the graph's output against the eager route's on the same draws
 5. full_domain: ``sample_full_domain`` 589x789 -> 608x800, EDM-18, CFG w=3,
    flagship bf16 UNet with attention backend 'pallas', seeded weights: the
    capture, two replays, each finite of shape (1, 589, 789) with exactly 34
-   K2 launches, all of the tensor-core variant, and 272 K1 launches (8 per
-   UNet evaluation, 2 x 17 evaluations); then the eager loop
-   (``capture=False``) on the first replay's draws: the same counts;
+   K2 launches, all of the tensor-core variant, 272 K1 launches (8 per
+   UNet evaluation, 2 x 17 evaluations) and 170 upsample launches (5 per
+   evaluation); then the eager loop (``capture=False``) on the first
+   replay's draws: the same counts;
 5b. fp32_full_width: the flagship in fp32 (the 3xTF32 kernels) at 608x800:
    one forward at batch 2 against the plain attention and the plain chain
    (TF32 off: max |err| <= 1e-4 max |ref|, 1 ``fp32`` K2 and 8 + 8 K1
@@ -233,6 +242,12 @@ SERVE_HW = (128, 128)
 CONTRACT_BATCH = 13  # bench.py's PC+CFG headline batch
 SAMPLER_STEPS = 10
 K1_PER_EVAL = 8  # decoder chains per UNet evaluation: 4 GroupNorm blocks x 2
+UP_PER_EVAL = 5  # upsamples per UNet evaluation: decoder blocks 0-3 and the final block
+UPSAMPLE_SHAPES = (  # (path, x [N, H, W, C] of its final decoder block, dtype)
+    ("gen-128-ensemble", (1024, 64, 64, 64), torch.bfloat16),
+    ("full-domain", (2, 304, 400, 64), torch.bfloat16),
+    ("full-domain", (2, 304, 400, 64), torch.float32),
+)
 K2_MAIN = ((2, 7600, 4, 32), torch.bfloat16)  # decoder block 1 at 608x800
 K2_SHAPES = [  # (shape, dtype, packed QKV chunks, through the dispatcher with the kernel forced)
     ((2, 7600, 4, 32), torch.bfloat16, False, False),
@@ -572,21 +587,80 @@ def phase_conv_gn_kernel(dev):
     return rows
 
 
+def phase_upsample_kernel(dev):
+    """The decoder's upsample kernel against its plain version at
+    ``UPSAMPLE_SHAPES``, with its times beside the bound and the library's call."""
+    import torch.nn.functional as F
+
+    from sbgm_danra_tpu_torch.ops import upsample as up
+
+    gen = torch.Generator(dev).manual_seed(2)
+    rows = []
+    for path, shape, dtype in UPSAMPLE_SHAPES:
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        before = up.launches
+        out = up.upsample2x(x)
+        launches = up.launches - before
+        bit_identical = torch.equal(out, up.upsample2x_bilinear(x))
+        repeat = torch.equal(up.upsample2x(x), out)
+        x_bytes = x.numel() * x.element_size()
+        ms = cuda_ms(lambda: up.upsample2x(x), 20)
+        cold = COLD_COPIES * 5 * x_bytes <= 8 * 2**30
+        if cold:
+            kernel_ms = cold_ms(up.upsample2x_cuda, x)
+        else:  # each call streams many times L2's size: nothing of one is left for the next
+            kernel_ms = device_ms(torch, [functools.partial(up.upsample2x_cuda, x)] * 5,
+                                  cold=False)
+        plain_ms = cuda_ms(lambda: up.upsample2x_bilinear(x), 3)
+        x_nchw = x.permute(0, 3, 1, 2)
+
+        def library():
+            return F.interpolate(x_nchw, scale_factor=2, mode="bilinear", align_corners=False)
+
+        library_ms = cuda_ms(library, 5)
+        library_diff = (library().permute(0, 2, 3, 1).float() - out.float()).abs().max().item()
+        b = bound(0.0, 5 * x_bytes, dtype_name(dtype))
+        row = dict(phase="kernel", kernel="upsample2x", path=path, shape=list(shape),
+                   dtype=dtype_name(dtype), bit_identical=bit_identical,
+                   repeat_bit_identical=repeat, launches=launches, ms=ms, kernel_ms=kernel_ms,
+                   kernel_ms_operands="cold copies" if cold else "one set, 5 x L2 or more",
+                   roofline_pct=100.0 * b["bound_ms"] / kernel_ms, plain_ms=plain_ms,
+                   library_ms=library_ms,
+                   library="F.interpolate bilinear, align_corners=False (channels_last)",
+                   library_max_abs_diff=library_diff, **b)
+        emit(**row)
+        check(bit_identical and repeat and launches == 1,
+              f"upsample2x at {path} {shape} {dtype}: bit-identical {bit_identical}, repeated "
+              f"{repeat}, {launches} launches")
+        rows.append(row)
+        del x, x_nchw, out
+        torch.cuda.empty_cache()
+    return rows
+
+
 def k1_counts():
     from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
 
     return k1.conv3x3_stats_launches, k1.gn_apply_launches
 
 
+def up_counts() -> int:
+    from sbgm_danra_tpu_torch.ops import upsample as up
+
+    return up.launches
+
+
 def reset_counts():
     from sbgm_danra_tpu_torch.ops import cuda_attention
     from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
+    from sbgm_danra_tpu_torch.ops import upsample as up
 
     cuda_attention.launches = cuda_attention.bwd_launches = 0
     for name in cuda_attention.launches_by_variant:
         cuda_attention.launches_by_variant[name] = 0
         cuda_attention.bwd_launches_by_variant[name] = 0
     k1.conv3x3_stats_launches = k1.gn_apply_launches = 0
+    up.launches = 0
 
 
 def k2_counts() -> dict:
@@ -856,12 +930,14 @@ def phase_full_domain(dev, model):
     reset_counts()  # the main path's run starts here: a replay of the graph
     out, first_s = run(1)
     launches, k2_first, k1_first = cuda_attention.launches, k2_counts(), k1_counts()
+    up_first = up_counts()
     reset_counts()
     out2, second_s = run(2)
     launches2, k2_second, k1_second = cuda_attention.launches, k2_counts(), k1_counts()
+    up_second = up_counts()
     reset_counts()
     eager, eager_s = run(1, capture=False)
-    k2_eager, k1_eager = k2_counts(), k1_counts()
+    k2_eager, k1_eager, up_eager = k2_counts(), k1_counts(), up_counts()
     evaluations = 2 * (EDM_NODES - 1)
     finite = bool(np.isfinite(out).all() and np.isfinite(out2).all())
     vs_eager = compare(out, eager, GRAPH_TOL["bfloat16"])
@@ -872,7 +948,9 @@ def phase_full_domain(dev, model):
          kernel_launches_second_run=launches2, expected_launches=evaluations,
          k2_launches_by_variant=k2_first, k2_launches_by_variant_second_run=k2_second,
          k1_launches=list(k1_first), k1_launches_second_run=list(k1_second),
-         k1_expected=K1_PER_EVAL * evaluations, graph=stats,
+         k1_expected=K1_PER_EVAL * evaluations,
+         upsample_launches=[up_first, up_second, up_eager],
+         upsample_expected=UP_PER_EVAL * evaluations, graph=stats,
          capture_call_s=capture_call_s, wall_s_first=first_s, wall_s_second=second_s,
          eager_wall_s=eager_s, eager_k1_launches=list(k1_eager),
          eager_k2_launches_by_variant=k2_eager, graph_vs_eager=vs_eager,
@@ -887,12 +965,18 @@ def phase_full_domain(dev, model):
     check_k1(k1_first, evaluations, "full-domain sample (graph replay)")
     check_k1(k1_second, evaluations, "second full-domain sample (graph replay)")
     check_k1(k1_eager, evaluations, "full-domain sample (eager loop)")
+    check([up_first, up_second, up_eager] == [UP_PER_EVAL * evaluations] * 3,
+          f"full-domain upsample launches {[up_first, up_second, up_eager]} (graph, graph, "
+          f"eager), expected {UP_PER_EVAL * evaluations} each")
     check(len(stats) == 1 and stats[0]["launches_per_replay"] == {
         "conv3x3_stats": K1_PER_EVAL * evaluations, "gn_apply": K1_PER_EVAL * evaluations,
-        "flash_attention_fwd_tc_bf16": evaluations}, f"full-domain graph launches {stats}")
+        "flash_attention_fwd_tc_bf16": evaluations, "upsample2x": UP_PER_EVAL * evaluations},
+          f"full-domain graph launches {stats}")
     check(vs_eager["within"], f"full-domain graph vs eager: {vs_eager}")
     return {"k2": k2_first, "conv3x3_stats": k1_first[0], "gn_apply": k1_first[1],
-            "eager": {"k2": k2_eager, "conv3x3_stats": k1_eager[0], "gn_apply": k1_eager[1]},
+            "upsample2x": up_first,
+            "eager": {"k2": k2_eager, "conv3x3_stats": k1_eager[0], "gn_apply": k1_eager[1],
+                      "upsample2x": up_eager},
             "wall_s": [first_s, second_s], "eager_wall_s": eager_s}
 
 
@@ -3558,7 +3642,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     # the port itself; fails here when the script is run outside a checkout
-    from sbgm_danra_tpu_torch.ops import _nvcc, cuda_attention, fused_conv_gn
+    from sbgm_danra_tpu_torch.ops import _nvcc, cuda_attention, fused_conv_gn, upsample
 
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
@@ -3566,7 +3650,7 @@ def main() -> int:
     emit(phase="device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi, **sfu,
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    modules = (cuda_attention, fused_conv_gn)
+    modules = (cuda_attention, fused_conv_gn, upsample)
     start = t0 = time.perf_counter()
     with ThreadPoolExecutor(len(modules)) as pool:  # one nvcc per source, all at once
         builds = list(pool.map(lambda m: m.build_library(), modules))
@@ -3590,6 +3674,7 @@ def main() -> int:
     attention_rows = run("kernel", phase_attention_kernel, dev, sfu["exp_per_s"])
     bwd_rows = run("kernel_backward", phase_attention_backward, dev)
     k1_rows = run("kernel_k1", phase_conv_gn_kernel, dev)
+    up_rows = run("kernel_upsample", phase_upsample_kernel, dev)
     model, serve_model, tiny_k2 = run("model", phase_model, dev)
     launches = run("full_domain", phase_full_domain, dev, model)
     del model
@@ -3699,6 +3784,20 @@ def main() -> int:
                                  "sweep/eval_steps": sweep[name]},
             **_k1_summary(k1_rows, name, "float32"),
         })
+    kernels.append({
+        "name": "upsample2x",
+        "route": "cuda",
+        "mma": None,
+        "source": "sbgm_danra_tpu_torch/csrc/upsample2x.cu",
+        "replaces": "no TPU kernel: the plain chain of sbgm_danra_tpu_torch/ops/upsample.py "
+                    "(XLA fuses sbgm_danra_tpu/ops/upsample.py's)",
+        "launches": launches["upsample2x"],
+        "launches_by_path": {"full_domain": launches["upsample2x"],
+                             "full_domain/eager": launches["eager"]["upsample2x"]},
+        "rows": [{key: r[key] for key in ("path", "shape", "dtype", "ms", "kernel_ms",
+                                          "bound_ms", "roofline_pct", "plain_ms", "library_ms")}
+                 for r in up_rows],
+    })
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel was not launched on its path: " + str({k["name"]: k["launches"] for k in kernels}))
     emit(kernels=kernels)

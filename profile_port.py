@@ -167,6 +167,7 @@ CLASSES = (
     ("K2 flash_attention_bwd", ("flash_attention_bwd_",)),
     ("K1 conv3x3_stats", ("conv3x3_stats",)),
     ("K1 gn_apply", ("gn_apply",)),
+    ("upsample2x", ("upsample2x_kernel",)),
     ("GroupNorm (PyTorch)", ("GroupNorm", "group_norm", "RowwiseMoments", "ComputeFusedParams")),
     ("BatchNorm", ("batch_norm", "BatchNorm")),
     ("cat", ("CatArrayBatchedCopy",)),

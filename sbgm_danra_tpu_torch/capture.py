@@ -3,7 +3,7 @@
 JAX traces a sampler, a train step or a chunk of fused steps into one XLA
 program and dispatches it once. Here such a call is captured once into a CUDA
 graph (``torch.cuda.CUDAGraph``) and replayed: one launch from the host for
-the whole call, with the hand-written kernels (K1, K2) among its nodes.
+the whole call, with the hand-written kernels (K1, K2, the upsample) among its nodes.
 
 ``Graph(fn, inputs)`` follows PyTorch's recipe: ``warmup`` eager calls of
 ``fn(*inputs)`` on the device's capture stream (``capture_stream``: one
@@ -22,10 +22,11 @@ model's parameters, a train state, resident data) its owner keeps alive.
   tensor), a copy from pageable host memory, or an op that does not capture.
   Nothing falls back to the eager call.
 - Launch counts. A kernel wrapper called during a capture records its launch
-  (``fused_conv_gn.recorded``, ``cuda_attention.recorded``) instead of
-  counting it; the graph keeps what its capture recorded (``launches``, by
-  kernel) and each replay adds that to the wrappers' counts, so the counts
-  stay the number of kernel launches on the card.
+  (``fused_conv_gn.recorded``, ``cuda_attention.recorded``,
+  ``upsample.recorded``) instead of counting it; the graph keeps what its
+  capture recorded (``launches``, by kernel) and each replay adds that to the
+  wrappers' counts, so the counts stay the number of kernel launches on the
+  card.
 - Staleness. The graph reads every tensor at the address it had at capture.
   K1's cached weight packs are checked on every replay (``valid``): a
   parameter updated in place since the capture makes ``valid`` False, and
@@ -55,8 +56,10 @@ import torch
 
 from sbgm_danra_tpu_torch.ops import cuda_attention as k2
 from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
+from sbgm_danra_tpu_torch.ops import upsample as up
 
 WARMUP_CALLS = 2
+_COUNTERS = {"k1": k1, "k2": k2, "up": up}  # the kernel wrappers, by a graph's launch-key prefix
 _live = weakref.WeakSet()  # every Graph not yet collected, for stats()
 
 
@@ -77,14 +80,14 @@ def use_graphs(capture: Optional[bool], device) -> bool:
 
 
 def _records() -> Dict[str, int]:
-    out = {f"k1/{k}": v for k, v in k1.recorded.items()}
-    out.update({f"k2/{k}": v for k, v in k2.recorded.items()})
-    return out
+    return {f"{prefix}/{k}": v for prefix, module in _COUNTERS.items()
+            for k, v in module.recorded.items()}
 
 
 def kernel_names(launches: Dict[str, int]) -> Dict[str, int]:
     """A graph's launches under the kernels' report names: ``conv3x3_stats``,
-    ``gn_apply``, ``flash_attention_fwd_<variant>``, ``flash_attention_bwd_<variant>``."""
+    ``gn_apply``, ``flash_attention_fwd_<variant>``, ``flash_attention_bwd_<variant>``,
+    ``upsample2x``."""
     out = {}
     for key, n in launches.items():
         module, name = key.split("/", 1)
@@ -174,10 +177,10 @@ class Graph:
                          for k in after if after.get(k, 0) != before.get(k, 0)}
         self.capture_s, self.instantiate_s = t1 - t0, t2 - t1
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self._by_module = ({}, {})  # the launches as each wrapper module counts them
+        self._by_module = {prefix: {} for prefix in _COUNTERS}  # as each wrapper counts them
         for key, n in self.launches.items():
-            module, name = key.split("/", 1)
-            self._by_module[module == "k2"][name] = n
+            prefix, name = key.split("/", 1)
+            self._by_module[prefix][name] = n
         self.replays = 0
         _live.add(self)
 
@@ -192,8 +195,8 @@ class Graph:
         if self.writes:
             torch.autograd.graph.increment_version(self.writes)
         self.replays += 1
-        k1.count_replay(self._by_module[0])
-        k2.count_replay(self._by_module[1])
+        for prefix, module in _COUNTERS.items():
+            module.count_replay(self._by_module[prefix])
         return self.outputs
 
     def stats(self) -> dict:

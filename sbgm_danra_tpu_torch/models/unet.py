@@ -10,16 +10,19 @@ divided by sigma(t) in fp32.
 The public layout is NHWC, as in JAX. Inside, the NHWC input is viewed as
 NCHW once (a channels_last tensor, so no copy) and the result viewed back once.
 The decoder's conv3x3 -> GroupNorm chains run through K1
-(``ops/fused_conv_gn.py``): on the card its CUDA kernels, on the CPU their
-plain version. ``forward(train=True)`` is the training forward: BatchNorm on
-the batch's statistics (recorded for the train step, ``layers.BatchNorm``),
-and the decoder's chains through ``reference_chain``, plain differentiable
-ops. That is the JAX package's own route for training: it trains through
-plain ``nn.Conv`` + GroupNorm, and its Pallas kernel has no VJP
+(``ops/fused_conv_gn.py``) and its 2x bilinear upsamples through
+``ops/upsample.py``'s ``upsample2x``: on the card their CUDA kernels, on the
+CPU their plain versions. ``forward(train=True)`` is the training forward:
+BatchNorm on the batch's statistics (recorded for the train step,
+``layers.BatchNorm``), and the decoder's chains and upsamples through
+``reference_chain`` and ``upsample2x_bilinear``, plain differentiable ops.
+That is the JAX package's own route for training: it trains through plain
+``nn.Conv`` + GroupNorm, and its Pallas kernel has no VJP
 (``sbgm_danra_tpu/ops/fused_conv_gn.py:17-19``), so K1 has no backward here
-either. The route follows the explicit ``train`` flag, never
+either; nor has the upsample kernel, which the JAX package does not have (XLA
+fuses its upsample). The route follows the explicit ``train`` flag, never
 ``torch.is_grad_enabled()``, so that a remat recompute takes the route of the
-forward it repeats; evaluation and sampling (``train=False``) keep K1.
+forward it repeats; evaluation and sampling (``train=False``) keep the kernels.
 ``stem_impl``, ``fuse_upsample`` and ``fuse_head`` are accepted for
 ``ModelSpec`` parity: they are TPU lowerings of the same math, so every value
 computes the one unfused chain.
@@ -48,7 +51,7 @@ from sbgm_danra_tpu_torch.models.layers import (
 from sbgm_danra_tpu_torch.models.resnet import ResNetStage
 from sbgm_danra_tpu_torch.ops.fused_conv_gn import conv3x3_gn_relu, reference_chain
 from sbgm_danra_tpu_torch.ops.stem_conv import conv8x8s2
-from sbgm_danra_tpu_torch.ops.upsample import upsample2x_bilinear
+from sbgm_danra_tpu_torch.ops.upsample import upsample2x, upsample2x_bilinear
 from sbgm_danra_tpu_torch.sde import VESDE
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -205,8 +208,8 @@ class DecoderBlock(nn.Module):
     def forward(self, fmap: torch.Tensor, skip: Optional[torch.Tensor] = None,
                 t: Optional[torch.Tensor] = None, train: bool = False) -> torch.Tensor:
         if self.use_resize_conv:
-            x = self._conv_norm(upsample2x_bilinear(_nhwc(fmap)), self.conv_up, self.norm1,
-                                train)
+            upsample = upsample2x_bilinear if train else upsample2x
+            x = self._conv_norm(upsample(_nhwc(fmap)), self.conv_up, self.norm1, train)
         else:
             x = self.transpose(fmap)
             if self.norm1 is not None:

@@ -1,5 +1,5 @@
-"""Torch port on the card: the CUDA kernels (flash attention, conv3x3 + GroupNorm)
-against their plain versions.
+"""Torch port on the card: the CUDA kernels (flash attention, conv3x3 + GroupNorm,
+the 2x bilinear upsample) against their plain versions.
 
 These tests need an NVIDIA GPU and nvcc and skip elsewhere. The card machine
 has no JAX, so this file imports none and runs without the repo's conftest:
@@ -13,6 +13,7 @@ import torch
 from sbgm_danra_tpu_torch.ops import cuda_attention
 from sbgm_danra_tpu_torch.ops import flash_attention as fa
 from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
+from sbgm_danra_tpu_torch.ops import upsample as up
 from sbgm_danra_tpu_torch.ops.cuda_attention import flash_attention_cuda, flash_attention_reference
 
 pytestmark = pytest.mark.cuda
@@ -449,6 +450,78 @@ def test_k1_rejects_mixed_devices(cuda):
         k1.conv3x3_gn_cuda(x, kernel.cpu(), bias, gamma, beta, groups=4)
 
 
+# The decoder's 2x bilinear upsample (ops/upsample.py, csrc/upsample2x.cu): bit
+# for bit against the plain version, which runs on the card as twenty PyTorch ops.
+
+UP_SHAPES = [(2, 19, 25, 512), (3, 1, 7, 64), (2, 5, 1, 64), (4, 64, 64, 64), (2, 9, 11, 3)]
+
+
+def _up_x(shape, dtype, cuda, seed=0):
+    """Normal values scaled by powers of two from 2^-20 to 2^20, so that the
+    products and sums round at every exponent."""
+    g = torch.Generator(cuda).manual_seed(seed)
+    scale = torch.exp2(torch.randint(-20, 21, shape, generator=g, device=cuda).float())
+    return (torch.randn(shape, generator=g, device=cuda) * scale).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", UP_SHAPES)
+def test_upsample_kernel_equals_the_plain_version(cuda, shape, dtype):
+    """The dispatcher launches the kernel once a call, and it equals the plain
+    version bit for bit (one channel a thread where C is off the 16-byte vector)."""
+    x = _up_x(shape, dtype, cuda)
+    before = up.launches
+    got = up.upsample2x(x)
+    assert up.launches == before + 1
+    assert got.dtype == dtype and got.shape == (shape[0], 2 * shape[1], 2 * shape[2], shape[3])
+    assert torch.equal(got, up.upsample2x_bilinear(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_upsample_kernel_takes_strided_and_unaligned_views(cuda, dtype):
+    """A non-contiguous x (the wrapper copies it) and a contiguous x 8 bytes off
+    a 16-byte boundary (the one-channel-a-thread path) equal the plain version."""
+    x = _up_x((2, 7, 9, 64), dtype, cuda)
+    strided = x.permute(0, 2, 1, 3)
+    assert not strided.is_contiguous()
+    assert torch.equal(up.upsample2x_cuda(strided), up.upsample2x_bilinear(strided))
+    shift = 8 // x.element_size()
+    buf = torch.empty(x.numel() + shift, dtype=dtype, device=cuda)
+    x_off = buf[shift:].view(x.shape).copy_(x)
+    assert x_off.data_ptr() % 16 == 8 and x_off.is_contiguous()
+    assert torch.equal(up.upsample2x_cuda(x_off), up.upsample2x_bilinear(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ij", [(0, 0), (3, 4), (6, 8)])
+def test_upsample_nan_reaches_exactly_its_quads(cuda, dtype, ij):
+    """A NaN at input pixel (i, j) of one channel reaches output rows 2i-1 .. 2i+2
+    and columns 2j-1 .. 2j+2 (clamped to the map) of that channel, and nothing else."""
+    h, w = 7, 9
+    i, j = ij
+    x = _up_x((2, h, w, 16), dtype, cuda)
+    x[1, i, j, 5] = float("nan")
+    want = torch.zeros(2, 2 * h, 2 * w, 16, dtype=torch.bool)
+    want[1, max(2 * i - 1, 0):2 * i + 3, max(2 * j - 1, 0):2 * j + 3, 5] = True
+    assert torch.equal(torch.isnan(up.upsample2x_cuda(x)).cpu(), want)
+
+
+def test_decoder_takes_the_upsample_kernel_only_in_evaluation(cuda):
+    """A decoder block on the card launches the kernel once in evaluation and
+    never in training, where the plain, differentiable version runs."""
+    from sbgm_danra_tpu_torch.models.unet import DecoderBlock
+
+    block = DecoderBlock(16, 8, time_embedding=16, gn_groups=4).to(cuda)
+    fmap = torch.randn(2, 16, 4, 6, device=cuda)
+    skip, t = torch.randn(2, 8, 8, 12, device=cuda), torch.rand(2, device=cuda)
+    before = up.launches
+    with torch.no_grad():
+        block(fmap, skip, t)
+    assert up.launches == before + 1
+    block(fmap, skip, t, train=True).sum().backward()
+    assert up.launches == before + 1
+
+
 # K2's backward (bwd_delta, bwd_dkdv, bwd_dq) and the forward's lse output
 
 _BWD_SHAPES = [(2, s, 4 if d == 32 else 2, d) for s in (1000, 4096, 7600) for d in (32, 64, 128)]
@@ -783,9 +856,10 @@ def test_sampler_graph_with_draws_takes_each_calls_conditioning(cuda, monkeypatc
 
 
 def test_graph_launch_counts_per_replay(cuda, monkeypatch):
-    """A graph records K1's and K2's launches at capture and adds them to the
-    wrappers' counts at every replay: one replay counts what one eager call
-    launches (8 K1 chains and one K2 per attention layer per evaluation)."""
+    """A graph records K1's, K2's and the upsample's launches at capture and
+    adds them to the wrappers' counts at every replay: one replay counts what
+    one eager call launches (8 K1 chains, one K2 per attention layer and 5
+    upsamples per evaluation)."""
     from sbgm_danra_tpu_torch import capture
     from sbgm_danra_tpu_torch.sampling import graphs
     from sbgm_danra_tpu_torch.sampling.samplers import SamplerConfig, dpmpp_sampler
@@ -798,14 +872,14 @@ def test_graph_launch_counts_per_replay(cuda, monkeypatch):
 
     def counts():
         return (k1.conv3x3_stats_launches, k1.gn_apply_launches, cuda_attention.launches,
-                dict(cuda_attention.launches_by_variant))
+                up.launches)
 
     with torch.inference_mode():
         before = counts()
         dpmpp_sampler(model, torch.Generator(cuda).manual_seed(0), shape, VESDE(), config,
                       cond=cond)
         after = counts()
-        eager = [after[i] - before[i] for i in range(3)]
+        eager = [after[i] - before[i] for i in range(4)]
         graphs.sample(dpmpp_sampler, model, torch.Generator(cuda).manual_seed(0), shape,
                       VESDE(), config, cond=cond)
         before = counts()
@@ -814,11 +888,13 @@ def test_graph_launch_counts_per_replay(cuda, monkeypatch):
         after = counts()
     evaluations = config.num_steps - 1
     assert eager[0] == eager[1] == 8 * evaluations and eager[2] > 0
-    assert [after[i] - before[i] for i in range(3)] == eager
+    assert eager[3] == 5 * evaluations
+    assert [after[i] - before[i] for i in range(4)] == eager
     stats = [s for s in capture.stats() if s["name"].startswith("dpmpp_sampler 2x64x64")]
     per = stats[-1]["launches_per_replay"]
     assert per["conv3x3_stats"] == per["gn_apply"] == 8 * evaluations
     assert per["flash_attention_fwd_fp32"] == eager[2]
+    assert per["upsample2x"] == 5 * evaluations
 
 
 def test_a_capture_that_fails_raises(cuda):
