@@ -46,6 +46,12 @@ Phases, one JSON line each on stdout:
      the bound by bytes (x read once, the output written once), the plain
      version's ms and ``F.interpolate``'s (bilinear, ``align_corners=False``,
      on the channels_last view: the library's call, which the port never makes);
+   - K1 with a per-sample bias and the SiLU epilogue (CorrDiff's SongUNet
+     blocks, ``phase_corrdiff_k1``) at 8 x 448x448, 384 -> 128 and 8 x 28x28,
+     512 -> 256, bf16, 32 groups: within the bf16 tolerances above, one launch
+     of the variant counted, the per-channel route bit for bit what the
+     variant computes with the bias moved into it, and the chain's device time
+     beside its bound;
 3b. kernel (K2 backward): delta, dk/dv and dq (one ``_launch_bwd``; dk/dv and
    dq on the tensor cores, bf16 mma.sync or 3xTF32) on strided q, k, v against
    the dense plain backward in fp32, bf16 and fp32, at the full-domain shape
@@ -583,6 +589,88 @@ def phase_conv_gn_kernel(dev):
               f"a forced launch shape of conv3x3_stats disagrees at {n}x{h}x{w}x{cin}->{cout}: "
               f"{forced}")
         rows.append(row)
+    torch.backends.cudnn.allow_tf32 = True
+    return rows
+
+
+def _large_or_cold_ms(call, *operands) -> float:
+    """``cold_ms``, or where ``COLD_COPIES`` copies of the operands would take
+    over 8 GB, five calls on one set: each then streams many times L2's size,
+    so nothing of one call is left for the next."""
+    if COLD_COPIES * sum(t.numel() * t.element_size() for t in operands) <= 8 * 2**30:
+        return cold_ms(call, *operands)
+    return device_ms(torch, [functools.partial(call, *operands)] * 5, cold=False)
+
+
+CORRDIFF_K1_SHAPES = (  # (path, batch, (H, W, Cin, Cout)): CorrDiff's K1 chains, 8 members
+    ("corrdiff_448", 8, (448, 448, 384, 128)),  # the decoder's first 448x448 block
+    ("corrdiff_28", 8, (28, 28, 512, 256)),  # a decoder block at the attention resolution
+)
+
+
+def phase_corrdiff_k1(dev):
+    """K1 with a per-sample bias and the SiLU epilogue (a SongUNet block's
+    ``conv0 -> + emb -> GroupNorm(32) -> SiLU``, bf16) against its plain
+    versions at CorrDiff's chains, its device time beside its bound; the
+    per-channel route bit for bit what the variant computes with the bias
+    moved into it; the variant's launch counter."""
+    from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
+
+    gen = torch.Generator(dev).manual_seed(4)
+    rows = []
+    for path, n, (h, w, cin, cout) in CORRDIFF_K1_SHAPES:
+        torch.backends.cudnn.allow_tf32 = False
+        dtype, groups = torch.bfloat16, 32
+        x = torch.randn(n, h, w, cin, generator=gen, device=dev).to(dtype)
+        kernel = torch.randn(3, 3, cin, cout, generator=gen, device=dev) / (3 * cin**0.5)
+        bias = 0.1 * torch.randn(cout, generator=gen, device=dev)
+        sample_bias = torch.randn(n, cout, generator=gen, device=dev)
+        gamma = 1.0 + 0.1 * torch.randn(cout, generator=gen, device=dev)
+        beta = 0.1 * torch.randn(cout, generator=gen, device=dev)
+        before = k1.conv3x3_stats_sample_bias_launches
+        conv, stats = k1.conv3x3_stats(x, kernel, bias, groups, sample_bias=sample_bias)
+        launches = k1.conv3x3_stats_sample_bias_launches - before
+        out = k1.gn_apply(conv, stats, gamma, beta, groups, 1e-6, "silu")
+        plain_conv, plain_stats = k1.plain_conv3x3_stats(x.float(), kernel.to(dtype),
+                                                         bias.to(dtype), groups, sample_bias)
+        conv_err = (conv.float() - plain_conv).abs()
+        conv_ok = bool((conv_err <= 4e-3 * plain_conv.abs() + 1e-4 * plain_conv.abs().max())
+                       .all())
+        stats_rel = ((stats - plain_stats).abs().max() / plain_stats.abs().max()).item()
+        apply_ref = k1.plain_gn_apply(conv, stats, gamma, beta, groups, 1e-6, "silu",
+                                      out_dtype=torch.float32)
+        apply_err = (out.float() - apply_ref).abs().max().item()
+        moved = k1.conv3x3_stats(x, kernel, torch.zeros_like(bias), groups,
+                                 sample_bias=bias.to(dtype).float().expand(n, cout))
+        per_channel = k1.conv3x3_stats(x, kernel, bias, groups)
+        unchanged = torch.equal(moved[0], per_channel[0]) and torch.equal(moved[1],
+                                                                           per_channel[1])
+        del plain_conv, apply_ref, moved, per_channel
+        kernel_ms_conv = _large_or_cold_ms(
+            lambda x, kernel, bias, sb: k1.conv3x3_stats(x, kernel, bias, groups, sample_bias=sb),
+            x, kernel, bias, sample_bias)
+        kernel_ms_apply = _large_or_cold_ms(lambda *a: k1.gn_apply(*a, groups, 1e-6, "silu"),
+                                            conv, stats, gamma, beta)
+        es, pixels = x.element_size(), n * h * w
+        flops = 2.0 * 9 * cin * cout * pixels
+        chain_bytes = ((pixels * (cin + cout) + 9 * cin * cout) * es + 4 * n * cout
+                       + 2 * pixels * cout * es)
+        b = bound(flops, chain_bytes, "bfloat16")
+        row = dict(phase="kernel", kernel="conv3x3_gn_sample_bias_silu", path=path, batch=n,
+                   hw=[h, w], cin=cin, cout=cout, groups=groups, dtype="bfloat16",
+                   launches=launches, conv_max_abs_err=conv_err.max().item(), conv_ok=conv_ok,
+                   stats_rel_err=stats_rel, apply_max_abs_err=apply_err,
+                   per_channel_route_bit_identical=unchanged,
+                   conv_kernel_ms=kernel_ms_conv, apply_kernel_ms=kernel_ms_apply,
+                   chain_kernel_ms=kernel_ms_conv + kernel_ms_apply,
+                   chain_bound_pct=100.0 * b["bound_ms"] / (kernel_ms_conv + kernel_ms_apply),
+                   plan=k1.plan(n, h, w, cin, cout, dtype)._asdict(), **b)
+        emit(**row)
+        check(conv_ok and stats_rel <= 1e-4 and apply_err <= 2e-2 and launches == 1
+              and unchanged, f"K1's per-sample-bias SiLU chain at {path}: {row}")
+        rows.append(row)
+        del x, conv, stats, out
+        torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = True
     return rows
 
@@ -3675,6 +3763,7 @@ def main() -> int:
     bwd_rows = run("kernel_backward", phase_attention_backward, dev)
     k1_rows = run("kernel_k1", phase_conv_gn_kernel, dev)
     up_rows = run("kernel_upsample", phase_upsample_kernel, dev)
+    run("kernel_k1_corrdiff", phase_corrdiff_k1, dev)
     model, serve_model, tiny_k2 = run("model", phase_model, dev)
     launches = run("full_domain", phase_full_domain, dev, model)
     del model

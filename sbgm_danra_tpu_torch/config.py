@@ -7,7 +7,9 @@ overrides and type coercion, and ``get_model_string`` from
 ``models/unet.py``, ``transforms.py`` (the statistics files behind the
 transforms), ``data/``, ``training/``, ``evaluate/``, ``pipelines/`` and ``cli/`` read are
 declared, under the JAX reader's names and defaults; every other section and key of a config
-is skipped, since the JAX package's reader is the one that checks them.
+is skipped, since the JAX package's reader is the one that checks them. The port adds
+``model.arch`` and the SongUNet keys of its own CorrDiff (``models/songunet.py``), which the
+JAX package does not have.
 
 PyYAML is imported inside ``load_config``, ``parse_override`` and ``Config.dump`` only, so
 that the serving path imports it only when it reads a file; without it ``dump`` logs a
@@ -121,6 +123,19 @@ class ModelConfig:
     decoder_activation: str = "silu"
     compute_dtype: str = "float32"
     attention_backend: str = "xla"
+    # "score_unet" (the JAX package's network) or "corrdiff" (the port's
+    # models/songunet.py, with the SongUNet keys below and sde.EDMSDE(sigma_max))
+    arch: str = "score_unet"
+    img_resolution: int = 448
+    model_channels: int = 128
+    channel_mult: Tuple[int, ...] = (1, 2, 2, 2, 2)
+    channel_mult_emb: int = 4
+    channel_mult_noise: int = 1
+    num_blocks: int = 4
+    attn_resolutions: Tuple[int, ...] = (28,)
+    dropout: float = 0.13
+    sigma_data: float = 0.5
+    sigma_max: float = 800.0
 
 
 @dataclass

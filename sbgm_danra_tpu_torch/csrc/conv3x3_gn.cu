@@ -98,6 +98,14 @@
 // loop, holds its scale and shift in registers, keeps four independent loads
 // in flight and does one FMA per element. Channel counts that are not a
 // multiple of the vector take an element loop.
+//
+// A per-sample bias (a SongUNet block's conv0 -> + emb[n, c] -> GroupNorm ->
+// SiLU, where the noise embedding differs from sample to sample): both conv
+// kernels take an optional fp32 [N, Cout] bias, which a block adds once, for
+// its own sample, to the per-channel bias in registers before any tile, so the
+// epilogue and the statistics see the sum. Null (every other caller) leaves
+// the per-channel arithmetic as it was. gn_apply's activation, none, ReLU or
+// SiLU, is a template parameter.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -230,7 +238,8 @@ __device__ __forceinline__ void stage16(__nv_bfloat16* dst, const __nv_bfloat16*
 template <int TH, int KC, bool WS>
 __global__ void __launch_bounds__(TH * kTW)
 conv3x3_stats_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                        const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y,
+                        const __nv_bfloat16* __restrict__ bias,
+                        const float* __restrict__ sample_bias, __nv_bfloat16* __restrict__ y,
                         float* __restrict__ partials, int* __restrict__ counters,
                         float* __restrict__ stats, int height, int width, int cin, int cout,
                         int groups, int tiles_x, int n_tiles, bool vec_in, bool vec_out,
@@ -362,6 +371,7 @@ conv3x3_stats_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16
     for (int j = 0; j < 2; ++j) {
       const int co = n0 + ni * 8 + 2 * q + j;
       bias_r[ni][j] = co < cout ? __bfloat162float(bias[co]) : 0.f;
+      if (sample_bias != nullptr && co < cout) bias_r[ni][j] += sample_bias[(int64_t)n * cout + co];
       csum[ni][j] = 0.f;
       csq[ni][j] = 0.f;
     }
@@ -530,7 +540,8 @@ __device__ __forceinline__ void store_split(float* hi, float* lo, float4 v) {
 template <int TH>
 __global__ void __launch_bounds__(TH * kTW)
 conv3x3_stats_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                          const float* __restrict__ bias, float* __restrict__ y,
+                          const float* __restrict__ bias, const float* __restrict__ sample_bias,
+                          float* __restrict__ y,
                           float* __restrict__ partials, int* __restrict__ counters,
                           float* __restrict__ stats, int height, int width, int cin, int cout,
                           int groups, int tiles_x, int n_tiles, bool vec_out, bool fast) {
@@ -657,6 +668,7 @@ conv3x3_stats_tf32_kernel(const float* __restrict__ x, const float* __restrict__
     for (int j = 0; j < 2; ++j) {
       const int co = n0 + ni * 8 + 2 * q + j;
       bias_r[ni][j] = co < cout ? bias[co] : 0.f;
+      if (sample_bias != nullptr && co < cout) bias_r[ni][j] += sample_bias[(int64_t)n * cout + co];
       csum[ni][j] = 0.f;
       csq[ni][j] = 0.f;
     }
@@ -773,15 +785,23 @@ conv3x3_stats_tf32_kernel(const float* __restrict__ x, const float* __restrict__
 // ---------------------------------------------------------------------------
 // gn_apply
 
+// The epilogue's activation: ACT 0 none, 1 ReLU, 2 SiLU (r / (1 + e^-r), as PyTorch's).
+template <int ACT>
+__device__ __forceinline__ float activate(float r) {
+  if (ACT == 1) return fmaxf(r, 0.f);
+  if (ACT == 2) return r / (1.f + expf(-r));
+  return r;
+}
+
 // y, out [N, pixels, c] in T; stats [N, groups, 2]; gamma, beta [c] fp32.
 // Grid (blocks, N); dynamic shared memory c * 8 bytes. vec: c is a multiple of
 // the 16-byte vector, at most kApplyThreads vectors a pixel, aligned pointers.
-template <typename T>
+// One instantiation per activation, so that none pays for another's branch.
+template <typename T, int ACT>
 __global__ void __launch_bounds__(kApplyThreads)
 gn_apply_kernel(const T* __restrict__ y, const float* __restrict__ stats,
                 const float* __restrict__ gamma, const float* __restrict__ beta,
-                T* __restrict__ out, int64_t pixels, int c, int groups, float eps, bool relu,
-                bool vec) {
+                T* __restrict__ out, int64_t pixels, int c, int groups, float eps, bool vec) {
   constexpr int kVec = 16 / sizeof(T);
   extern __shared__ float2 chan_s[];  // per channel: scale, shift
   const int n = blockIdx.y;
@@ -828,7 +848,7 @@ gn_apply_kernel(const T* __restrict__ y, const float* __restrict__ stats,
 #pragma unroll
           for (int i = 0; i < kVec; ++i) {
             const float r = fmaf(to_float(buf[i]), sc[i], sh[i]);
-            buf[i] = from_float<T>(relu ? fmaxf(r, 0.f) : r);
+            buf[i] = from_float<T>(activate<ACT>(r));
           }
           dst[(p + u * stride) * vp] = *reinterpret_cast<const uint4*>(buf);
         }
@@ -838,7 +858,7 @@ gn_apply_kernel(const T* __restrict__ y, const float* __restrict__ stats,
     for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < total; e += stride) {
       const float2 a = chan_s[e % c];
       const float r = fmaf(to_float(yn[e]), a.x, a.y);
-      on[e] = from_float<T>(relu ? fmaxf(r, 0.f) : r);
+      on[e] = from_float<T>(activate<ACT>(r));
     }
   }
 }
@@ -850,6 +870,7 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 struct ConvArgs {
   const void *x, *w, *bias;
+  const float* sample_bias;  // [batch, cout] fp32, or null
   void* y;
   float* partials;
   int* counters;
@@ -882,9 +903,9 @@ int launch_conv_tc(const ConvArgs& a) {
   const dim3 grid(a.slots, (a.cout + kBN - 1) / kBN, a.batch);
   kernel<<<grid, T::kThreads, smem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.x), static_cast<const __nv_bfloat16*>(a.w),
-      static_cast<const __nv_bfloat16*>(a.bias), static_cast<__nv_bfloat16*>(a.y), a.partials,
-      a.counters, a.stats, a.height, a.width, a.cin, a.cout, a.groups, tiles_x, n_tiles, vec_in,
-      vec_out, fast);
+      static_cast<const __nv_bfloat16*>(a.bias), a.sample_bias, static_cast<__nv_bfloat16*>(a.y),
+      a.partials, a.counters, a.stats, a.height, a.width, a.cin, a.cout, a.groups, tiles_x,
+      n_tiles, vec_in, vec_out, fast);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -920,8 +941,9 @@ int launch_conv_tf32(const ConvArgs& a) {
   const dim3 grid(a.slots, (a.cout + kBN - 1) / kBN, a.batch);
   kernel<<<grid, T::kThreads, smem, a.stream>>>(
       static_cast<const float*>(a.x), static_cast<const float*>(a.w),
-      static_cast<const float*>(a.bias), static_cast<float*>(a.y), a.partials, a.counters,
-      a.stats, a.height, a.width, a.cin, a.cout, a.groups, tiles_x, n_tiles, vec_out, fast);
+      static_cast<const float*>(a.bias), a.sample_bias, static_cast<float*>(a.y), a.partials,
+      a.counters, a.stats, a.height, a.width, a.cin, a.cout, a.groups, tiles_x, n_tiles, vec_out,
+      fast);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -933,23 +955,39 @@ int launch_conv_fp32(const ConvArgs& a, int tile_h, int tile_w, int kc, bool ws)
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T>
+template <typename T, int ACT>
 int launch_apply(const void* y, const float* stats, const float* gamma, const float* beta,
-                 void* out, int batch, int64_t pixels, int c, int groups, float eps, bool relu,
-                 int blocks, cudaStream_t stream) {
+                 void* out, int batch, int64_t pixels, int c, int groups, float eps, int blocks,
+                 cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const bool vec =
       c % kVec == 0 && c / kVec <= kApplyThreads && aligned16(y) && aligned16(out);
   const size_t smem = (size_t)c * sizeof(float2);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gn_apply_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        gn_apply_kernel<T, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  gn_apply_kernel<T><<<dim3(blocks, batch), kApplyThreads, smem, stream>>>(
+  gn_apply_kernel<T, ACT><<<dim3(blocks, batch), kApplyThreads, smem, stream>>>(
       static_cast<const T*>(y), stats, gamma, beta, static_cast<T*>(out), pixels, c, groups,
-      eps, relu, vec);
+      eps, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_apply_act(const void* y, const float* stats, const float* gamma, const float* beta,
+                     void* out, int batch, int64_t pixels, int c, int groups, float eps, int act,
+                     int blocks, cudaStream_t stream) {
+  if (act == 0)
+    return launch_apply<T, 0>(y, stats, gamma, beta, out, batch, pixels, c, groups, eps, blocks,
+                              stream);
+  if (act == 1)
+    return launch_apply<T, 1>(y, stats, gamma, beta, out, batch, pixels, c, groups, eps, blocks,
+                              stream);
+  if (act == 2)
+    return launch_apply<T, 2>(y, stats, gamma, beta, out, batch, pixels, c, groups, eps, blocks,
+                              stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -958,7 +996,8 @@ extern "C" {
 
 // x: [batch, height, width, cin] NHWC; w: the weights tiled as
 // conv3x3_stats_tc_kernel (bf16) or conv3x3_stats_tf32_kernel (fp32, split
-// into TF32 hi and lo) documents it; bias: [cout];
+// into TF32 hi and lo) documents it; bias: [cout]; sample_bias: null, or
+// [batch, cout] fp32 added to the fp32 conv with bias, before the statistics;
 // y: [batch, height, width, cout]; partials: [batch, slots, cout, 2] fp32;
 // counters: [batch] int32, zero on entry (the kernel leaves them zero);
 // stats: [batch, groups, 2] fp32. dtype 0 = float32, 1 = bfloat16 (x, w, bias,
@@ -969,35 +1008,36 @@ extern "C" {
 // dynamic shared memory (checked against the kernel's own count), and
 // 1 <= slots <= number of tiles. cout % groups == 0. Returns
 // cudaGetLastError() (0 on success).
-int sbgm_conv3x3_stats(const void* x, const void* w, const void* bias, void* y,
-                       float* partials, int* counters, float* stats, int batch, int height,
-                       int width, int cin, int cout, int groups, int slots, int dtype,
+int sbgm_conv3x3_stats(const void* x, const void* w, const void* bias, const float* sample_bias,
+                       void* y, float* partials, int* counters, float* stats, int batch,
+                       int height, int width, int cin, int cout, int groups, int slots, int dtype,
                        int tile_h, int tile_w, int kc, int ws, int smem_bytes, void* stream) {
   if (batch <= 0 || batch > 65535 || height <= 0 || width <= 0 || cin <= 0 || cout <= 0 ||
       groups <= 0 || cout % groups != 0 || slots <= 0 || (cout + kBN - 1) / kBN > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const ConvArgs a{x, w, bias, y, partials, counters, stats, batch, height, width, cin, cout,
-                   groups, slots, smem_bytes, static_cast<cudaStream_t>(stream)};
+  const ConvArgs a{x, w, bias, sample_bias, y, partials, counters, stats, batch, height,
+                   width, cin, cout, groups, slots, smem_bytes, static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return launch_conv_fp32(a, tile_h, tile_w, kc, ws != 0);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   return launch_conv_bf16(a, tile_h, tile_w, kc, ws != 0);
 }
 
 // y, out: [batch, pixels, c] NHWC; stats: [batch, groups, 2] from
-// sbgm_conv3x3_stats; gamma, beta: [c] fp32. relu: 0 or 1. Grid (blocks, batch).
+// sbgm_conv3x3_stats; gamma, beta: [c] fp32. act: 0 none, 1 ReLU, 2 SiLU. Grid
+// (blocks, batch).
 int sbgm_gn_apply(const void* y, const float* stats, const float* gamma, const float* beta,
                   void* out, int batch, long long pixels, int c, int groups, float eps,
-                  int relu, int dtype, int blocks, void* stream) {
+                  int act, int dtype, int blocks, void* stream) {
   if (batch <= 0 || batch > 65535 || pixels <= 0 || c <= 0 || groups <= 0 ||
       c % groups != 0 || blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_apply<float>(y, stats, gamma, beta, out, batch, pixels, c, groups, eps,
-                               relu != 0, blocks, s);
+    return launch_apply_act<float>(y, stats, gamma, beta, out, batch, pixels, c, groups, eps,
+                                   act, blocks, s);
   if (dtype == 1)
-    return launch_apply<__nv_bfloat16>(y, stats, gamma, beta, out, batch, pixels, c, groups,
-                                       eps, relu != 0, blocks, s);
+    return launch_apply_act<__nv_bfloat16>(y, stats, gamma, beta, out, batch, pixels, c, groups,
+                                           eps, act, blocks, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

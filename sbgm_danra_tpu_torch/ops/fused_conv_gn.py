@@ -13,7 +13,11 @@ x's dtype, as a Flax conv casts its parameters to its compute dtype) with
 fp32 accumulation; per-(sample, group) mean and one-pass variance
 E[v^2] - mean^2 (clamped at 0) of the fp32 conv output before it is rounded;
 then ``(conv - mean) * rsqrt(var + eps) * gamma + beta`` on the conv output
-rounded to x's dtype, an optional ReLU, and the result in x's dtype.
+rounded to x's dtype, an optional ReLU or SiLU, and the result in x's dtype.
+An optional ``sample_bias`` [N, Cout] (fp32) is added to the fp32 conv and its
+bias before the statistics: a SongUNet block's ``conv0 -> + emb[n, c] ->
+GroupNorm -> SiLU`` (``models/songunet.py``), where the noise embedding
+differs from sample to sample.
 
 - ``conv3x3_gn_relu``: the dispatcher. A tensor on the CPU takes
   ``reference_chain``; a CUDA tensor launches the kernels or raises.
@@ -35,10 +39,11 @@ rounded to x's dtype, an optional ReLU, and the result in x's dtype.
   an in-place update, a move to another device). A write through ``.data``
   bumps no version counter and is not seen.
 - ``conv3x3_stats_launches`` / ``gn_apply_launches``: how many times each
-  kernel was launched in this process. A call made while its stream is being
-  captured into a CUDA graph launches nothing: it adds to ``recorded``
-  instead, and each replay of the graph adds its kernels to the counts
-  (``count_replay``, called by ``capture.Graph.replay``).
+  kernel was launched in this process; ``conv3x3_stats_sample_bias_launches``
+  how many of the conv kernel's launches took a per-sample bias. A call made
+  while its stream is being captured into a CUDA graph launches nothing: it
+  adds to ``recorded`` instead, and each replay of the graph adds its kernels
+  to the counts (``count_replay``, called by ``capture.Graph.replay``).
 - ``capture_scope``: what a CUDA graph's capture needs of the wrapper. The
   kernel's ticket counters (one int32 per sample, which the kernel's last
   block of a sample resets) are kept per graph, made during the warm-up on
@@ -90,28 +95,29 @@ _APPLY_BLOCKS_PER_SM = 16  # gn_apply blocks in flight per SM over the whole bat
 _MAX_CHANNELS = MAX_SHARED_BYTES // 8  # gn_apply keeps 8 bytes per channel in shared memory
 
 conv3x3_stats_launches = 0
+conv3x3_stats_sample_bias_launches = 0
 gn_apply_launches = 0
+_ACTIVATIONS = {False: 0, True: 1, "relu": 1, "silu": 2}  # gn_apply's epilogue codes
 recorded = collections.Counter()  # launches recorded into CUDA graphs, by kernel
 _local = threading.local()  # .scope: (ticket counters, pack hits) of the capture in progress
 
 
-def _count(name: str) -> None:
-    """One call of kernel ``name`` on the current stream: a launch, or, during
-    a capture, a record that the graph's replays count."""
-    global conv3x3_stats_launches, gn_apply_launches
+def _count(*names: str) -> None:
+    """One call of kernel ``names[0]`` (and of its variants ``names[1:]``) on
+    the current stream: a launch, or, during a capture, a record that the
+    graph's replays count."""
     if torch.cuda.is_current_stream_capturing():
-        recorded[name] += 1
-    elif name == "conv3x3_stats":
-        conv3x3_stats_launches += 1
+        recorded.update(names)
     else:
-        gn_apply_launches += 1
+        count_replay(dict.fromkeys(names, 1))
 
 
 def count_replay(per_replay: dict) -> None:
     """Add one replay of a graph that holds ``per_replay`` launches of each
     kernel (by name) to the launch counts."""
-    global conv3x3_stats_launches, gn_apply_launches
+    global conv3x3_stats_launches, conv3x3_stats_sample_bias_launches, gn_apply_launches
     conv3x3_stats_launches += per_replay.get("conv3x3_stats", 0)
+    conv3x3_stats_sample_bias_launches += per_replay.get("conv3x3_stats_sample_bias", 0)
     gn_apply_launches += per_replay.get("gn_apply", 0)
 
 
@@ -140,7 +146,7 @@ def build_library() -> _nvcc.BuiltLibrary:
     """Compile (once per source and flags) and load the kernels' library."""
     built = _nvcc.build(SOURCE, "sbgm_conv3x3_gn")
     p, i = ctypes.c_void_p, ctypes.c_int
-    built.lib.sbgm_conv3x3_stats.argtypes = [p] * 7 + [i] * 13 + [p]
+    built.lib.sbgm_conv3x3_stats.argtypes = [p] * 8 + [i] * 13 + [p]
     built.lib.sbgm_conv3x3_stats.restype = i
     built.lib.sbgm_gn_apply.argtypes = [p, p, p, p, p, i, ctypes.c_longlong, i, i,
                                         ctypes.c_float, i, i, i, p]
@@ -148,7 +154,7 @@ def build_library() -> _nvcc.BuiltLibrary:
     return built
 
 
-def _check_args(x, kernel, bias, groups, gamma=None, beta=None):
+def _check_args(x, kernel, bias, groups, gamma=None, beta=None, sample_bias=None):
     if x.dim() != 4:
         raise ValueError(f"x must be [N, H, W, Cin], got shape {tuple(x.shape)}")
     cin = x.shape[-1]
@@ -158,29 +164,43 @@ def _check_args(x, kernel, bias, groups, gamma=None, beta=None):
     for name, v in (("bias", bias), ("gamma", gamma), ("beta", beta)):
         if v is not None and v.shape != (cout,):
             raise ValueError(f"{name} must be [{cout}], got {tuple(v.shape)}")
+    if sample_bias is not None and sample_bias.shape != (x.shape[0], cout):
+        raise ValueError(f"sample_bias must be [{x.shape[0]}, {cout}], got "
+                         f"{tuple(sample_bias.shape)}")
     if groups < 1 or cout % groups != 0:
         raise ValueError(f"cout {cout} not divisible by groups {groups}")
     return cin, cout
 
 
+def _activation_code(activation) -> int:
+    """``activation``: False (none), True or "relu" (ReLU), "silu"."""
+    if isinstance(activation, str) and activation not in _ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}; none, relu or silu")
+    return _ACTIVATIONS[activation if isinstance(activation, str) else bool(activation)]
+
+
 def plain_conv3x3_stats(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-                        groups: int) -> tuple:
+                        groups: int, sample_bias: Optional[torch.Tensor] = None) -> tuple:
     """``conv3x3_stats``'s plain version: the conv in x's dtype [N, H, W, Cout]
-    and per-(sample, group) [sum, sum of squares] of the fp32 conv [N, G, 2]."""
+    and per-(sample, group) [sum, sum of squares] of the fp32 conv [N, G, 2];
+    ``sample_bias`` [N, Cout] is added in fp32 before both."""
     dt = x.dtype
     conv = F.conv2d(x.float().permute(0, 3, 1, 2),
                     kernel.to(dt).float().permute(3, 2, 0, 1), bias.to(dt).float(), padding=1)
+    if sample_bias is not None:
+        conv = conv + sample_bias.float()[:, :, None, None]
     grouped = conv.reshape(conv.shape[0], groups, -1)
     stats = torch.stack([grouped.sum(-1), (grouped * grouped).sum(-1)], dim=-1)
     return conv.permute(0, 2, 3, 1).to(dt).contiguous(), stats
 
 
 def plain_gn_apply(conv: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor,
-                   beta: torch.Tensor, groups: int, eps: float = 1e-5, activation: bool = True,
+                   beta: torch.Tensor, groups: int, eps: float = 1e-5, activation=True,
                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``gn_apply``'s plain version: (conv - mean) * rsqrt(var + eps) * gamma +
-    beta (+ ReLU) in fp32 from the statistics, in ``out_dtype`` (default the
-    conv's dtype)."""
+    beta (+ ReLU, or SiLU with ``activation="silu"``) in fp32 from the
+    statistics, in ``out_dtype`` (default the conv's dtype)."""
+    act = _activation_code(activation)
     n, h, w, c = conv.shape
     cpg = c // groups
     count = h * w * cpg
@@ -190,23 +210,25 @@ def plain_gn_apply(conv: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor,
     mean_c = mean.repeat_interleave(cpg, dim=1)[:, None, None, :]
     inv_c = inv.repeat_interleave(cpg, dim=1)[:, None, None, :]
     y = (conv.float() - mean_c) * inv_c * gamma.float() + beta.float()
-    if activation:
+    if act == 1:
         y = torch.relu(y)
+    elif act == 2:
+        y = F.silu(y)
     return y.to(out_dtype or conv.dtype)
 
 
 def reference_chain(
     x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, gamma: torch.Tensor,
-    beta: torch.Tensor, groups: int = 8, eps: float = 1e-5, activation: bool = True,
-    out_dtype: Optional[torch.dtype] = None,
+    beta: torch.Tensor, groups: int = 8, eps: float = 1e-5, activation=True,
+    out_dtype: Optional[torch.dtype] = None, sample_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The plain version of ``conv3x3_gn_relu``: same arithmetic, in fp32 PyTorch ops.
 
     ``out_dtype`` (default x's dtype) is the dtype of the result; float32 keeps
     the last rounding out, which is how the card's bf16 checks compare.
     """
-    _check_args(x, kernel, bias, groups, gamma, beta)
-    conv, stats = plain_conv3x3_stats(x, kernel, bias, groups)
+    _check_args(x, kernel, bias, groups, gamma, beta, sample_bias)
+    conv, stats = plain_conv3x3_stats(x, kernel, bias, groups, sample_bias)
     return plain_gn_apply(conv, stats, gamma, beta, groups, eps, activation, out_dtype)
 
 
@@ -446,14 +468,19 @@ def _current_stream(dev: torch.device) -> int:
 
 
 def conv3x3_stats(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-                  groups: int, force: Optional[tuple] = None) -> tuple:
+                  groups: int, force: Optional[tuple] = None,
+                  sample_bias: Optional[torch.Tensor] = None) -> tuple:
     """The conv kernel: x [N, H, W, Cin], HWIO kernel -> (conv [N, H, W, Cout] in
     x's dtype, stats [N, groups, 2] fp32 sum and sum of squares). ``force`` is
-    ``plan``'s, for measurements and tests of each launch shape."""
-    dev = _require_cuda("conv3x3_stats", x=x, kernel=kernel, bias=bias)
+    ``plan``'s, for measurements and tests of each launch shape; ``sample_bias``
+    [N, Cout], taken in fp32, is added to the fp32 conv before both."""
+    tensors = dict(x=x, kernel=kernel, bias=bias)
+    if sample_bias is not None:
+        tensors["sample_bias"] = sample_bias
+    dev = _require_cuda("conv3x3_stats", **tensors)
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"x: dtype {x.dtype} not supported (float32 or bfloat16)")
-    cin, cout = _check_args(x, kernel, bias, groups)
+    cin, cout = _check_args(x, kernel, bias, groups, sample_bias=sample_bias)
     x = x.contiguous()
     n, h, w, _ = x.shape
     p = plan(n, h, w, cin, cout, x.dtype, force=force)
@@ -462,6 +489,7 @@ def conv3x3_stats(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     with torch.cuda.device(dev):
         wk = tiled_weights(kernel, x.dtype) if p.mma == "wgmma" else split_tiled_weights(kernel)
         bias_t = _as(bias, x.dtype)
+        sample_t = None if sample_bias is None else sample_bias.float().contiguous()
         conv = torch.empty((n, h, w, cout), dtype=x.dtype, device=dev)
         # partials [n, slots, cout, 2] and stats [n, groups, 2] in one allocation
         scratch = torch.empty((n * slots * cout * 2 + n * groups * 2,), dtype=torch.float32,
@@ -469,14 +497,15 @@ def conv3x3_stats(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
         stats = scratch[n * slots * cout * 2:].view(n, groups, 2)
         stream = _current_stream(dev)
         rc = built.lib.sbgm_conv3x3_stats(
-            x.data_ptr(), wk.data_ptr(), bias_t.data_ptr(), conv.data_ptr(),
+            x.data_ptr(), wk.data_ptr(), bias_t.data_ptr(),
+            None if sample_t is None else sample_t.data_ptr(), conv.data_ptr(),
             scratch.data_ptr(), _ticket_counters(dev, stream, n).data_ptr(), stats.data_ptr(),
             n, h, w, cin, cout, groups, slots, _DTYPE_CODES[x.dtype], p.tile[0], p.tile[1],
             p.chunk, int(p.variant == "ws"), p.shared_bytes, stream,
         )
         if rc != 0:
             _nvcc.check_launch(built, rc, f"conv3x3_stats ({p})")
-        _count("conv3x3_stats")
+        _count("conv3x3_stats", *(() if sample_t is None else ("conv3x3_stats_sample_bias",)))
     return conv, stats
 
 
@@ -493,10 +522,11 @@ def apply_blocks(n: int, pixels: int, c: int, itemsize: int) -> int:
 
 
 def gn_apply(conv: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-             groups: int, eps: float = 1e-5, activation: bool = True) -> torch.Tensor:
+             groups: int, eps: float = 1e-5, activation=True) -> torch.Tensor:
     """The normalise kernel: conv [N, H, W, C] and its stats -> the GroupNorm
-    (+ ReLU) of conv in conv's dtype."""
+    (+ ReLU, or SiLU with ``activation="silu"``) of conv in conv's dtype."""
     _require_cuda("gn_apply", conv=conv, stats=stats, gamma=gamma, beta=beta)
+    act = _activation_code(activation)
     n, h, w, c = conv.shape
     if conv.dtype not in _DTYPE_CODES or not conv.is_contiguous():
         raise ValueError(f"conv must be a contiguous float32 or bfloat16 tensor, not {conv.dtype}")
@@ -516,7 +546,7 @@ def gn_apply(conv: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor, beta:
         stream = _current_stream(conv.device)
         rc = built.lib.sbgm_gn_apply(
             conv.data_ptr(), stats.data_ptr(), gamma_f.data_ptr(), beta_f.data_ptr(),
-            out.data_ptr(), n, h * w, c, groups, eps, int(activation),
+            out.data_ptr(), n, h * w, c, groups, eps, act,
             _DTYPE_CODES[conv.dtype], apply_blocks(n, h * w, c, conv.element_size()), stream,
         )
         _nvcc.check_launch(built, rc, "gn_apply")
@@ -526,8 +556,9 @@ def gn_apply(conv: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor, beta:
 
 class _Conv3x3GN(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, kernel, bias, gamma, beta, groups, eps, activation):
-        conv, stats = conv3x3_stats(x, kernel, bias, groups)  # checks x, kernel, bias
+    def forward(ctx, x, kernel, bias, gamma, beta, groups, eps, activation, sample_bias):
+        # checks x, kernel, bias and sample_bias
+        conv, stats = conv3x3_stats(x, kernel, bias, groups, sample_bias=sample_bias)
         return gn_apply(conv, stats, gamma, beta, groups, eps, activation)
 
     @staticmethod
@@ -539,14 +570,16 @@ class _Conv3x3GN(torch.autograd.Function):
 
 
 def conv3x3_gn_cuda(x, kernel, bias, gamma, beta, groups: int = 8, eps: float = 1e-5,
-                    activation: bool = True) -> torch.Tensor:
+                    activation=True, sample_bias=None) -> torch.Tensor:
     """The kernels' entry point: CUDA tensors only, NHWC x and HWIO kernel."""
-    return _Conv3x3GN.apply(x, kernel, bias, gamma, beta, groups, eps, activation)
+    return _Conv3x3GN.apply(x, kernel, bias, gamma, beta, groups, eps, activation, sample_bias)
 
 
 def conv3x3_gn_relu(x, kernel, bias, gamma, beta, groups: int = 8, eps: float = 1e-5,
-                    activation: bool = True) -> torch.Tensor:
-    """SAME conv3x3 + GroupNorm + optional ReLU: x [N, H, W, Cin] -> [N, H, W, Cout]."""
+                    activation=True, sample_bias=None) -> torch.Tensor:
+    """SAME conv3x3 (+ a per-sample bias) + GroupNorm + optional ReLU or SiLU:
+    x [N, H, W, Cin] -> [N, H, W, Cout]."""
     if x.device.type == "cpu":
-        return reference_chain(x, kernel, bias, gamma, beta, groups, eps, activation)
-    return conv3x3_gn_cuda(x, kernel, bias, gamma, beta, groups, eps, activation)
+        return reference_chain(x, kernel, bias, gamma, beta, groups, eps, activation,
+                               sample_bias=sample_bias)
+    return conv3x3_gn_cuda(x, kernel, bias, gamma, beta, groups, eps, activation, sample_bias)

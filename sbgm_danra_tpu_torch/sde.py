@@ -1,4 +1,5 @@
-"""VE and VP SDEs and the EDM sigma grid (counterpart of ``sbgm_danra_tpu/sde.py:33-149``).
+"""VE and VP SDEs and the EDM sigma grid (counterpart of ``sbgm_danra_tpu/sde.py:33-149``),
+and EDM's own SDE, std(t) = t, for CorrDiff's grid (``EDMSDE``).
 
 Every method takes a tensor or a Python float and returns a float32 tensor on
 the input's device; the arithmetic follows the JAX package's order of
@@ -104,6 +105,36 @@ class VPSDE:
         b = _f32(self.beta_min)
         c = -torch.log1p(hat_std**2)
         return (-b + torch.sqrt(b**2 - 4.0 * a * c)) / (2.0 * a)
+
+
+@dataclasses.dataclass(frozen=True)
+class EDMSDE:
+    """EDM's own parameterisation (Karras et al. 2022, Table 1): std(t) = t,
+    mean coefficient 1, so the time is the noise level sigma and the hat
+    coordinates of ``edm_sampler`` / ``dpmpp_sampler`` are x itself.
+
+    The prior's std is ``sigma_max``; the grid's low end is the std at the
+    sampler config's ``eps``, which is ``eps`` (CorrDiff: 800 -> 0.002, rho 7,
+    18 points; ``edm_sampler`` is then EDM's Heun, Algorithm 1 with no churn).
+    It has what the hat-grid samplers read (``samplers._hat_schedule``): the
+    samplers that step t from 1 down to eps (em, pc, ode) assume t in [0, 1]
+    and do not take it. No JAX counterpart: the JAX package has the VE and VP
+    SDEs only.
+    """
+
+    sigma_max: float = 800.0
+
+    def marginal_prob_std(self, t) -> torch.Tensor:
+        return _f32(t).clone()
+
+    def marginal_prob_mean_coeff(self, t) -> torch.Tensor:
+        return torch.ones_like(_f32(t))
+
+    def prior_std(self) -> torch.Tensor:
+        return _f32(self.sigma_max)
+
+    def inverse_hat_std(self, hat_std) -> torch.Tensor:
+        return _f32(hat_std).clone()
 
 
 def edm_sigma_schedule(

@@ -386,6 +386,106 @@ def test_k1_takes_pointers_off_16_bytes(cuda, dtype):
     assert torch.equal(k1.gn_apply(conv_shifted, stats, gamma, beta, 8), out)
 
 
+# CorrDiff's K1 chains (a SongUNet block's conv0 -> + emb -> GroupNorm(32) -> SiLU,
+# 8 members): the decoder's first 448x448 block and a block at the attention resolution
+CORRDIFF_CHAINS = [(8, 448, 448, 384, 128), (8, 28, 28, 512, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", CORRDIFF_CHAINS, ids=str)
+def test_k1_sample_bias_silu_matches_plain_version(cuda, shape, dtype):
+    """A per-sample bias [N, Cout] and the SiLU epilogue, against the plain
+    versions on the same inputs, with test_k1_bf16_matches_plain_version's and
+    test_k1_fp32_matches_plain_version's tolerances (SiLU's slope is at most
+    1.1, so it keeps the normalised values' bounds); the variant's launch
+    counted once."""
+    torch.backends.cudnn.allow_tf32 = False
+    n, h, w, cin, cout = shape
+    if dtype == torch.float32 and h > 100:
+        pytest.skip("fp32 at the 28x28 chain only: the 448x448 one takes 6 GB in fp32")
+    x, kernel, bias, gamma, beta = _k1_args(n, h, w, cin, cout, dtype, cuda)
+    sample_bias = torch.randn(n, cout, generator=torch.Generator(cuda).manual_seed(9),
+                              device=cuda)
+    before = k1.conv3x3_stats_sample_bias_launches
+    conv, stats = k1.conv3x3_stats(x, kernel, bias, 32, sample_bias=sample_bias)
+    assert k1.conv3x3_stats_sample_bias_launches == before + 1
+    plain_conv, plain_stats = k1.plain_conv3x3_stats(x.float(), kernel.to(dtype), bias.to(dtype),
+                                                     32, sample_bias)
+    out = k1.gn_apply(conv, stats, gamma, beta, 32, 1e-6, "silu").float()
+    want = k1.plain_gn_apply(conv, stats, gamma, beta, 32, 1e-6, "silu", out_dtype=torch.float32)
+    conv_err = (conv.float() - plain_conv).abs()
+    assert (stats - plain_stats).abs().max() <= 1e-4 * plain_stats.abs().max()
+    if dtype == torch.bfloat16:
+        assert (conv_err <= 4e-3 * plain_conv.abs() + 1e-4 * plain_conv.abs().max()).all()
+        assert (out - want).abs().max().item() <= 2e-2
+    else:
+        assert conv_err.max() <= 1e-4 * plain_conv.abs().max()
+        assert (out - want).abs().max() <= 1e-4 * want.abs().max()
+        chain = k1.conv3x3_gn_cuda(x, kernel, bias, gamma, beta, 32, 1e-6, "silu", sample_bias)
+        plain = k1.reference_chain(x, kernel, bias, gamma, beta, 32, 1e-6, "silu",
+                                   sample_bias=sample_bias)
+        assert (chain - plain).abs().max() <= 1e-4 * plain.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k1_per_channel_route_unchanged_by_the_sample_bias_variant(cuda, dtype):
+    """The flagship's launches (a per-channel bias alone) compute bit for bit
+    what the variant computes with that bias moved into the per-sample one:
+    the variant adds to the same fp32 value in registers, once a block."""
+    x, kernel, bias, _, _ = _k1_args(2, 37, 51, 64, 72, dtype, cuda)
+    for force in (None, *(k1.LAUNCH_SHAPES if dtype == torch.bfloat16 else ())):
+        try:
+            k1.plan(2, 37, 51, 64, 72, dtype, force=force)
+        except ValueError:
+            continue
+        per_channel = k1.conv3x3_stats(x, kernel, bias, 8, force=force)
+        moved = k1.conv3x3_stats(x, kernel, torch.zeros_like(bias), 8, force=force,
+                                 sample_bias=bias.to(dtype).float().expand(2, 72))
+        assert torch.equal(per_channel[0], moved[0]) and torch.equal(per_channel[1], moved[1])
+
+
+def test_corrdiff_evaluation_takes_k1_with_its_sample_bias(cuda):
+    """A tiny CorrDiff in fp32 on the card: every UNetBlock's chain is one
+    launch of the per-sample-bias variant in evaluation, the nets agree with
+    their CPU run (the plain chain) to 2e-4 of the largest value (3xTF32 K1,
+    cuDNN with TF32 off, another summation order), and ``generate``'s sampler
+    graph records 34 evaluations' launches of the variant per replay."""
+    from sbgm_danra_tpu_torch import capture
+    from sbgm_danra_tpu_torch.evaluate.corrdiff import generate
+    from sbgm_danra_tpu_torch.models.songunet import SongUNetSpec, UNetBlock, build_corrdiff
+
+    torch.backends.cudnn.allow_tf32 = False
+    spec = SongUNetSpec(cond_channels=6, img_resolution=16, model_channels=16,
+                        channel_mult=(1, 2), num_blocks=1, attn_resolutions=(8,))
+    cpu = build_corrdiff(spec, generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        for p in cpu.parameters():  # off EDM's 1e-5 scales, so that every layer counts
+            p.add_(0.05 * torch.randn(p.shape, generator=torch.Generator().manual_seed(4)))
+    card = build_corrdiff(spec).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(5)
+    cond = dict(cond_img=torch.randn(2, 16, 16, 2, generator=g),
+                lsm_cond=torch.randn(2, 16, 16, 2, generator=g),
+                topo_cond=torch.randn(2, 16, 16, 2, generator=g))
+    x, sigma = torch.randn(2, 16, 16, 1, generator=g), torch.tensor([3.0, 0.02])
+    blocks = sum(isinstance(m, UNetBlock) for m in card.residual.modules())
+    with torch.no_grad():
+        before = k1.conv3x3_stats_sample_bias_launches
+        got = card.denoise(x.to(cuda), sigma.to(cuda), **{k: v.to(cuda) for k, v in cond.items()})
+        assert k1.conv3x3_stats_sample_bias_launches == before + blocks
+        want = cpu.denoise(x, sigma, **cond)
+        assert (got.cpu() - want).abs().max() <= 2e-4 * want.abs().max()
+        mean = card.mean(**{k: v.to(cuda) for k, v in cond.items()})
+        assert (mean.cpu() - cpu.mean(**cond)).abs().max() <= 2e-4 * mean.abs().max().item()
+        date = {k: v[:1].to(cuda) for k, v in cond.items()}
+        generate(card, date, 2, torch.Generator(cuda).manual_seed(6))
+        generate(card, date, 2, torch.Generator(cuda).manual_seed(7))
+    graph = [g for g in capture.stats() if g["name"].startswith("edm_sampler 2x16x16x1")][-1]
+    per = graph["launches_per_replay"]
+    assert per["conv3x3_stats_sample_bias"] == per["conv3x3_stats"] == 34 * blocks
+    assert per["gn_apply"] == 34 * blocks and graph["replays"] >= 2
+
+
 def test_k1_two_models_keep_their_own_weights(cuda):
     """The packed weights are kept per parameter: two blocks of one shape with
     different weights, called in turn, each match their own plain chain; so

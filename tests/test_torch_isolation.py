@@ -84,6 +84,8 @@ def test_chip_smoke_path_imports_nothing_of_the_jax_package(blocked_extra):
                      "sbgm_danra_tpu_torch.cli.entries", "sbgm_danra_tpu_torch.cli.main_app",
                      "sbgm_danra_tpu_torch.evaluate.generation",
                      "sbgm_danra_tpu_torch.evaluate.evaluation",
+                     "sbgm_danra_tpu_torch.evaluate.corrdiff",
+                     "sbgm_danra_tpu_torch.models.songunet",
                      "sbgm_danra_tpu_torch.evaluate.quality_study",
                      "sbgm_danra_tpu_torch.cli.main_data_app",
                      "sbgm_danra_tpu_torch.pipelines.splits",
@@ -168,7 +170,8 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package():
                  "pipelines/era5/transfer.py", "pipelines/era5/worker.py",
                  "cli/main_era5_app.py", "utils/profiling.py", "convert.py",
                  "scripts/__init__.py", "scripts/common.py", "scripts/flagship_quality_eval.py",
-                 "scripts/full_domain_quality_eval.py", "scripts/edm_quality_study.py"):
+                 "scripts/full_domain_quality_eval.py", "scripts/edm_quality_study.py",
+                 "models/songunet.py", "evaluate/corrdiff.py"):
         assert os.path.join("sbgm_danra_tpu_torch", part) in scanned, part
     bad = [(os.path.relpath(f, ROOT), name) for f in files for name in _imported_names(f)
            if name.split(".")[0] in JAX_SIDE]
