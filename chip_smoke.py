@@ -52,6 +52,16 @@ Phases, one JSON line each on stdout:
      of the variant counted, the per-channel route bit for bit what the
      variant computes with the bias moved into it, and the chain's device time
      beside its bound;
+   - the standalone NHWC GroupNorm (``group_norm_stats`` then
+     ``group_norm_apply``, CorrDiff's GN0 -> SiLU, ``phase_group_norm_kernel``)
+     at the cell's largest and smallest maps, 8 x 448x448x128 and 8 x
+     28x28x512, bf16, 32 groups: against ``F.group_norm`` in fp32 (bf16's 2e-2),
+     repeated bit for bit, one ``group_norm`` and one ``group_norm_stats``
+     launch counted and none of ``gn_apply`` (its launches on the main path
+     are read in 5f); each kernel's device time beside its bound by bytes (the
+     statistics read x once, the normalise reads it and writes its result), and
+     the parent's route (``F.group_norm`` of the fp32 NCHW map, the cast back,
+     ``F.silu``, the copy to NHWC) as the library's time;
 3b. kernel (K2 backward): delta, dk/dv and dq (one ``_launch_bwd``; dk/dv and
    dq on the tensor cores, bf16 mma.sync or 3xTF32) on strided q, k, v against
    the dense plain backward in fp32, bf16 and fp32, at the full-domain shape
@@ -198,6 +208,15 @@ times, and the graph's output against the eager route's on the same draws
    within 1e-2 and each parameter's gradient (a fused qkv projection's q, k
    and v parts apart) within ``GRAD_REL_TOL`` of its max |ref|; fp32, one
    step (the fp32 variants);
+5f. corrdiff: ``evaluate/corrdiff.generate`` as the cell ``corrdiff-448-ens``
+   runs it: both SongUNets at their published widths (55 blocks, 6 of them
+   with attention), bf16, one date x 8 members at 448x448, the regression
+   eagerly and the residual's 34 evaluations on the sampler's graph. A first
+   call captures; the counts are zeroed, then a second call's launches are
+   read: 62 standalone GroupNorms an evaluation (``group_norm`` and
+   ``group_norm_stats``, 2,108 a replay in ``capture.stats()`` and 62 eager)
+   and 55 K1 chains (``conv3x3_stats``, its per-sample-bias variant and
+   ``gn_apply``, 1,870 a replay and 55 eager); the fields finite;
 6. serving: the engine with the flagship_synth settings (one graph replay per
    dispatch at the member capacity 8) behind the HTTP handler on a
    localhost port: /healthz, three concurrent /generate requests (1, 2 and 4
@@ -675,6 +694,75 @@ def phase_corrdiff_k1(dev):
     return rows
 
 
+GROUP_NORM_SHAPES = (  # (path, x [N, H, W, C]): CorrDiff's largest and smallest GN0 maps
+    ("corrdiff_448", (8, 448, 448, 128)),
+    ("corrdiff_28", (8, 28, 28, 512)),
+)
+
+
+def phase_group_norm_kernel(dev):
+    """The standalone NHWC GroupNorm with SiLU against ``F.group_norm`` at
+    ``GROUP_NORM_SHAPES``, each kernel's device time beside its bound."""
+    import torch.nn.functional as F
+
+    from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
+
+    gen = torch.Generator(dev).manual_seed(5)
+    rows = []
+    for path, (n, h, w, c) in GROUP_NORM_SHAPES:
+        dtype, groups, eps = torch.bfloat16, 32, 1e-6
+        x = torch.randn(n, h, w, c, generator=gen, device=dev).to(dtype)
+        gamma = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        beta = 0.1 * torch.randn(c, generator=gen, device=dev)
+        before = (k1.group_norm_launches, k1.group_norm_stats_launches, k1.gn_apply_launches)
+        out = k1.group_norm_cuda(x, gamma, beta, groups, eps, "silu")
+        launches = (k1.group_norm_launches - before[0], k1.group_norm_stats_launches - before[1],
+                    k1.gn_apply_launches - before[2])
+        repeat = torch.equal(k1.group_norm_cuda(x, gamma, beta, groups, eps, "silu"), out)
+        x_nchw = x.permute(0, 3, 1, 2)
+        want = F.silu(F.group_norm(x_nchw.float(), groups, gamma, beta, eps)).permute(0, 2, 3, 1)
+        err = (out.float() - want).abs().max().item()
+        stats = k1.group_norm_stats(x, groups)
+        stats_rel = ((stats - k1.plain_group_norm_stats(x, groups)).abs().max()
+                     / stats.abs().max()).item()
+        del want
+        stats_ms = _large_or_cold_ms(lambda x: k1.group_norm_stats(x, groups), x)
+        apply_ms = _large_or_cold_ms(
+            lambda *a: k1.group_norm_apply(*a, groups, eps, "silu"), x, stats, gamma, beta)
+
+        def parent_route():  # songunet's GroupNorm before the kernels, then K1's copy to NHWC
+            y = F.silu(F.group_norm(x_nchw.float(), groups, gamma, beta, eps).to(dtype))
+            return y.permute(0, 2, 3, 1).contiguous()
+
+        library_ms = cuda_ms(parent_route, 5)
+        x_bytes = x.numel() * x.element_size()
+        b_stats = bound(0.0, x_bytes + 4 * 2 * n * groups, "bfloat16")
+        b_apply = bound(0.0, 2 * x_bytes + 4 * 2 * n * groups + 8 * c, "bfloat16")
+        row = dict(phase="kernel", kernel="group_norm", path=path, shape=[n, h, w, c],
+                   groups=groups, dtype="bfloat16", activation="silu", max_abs_err=err,
+                   stats_rel_err=stats_rel, repeat_bit_identical=repeat,
+                   launches=launches[0], stats_launches=launches[1],
+                   gn_apply_launches=launches[2],
+                   stats_kernel_ms=stats_ms, stats_bound_ms=b_stats["bound_ms"],
+                   stats_roofline_pct=100.0 * b_stats["bound_ms"] / stats_ms,
+                   apply_kernel_ms=apply_ms, apply_bound_ms=b_apply["bound_ms"],
+                   apply_roofline_pct=100.0 * b_apply["bound_ms"] / apply_ms,
+                   kernel_ms=stats_ms + apply_ms,
+                   roofline_pct=100.0 * (b_stats["bound_ms"] + b_apply["bound_ms"])
+                   / (stats_ms + apply_ms),
+                   stats_slots=k1.stats_slots(n, h * w, c, x.element_size()),
+                   library_ms=library_ms,
+                   library="the parent's route: F.silu(F.group_norm(fp32 NCHW).to(bf16)), "
+                           "then the copy to contiguous NHWC")
+        emit(**row)
+        check(err <= 2e-2 and stats_rel <= 1e-5 and repeat and launches == (1, 1, 0),
+              f"the NHWC GroupNorm at {path}: {row}")
+        rows.append(row)
+        del x, x_nchw, out, stats
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_upsample_kernel(dev):
     """The decoder's upsample kernel against its plain version at
     ``UPSAMPLE_SHAPES``, with its times beside the bound and the library's call."""
@@ -748,6 +836,8 @@ def reset_counts():
         cuda_attention.launches_by_variant[name] = 0
         cuda_attention.bwd_launches_by_variant[name] = 0
     k1.conv3x3_stats_launches = k1.gn_apply_launches = 0
+    k1.conv3x3_stats_sample_bias_launches = 0
+    k1.group_norm_launches = k1.group_norm_stats_launches = 0
     up.launches = 0
 
 
@@ -3513,6 +3603,60 @@ def phase_train_full_domain(dev, dtype: str, steps: int, compare: bool):
     return {"k2_bwd": k2b[variant], "k2_fwd": k2f[variant], "step_s_median": median}
 
 
+CORRDIFF = dict(hw=(448, 448), members=8, evaluations=34)  # portbench/workloads/corrdiff-448-ens
+
+
+def phase_corrdiff(dev):
+    """CorrDiff's generation at its published widths (the cell's call), its
+    kernels' launches read from a call after a reset: the regression's eager
+    evaluation plus one replay of the residual's sampler graph."""
+    import gc
+
+    from sbgm_danra_tpu_torch.evaluate.corrdiff import generate
+    from sbgm_danra_tpu_torch.models.songunet import SongUNetSpec, UNetBlock, build_corrdiff
+    from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
+
+    (h, w), members, evals = CORRDIFF["hw"], CORRDIFF["members"], CORRDIFF["evaluations"]
+    spec = SongUNetSpec(cond_channels=6, img_resolution=h, compute_dtype="bfloat16")
+    with torch.device(dev):
+        net = build_corrdiff(spec, generator=torch.Generator(dev).manual_seed(0))
+    blocks = [m for m in net.residual.modules() if isinstance(m, UNetBlock)]
+    per_eval = {"k1": len(blocks), "group_norm": len(blocks) + sum(b.attention for b in blocks) + 1}
+    gen = torch.Generator(dev).manual_seed(9)
+    cond = {k: torch.randn(1, h, w, 2, generator=gen, device=dev)
+            for k in ("cond_img", "lsm_cond", "topo_cond")}
+
+    def call(seed):
+        return timed(lambda: generate(net, cond, members, torch.Generator(dev).manual_seed(seed)))
+
+    _, capture_call_s = call(1)  # the regression, the sampler's warm-up and capture, a replay
+    reset_counts()  # the main path's run starts here: the regression eagerly, one replay
+    out, call_s = call(2)
+    counts = dict(group_norm=k1.group_norm_launches,
+                  group_norm_stats=k1.group_norm_stats_launches,
+                  conv3x3_stats=k1.conv3x3_stats_launches,
+                  conv3x3_stats_sample_bias=k1.conv3x3_stats_sample_bias_launches,
+                  gn_apply=k1.gn_apply_launches)
+    stats = graph_stats(f"edm_sampler {members}x{h}x{w}x1")
+    per_replay = stats[-1]["launches_per_replay"] if stats else {}
+    expected_replay = {name: evals * per_eval["k1" if name.startswith(("conv", "gn_")) else
+                                              "group_norm"] for name in counts}
+    expected = {name: n + n // evals for name, n in expected_replay.items()}
+    finite = bool(np.isfinite(out).all())
+    emit(phase="corrdiff", hw=[h, w], members=members, shape=list(out.shape), finite=finite,
+         per_eval=per_eval, launches=counts, expected=expected, graph=stats,
+         capture_call_s=capture_call_s, call_s=call_s, fields_per_s=out.shape[0] / call_s)
+    check(out.shape == (members, h, w) and finite, f"bad CorrDiff output {out.shape}")
+    check(per_eval == {"k1": 55, "group_norm": 62}, f"CorrDiff's nets per evaluation {per_eval}")
+    check(len(stats) == 1 and all(per_replay.get(k) == n for k, n in expected_replay.items()),
+          f"CorrDiff graph launches {stats}, expected {expected_replay} a replay")
+    check(counts == expected, f"CorrDiff call launches {counts}, expected {expected}")
+    del net, out, stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _post(url: str, body: dict):
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -3764,6 +3908,7 @@ def main() -> int:
     k1_rows = run("kernel_k1", phase_conv_gn_kernel, dev)
     up_rows = run("kernel_upsample", phase_upsample_kernel, dev)
     run("kernel_k1_corrdiff", phase_corrdiff_k1, dev)
+    gn_rows = run("kernel_group_norm", phase_group_norm_kernel, dev)
     model, serve_model, tiny_k2 = run("model", phase_model, dev)
     launches = run("full_domain", phase_full_domain, dev, model)
     del model
@@ -3783,6 +3928,7 @@ def main() -> int:
                      TRAIN_FULL["steps"], compare=True)
     train_fp32 = run("train_full_domain_fp32", phase_train_full_domain, dev, "float32", 1,
                      compare=False)
+    corrdiff = run("corrdiff", phase_corrdiff, dev)
     serving = run("serving", phase_serving, dev)
     samplers = run("samplers", phase_samplers, dev, serve_model)
     emit(phase="timing", build_s=build_s, phase_s=seconds,
@@ -3886,6 +4032,30 @@ def main() -> int:
         "rows": [{key: r[key] for key in ("path", "shape", "dtype", "ms", "kernel_ms",
                                           "bound_ms", "roofline_pct", "plain_ms", "library_ms")}
                  for r in up_rows],
+    })
+    kernels.append({
+        "name": "group_norm",
+        "route": "cuda",
+        "mma": None,
+        "source": "sbgm_danra_tpu_torch/csrc/conv3x3_gn.cu",
+        "replaces": "no TPU kernel: F.group_norm on CorrDiff's channels-last maps "
+                    "(sbgm_danra_tpu_torch/models/songunet.py's GroupNorm, no JAX counterpart)",
+        "launches": corrdiff["group_norm"],
+        "launches_by_path": {"corrdiff": corrdiff["group_norm"]},
+        "rows": [{key: r[key] for key in ("path", "shape", "dtype", "stats_kernel_ms",
+                                          "stats_roofline_pct", "apply_kernel_ms",
+                                          "apply_roofline_pct", "library_ms")}
+                 for r in gn_rows],
+    })
+    kernels.append({
+        "name": "group_norm_stats",
+        "route": "cuda",
+        "mma": None,
+        "source": "sbgm_danra_tpu_torch/csrc/conv3x3_gn.cu",
+        "replaces": "no TPU kernel: the statistics of F.group_norm on CorrDiff's channels-last "
+                    "maps (timed in group_norm's rows)",
+        "launches": corrdiff["group_norm_stats"],
+        "launches_by_path": {"corrdiff": corrdiff["group_norm_stats"]},
     })
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel was not launched on its path: " + str({k["name"]: k["launches"] for k in kernels}))

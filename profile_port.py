@@ -168,6 +168,8 @@ CLASSES = (
     ("K1 conv3x3_stats", ("conv3x3_stats",)),
     ("K1 gn_apply", ("gn_apply",)),
     ("upsample2x", ("upsample2x_kernel",)),
+    # before "GroupNorm (PyTorch)", whose "group_norm" would also match them
+    ("GroupNorm (NHWC kernels)", ("group_norm_stats_kernel", "group_norm_apply_kernel")),
     ("GroupNorm (PyTorch)", ("GroupNorm", "group_norm", "RowwiseMoments", "ComputeFusedParams")),
     ("BatchNorm", ("batch_norm", "BatchNorm")),
     ("cat", ("CatArrayBatchedCopy",)),

@@ -85,9 +85,10 @@ def _records() -> Dict[str, int]:
 
 
 def kernel_names(launches: Dict[str, int]) -> Dict[str, int]:
-    """A graph's launches under the kernels' report names: ``conv3x3_stats``,
-    ``gn_apply``, ``flash_attention_fwd_<variant>``, ``flash_attention_bwd_<variant>``,
-    ``upsample2x``."""
+    """A graph's launches under the kernels' report names: ``conv3x3_stats``
+    (``conv3x3_stats_sample_bias`` those with a per-sample bias), ``gn_apply``,
+    ``group_norm_stats``, ``group_norm``, ``flash_attention_fwd_<variant>``,
+    ``flash_attention_bwd_<variant>``, ``upsample2x``."""
     out = {}
     for key, n in launches.items():
         module, name = key.split("/", 1)

@@ -106,6 +106,17 @@
 // epilogue and the statistics see the sum. Null (every other caller) leaves
 // the per-channel arithmetic as it was. gn_apply's activation, none, ReLU or
 // SiLU, is a template parameter.
+//
+// A standalone GroupNorm on NHWC (no TPU kernel: it replaces F.group_norm on
+// CorrDiff's channels-last bf16 maps, which casts to fp32, copies to NCHW,
+// reduces, normalises and casts back, some 40 bytes of traffic an element):
+// group_norm_stats_kernel reads the map once and writes per-(sample, group)
+// fp32 sums in gn_apply's layout, then group_norm_apply_kernel, gn_apply's
+// body under its own name, reads it again and writes it once, with the
+// activation folded in: 6 bytes an element in bf16. Both are bound by bytes.
+// The statistics take the conv kernels' path from per-thread channel sums
+// (16-byte vectors, four loads in flight) through finish_statistics, so they
+// are bit-identical from call to call and inside a CUDA graph.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -793,15 +804,19 @@ __device__ __forceinline__ float activate(float r) {
   return r;
 }
 
-// y, out [N, pixels, c] in T; stats [N, groups, 2]; gamma, beta [c] fp32.
-// Grid (blocks, N); dynamic shared memory c * 8 bytes. vec: c is a multiple of
-// the 16-byte vector, at most kApplyThreads vectors a pixel, aligned pointers.
-// One instantiation per activation, so that none pays for another's branch.
+// The normalise pass, the body of gn_apply_kernel (K1's second kernel) and of
+// group_norm_apply_kernel (a standalone GroupNorm's). y, out [N, pixels, c] in
+// T; stats [N, groups, 2]; gamma, beta [c] fp32. Grid (blocks, N); dynamic
+// shared memory c * 8 bytes. vec: c is a multiple of the 16-byte vector, at
+// most kApplyThreads vectors a pixel, aligned pointers. One instantiation per
+// activation, so that none pays for another's branch.
 template <typename T, int ACT>
-__global__ void __launch_bounds__(kApplyThreads)
-gn_apply_kernel(const T* __restrict__ y, const float* __restrict__ stats,
-                const float* __restrict__ gamma, const float* __restrict__ beta,
-                T* __restrict__ out, int64_t pixels, int c, int groups, float eps, bool vec) {
+__device__ __forceinline__ void normalise(const T* __restrict__ y,
+                                          const float* __restrict__ stats,
+                                          const float* __restrict__ gamma,
+                                          const float* __restrict__ beta, T* __restrict__ out,
+                                          int64_t pixels, int c, int groups, float eps,
+                                          bool vec) {
   constexpr int kVec = 16 / sizeof(T);
   extern __shared__ float2 chan_s[];  // per channel: scale, shift
   const int n = blockIdx.y;
@@ -861,6 +876,123 @@ gn_apply_kernel(const T* __restrict__ y, const float* __restrict__ stats,
       on[e] = from_float<T>(activate<ACT>(r));
     }
   }
+}
+
+template <typename T, int ACT>
+__global__ void __launch_bounds__(kApplyThreads)
+gn_apply_kernel(const T* __restrict__ y, const float* __restrict__ stats,
+                const float* __restrict__ gamma, const float* __restrict__ beta,
+                T* __restrict__ out, int64_t pixels, int c, int groups, float eps, bool vec) {
+  normalise<T, ACT>(y, stats, gamma, beta, out, pixels, c, groups, eps, vec);
+}
+
+// ---------------------------------------------------------------------------
+// A standalone GroupNorm on NHWC (CorrDiff's SongUNet: each block's GN0 -> SiLU,
+// the attention's GN2, the output's GN -> SiLU): group_norm_stats_kernel, then
+// group_norm_apply_kernel. Their names hold neither K1's kernel names nor each
+// other's prefix, so that a trace bills them apart from K1.
+
+// The 16-byte-vector sum of a thread's kVec channels over pixel rows p, p +
+// stride, ... of one sample (src: the thread's first vector; vpp: vectors a pixel).
+template <typename T>
+__device__ __forceinline__ void sum_vectors(const uint4* __restrict__ src, int64_t p,
+                                            int64_t stride, int64_t pixels, int vpp,
+                                            float* s, float* ss) {
+  constexpr int kVec = 16 / sizeof(T);
+  for (; p < pixels; p += kApplyUnroll * stride) {
+    uint4 v[kApplyUnroll];
+#pragma unroll
+    for (int u = 0; u < kApplyUnroll; ++u)
+      if (p + u * stride < pixels) v[u] = __ldg(src + (p + u * stride) * vpp);
+#pragma unroll
+    for (int u = 0; u < kApplyUnroll; ++u)
+      if (p + u * stride < pixels) {
+        alignas(16) T buf[kVec];
+        *reinterpret_cast<uint4*>(buf) = v[u];
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) {
+          const float f = to_float(buf[i]);
+          s[i] += f;
+          ss[i] = fmaf(f, f, ss[i]);
+        }
+      }
+  }
+}
+
+// x [N, pixels, c] in T -> stats [N, groups, 2] fp32 (sum, sum of squares),
+// the layout gn_apply reads. Grid (slots, ceil(c / kBN), N), kApplyThreads
+// threads: block (slot, t, n) sums channels kBN t ... of sample n over its
+// slot's pixels, keeping per-thread fp32 sums; the warps' and the block's
+// reductions and the last block's fold into groups are finish_statistics',
+// as in conv3x3_stats, so that repeated calls are bit-identical. vec: c is a
+// multiple of the 16-byte vector and x is aligned; a thread then owns one
+// vector of the channel tile (kBN / kVec of them a pixel) and walks pixel rows
+// kApplyThreads / (kBN / kVec) apart, four loads in flight. Else a thread owns
+// one channel and reads it element by element.
+template <typename T>
+__global__ void __launch_bounds__(kApplyThreads)
+group_norm_stats_kernel(const T* __restrict__ x, float* __restrict__ partials,
+                        int* __restrict__ counters, float* __restrict__ stats,
+                        int64_t pixels, int c, int groups, bool vec) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kWarps = kApplyThreads / 32;
+  __shared__ float red_s[kWarps * kBN * 2];
+  __shared__ bool last_s;
+  const int n = blockIdx.z, n0 = blockIdx.y * kBN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const T* xn = x + (int64_t)n * pixels * c;
+  if (vec) {
+    constexpr int kVp = kBN / kVec;  // vectors of the tile a pixel: 8 (bf16), 16 (fp32)
+    constexpr int kRows = kApplyThreads / kVp;  // pixel rows a trip of the block
+    const int cv = threadIdx.x % kVp;
+    const int ch = n0 + cv * kVec;
+    float s[kVec], ss[kVec];
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) s[i] = ss[i] = 0.f;
+    if (ch < c)
+      sum_vectors<T>(reinterpret_cast<const uint4*>(xn + ch),
+                     (int64_t)blockIdx.x * kRows + threadIdx.x / kVp,
+                     (int64_t)gridDim.x * kRows, pixels, c / kVec, s, ss);
+    // over the lanes that share cv (lane % kVp), then per channel into red_s
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+#pragma unroll
+      for (int off = kVp; off < 32; off <<= 1) {
+        s[i] += __shfl_xor_sync(0xffffffffu, s[i], off);
+        ss[i] += __shfl_xor_sync(0xffffffffu, ss[i], off);
+      }
+      if (lane < kVp) {
+        red_s[(warp * kBN + cv * kVec + i) * 2] = s[i];
+        red_s[(warp * kBN + cv * kVec + i) * 2 + 1] = ss[i];
+      }
+    }
+  } else {
+    // a warp holds 32 channels of one pixel row; the row's other 32 are zero
+    constexpr int kRows = kApplyThreads / kBN;
+    const int col = threadIdx.x % kBN;
+    float s = 0.f, ss = 0.f;
+    if (n0 + col < c)
+      for (int64_t p = (int64_t)blockIdx.x * kRows + threadIdx.x / kBN; p < pixels;
+           p += (int64_t)gridDim.x * kRows) {
+        const float f = to_float(xn[p * c + n0 + col]);
+        s += f;
+        ss = fmaf(f, f, ss);
+      }
+    red_s[(warp * kBN + col) * 2] = s;
+    red_s[(warp * kBN + col) * 2 + 1] = ss;
+    red_s[(warp * kBN + (col ^ 32)) * 2] = 0.f;
+    red_s[(warp * kBN + (col ^ 32)) * 2 + 1] = 0.f;
+  }
+  finish_statistics(red_s, kWarps, partials, counters, stats, n, n0, c, groups, &last_s);
+}
+
+template <typename T, int ACT>
+__global__ void __launch_bounds__(kApplyThreads)
+group_norm_apply_kernel(const T* __restrict__ y, const float* __restrict__ stats,
+                        const float* __restrict__ gamma, const float* __restrict__ beta,
+                        T* __restrict__ out, int64_t pixels, int c, int groups, float eps,
+                        bool vec) {
+  normalise<T, ACT>(y, stats, gamma, beta, out, pixels, c, groups, eps, vec);
 }
 
 // ---------------------------------------------------------------------------
@@ -955,20 +1087,22 @@ int launch_conv_fp32(const ConvArgs& a, int tile_h, int tile_w, int kc, bool ws)
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// standalone: group_norm_apply_kernel, else gn_apply_kernel (the same body)
 template <typename T, int ACT>
 int launch_apply(const void* y, const float* stats, const float* gamma, const float* beta,
                  void* out, int batch, int64_t pixels, int c, int groups, float eps, int blocks,
-                 cudaStream_t stream) {
+                 bool standalone, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const bool vec =
       c % kVec == 0 && c / kVec <= kApplyThreads && aligned16(y) && aligned16(out);
   const size_t smem = (size_t)c * sizeof(float2);
+  auto kernel = standalone ? &group_norm_apply_kernel<T, ACT> : &gn_apply_kernel<T, ACT>;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gn_apply_kernel<T, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  gn_apply_kernel<T, ACT><<<dim3(blocks, batch), kApplyThreads, smem, stream>>>(
+  kernel<<<dim3(blocks, batch), kApplyThreads, smem, stream>>>(
       static_cast<const T*>(y), stats, gamma, beta, static_cast<T*>(out), pixels, c, groups,
       eps, vec);
   return static_cast<int>(cudaGetLastError());
@@ -977,17 +1111,29 @@ int launch_apply(const void* y, const float* stats, const float* gamma, const fl
 template <typename T>
 int launch_apply_act(const void* y, const float* stats, const float* gamma, const float* beta,
                      void* out, int batch, int64_t pixels, int c, int groups, float eps, int act,
-                     int blocks, cudaStream_t stream) {
+                     int blocks, bool standalone, cudaStream_t stream) {
   if (act == 0)
     return launch_apply<T, 0>(y, stats, gamma, beta, out, batch, pixels, c, groups, eps, blocks,
-                              stream);
+                              standalone, stream);
   if (act == 1)
     return launch_apply<T, 1>(y, stats, gamma, beta, out, batch, pixels, c, groups, eps, blocks,
-                              stream);
+                              standalone, stream);
   if (act == 2)
     return launch_apply<T, 2>(y, stats, gamma, beta, out, batch, pixels, c, groups, eps, blocks,
-                              stream);
+                              standalone, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int launch_group_norm_stats(const void* x, float* partials, int* counters, float* stats,
+                            int batch, int64_t pixels, int c, int groups, int slots,
+                            cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  const bool vec = c % kVec == 0 && aligned16(x);
+  group_norm_stats_kernel<T><<<dim3(slots, (c + kBN - 1) / kBN, batch), kApplyThreads, 0,
+                               stream>>>(static_cast<const T*>(x), partials, counters, stats,
+                                         pixels, c, groups, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1023,21 +1169,44 @@ int sbgm_conv3x3_stats(const void* x, const void* w, const void* bias, const flo
 }
 
 // y, out: [batch, pixels, c] NHWC; stats: [batch, groups, 2] from
-// sbgm_conv3x3_stats; gamma, beta: [c] fp32. act: 0 none, 1 ReLU, 2 SiLU. Grid
-// (blocks, batch).
+// sbgm_conv3x3_stats or sbgm_group_norm_stats; gamma, beta: [c] fp32. act: 0
+// none, 1 ReLU, 2 SiLU. standalone != 0 launches group_norm_apply_kernel (a
+// standalone GroupNorm's normalise pass), else gn_apply_kernel (K1's); the
+// two share one body. Grid (blocks, batch).
 int sbgm_gn_apply(const void* y, const float* stats, const float* gamma, const float* beta,
                   void* out, int batch, long long pixels, int c, int groups, float eps,
-                  int act, int dtype, int blocks, void* stream) {
+                  int act, int dtype, int blocks, int standalone, void* stream) {
   if (batch <= 0 || batch > 65535 || pixels <= 0 || c <= 0 || groups <= 0 ||
       c % groups != 0 || blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_apply_act<float>(y, stats, gamma, beta, out, batch, pixels, c, groups, eps,
-                                   act, blocks, s);
+                                   act, blocks, standalone != 0, s);
   if (dtype == 1)
     return launch_apply_act<__nv_bfloat16>(y, stats, gamma, beta, out, batch, pixels, c, groups,
-                                           eps, act, blocks, s);
+                                           eps, act, blocks, standalone != 0, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A standalone GroupNorm, its statistics: x [batch, pixels, c] NHWC (dtype 0
+// float32, 1 bfloat16) -> stats [batch, groups, 2] fp32, the sum and the sum
+// of squares of each (sample, group); partials: [batch, slots, c, 2] fp32;
+// counters: [batch] int32, zero on entry (the kernel leaves them zero).
+// Grid (slots, ceil(c / 64), batch).
+int sbgm_group_norm_stats(const void* x, float* partials, int* counters, float* stats,
+                          int batch, long long pixels, int c, int groups, int dtype, int slots,
+                          void* stream) {
+  if (batch <= 0 || batch > 65535 || pixels <= 0 || c <= 0 || groups <= 0 ||
+      c % groups != 0 || slots <= 0 || (c + kBN - 1) / kBN > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_group_norm_stats<float>(x, partials, counters, stats, batch, pixels, c, groups,
+                                          slots, s);
+  if (dtype == 1)
+    return launch_group_norm_stats<__nv_bfloat16>(x, partials, counters, stats, batch, pixels,
+                                                  c, groups, slots, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -43,7 +43,12 @@ block's ``conv0 -> + emb -> GN1 -> SiLU`` is one K1 call
 (``ops/fused_conv_gn.py``) with the embedding as its per-sample bias: on the
 card the CUDA kernels, on the CPU the plain chain; ``train=True`` takes the
 plain differentiable chain (``reference_chain``), as the flagship's decoder
-does. The public layout is NHWC; inside, NCHW views of channels-last memory.
+does. The standalone GroupNorms (each block's GN0 -> SiLU, the attention's
+GN2, the output's GN -> SiLU) take the port's NHWC GroupNorm kernels in
+evaluation on the card (``fused_conv_gn.group_norm_cuda``: fp32 statistics of
+the map in one reduction, then the normalise pass with the SiLU folded in) and
+``F.group_norm`` in fp32 on the CPU and in training. The public layout is
+NHWC; inside, NCHW views of channels-last memory.
 """
 
 from __future__ import annotations
@@ -57,7 +62,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from sbgm_danra_tpu_torch.models.layers import Conv2d, Linear
-from sbgm_danra_tpu_torch.ops.fused_conv_gn import conv3x3_gn_relu, reference_chain
+from sbgm_danra_tpu_torch.ops.fused_conv_gn import (
+    conv3x3_gn_relu,
+    group_norm_cuda,
+    reference_chain,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 SKIP_SCALE = math.sqrt(0.5)
@@ -96,19 +105,35 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+def uses_kernels(device, train: bool) -> bool:
+    """Whether a GroupNorm on ``device`` takes the card's kernels: on CUDA, in
+    evaluation (they have no backward)."""
+    return torch.device(device).type == "cuda" and not train
+
+
 class GroupNorm(nn.Module):
     """EDM's GroupNorm: min(32, C / 4) groups, eps 1e-6; fp32 statistics, the
-    result in ``out_dtype``."""
+    result in ``out_dtype``, then SiLU where ``silu`` (GN0, the output's norm).
 
-    def __init__(self, channels: int, out_dtype: torch.dtype = torch.float32):
+    ``forward(x, train)``: NCHW x. Where ``uses_kernels``, the NHWC kernels on
+    the channels-last map (``fused_conv_gn.group_norm_cuda``), with the result
+    channels-last in x's dtype; else ``F.group_norm`` of x in fp32."""
+
+    def __init__(self, channels: int, out_dtype: torch.dtype = torch.float32,
+                 silu: bool = False):
         super().__init__()
-        self.num_groups, self.out_dtype = min(32, channels // 4), out_dtype
+        self.num_groups, self.out_dtype, self.silu = min(32, channels // 4), out_dtype, silu
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if uses_kernels(x.device, train):
+            y = group_norm_cuda(_nhwc(x), self.weight, self.bias, self.num_groups, GN_EPS,
+                                "silu" if self.silu else False)
+            return _nchw(y).to(self.out_dtype)
         y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, GN_EPS)
-        return y.to(self.out_dtype)
+        y = y.to(self.out_dtype)
+        return F.silu(y) if self.silu else y
 
 
 def resample(x: torch.Tensor, up: bool, down: bool) -> torch.Tensor:
@@ -131,7 +156,7 @@ class UNetBlock(nn.Module):
         super().__init__()
         self.in_channels, self.out_channels = in_channels, out_channels
         self.up, self.down, self.dropout = up, down, dropout
-        self.norm0 = GroupNorm(in_channels, dtype)
+        self.norm0 = GroupNorm(in_channels, dtype, silu=True)
         self.conv0 = Conv2d(in_channels, out_channels, 3, padding=1, compute_dtype=dtype)
         self.affine = Linear(emb_channels, out_channels, dtype)
         self.norm1 = GroupNorm(out_channels, dtype)
@@ -146,7 +171,7 @@ class UNetBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor, train: bool = False) -> torch.Tensor:
         orig = x
-        h = resample(F.silu(self.norm0(x)), self.up, self.down)
+        h = resample(self.norm0(x, train), self.up, self.down)
         params = self.affine(emb)  # [N, cout], the chain's per-sample bias
         chain = reference_chain if train else conv3x3_gn_relu
         h = chain(_nhwc(h), self.conv0.weight.permute(2, 3, 1, 0), self.conv0.bias,
@@ -159,7 +184,8 @@ class UNetBlock(nn.Module):
         if self.attention:
             n, c, hh, ww = x.shape
             q, k, v = (t.transpose(1, 2)[:, None]  # [N, 1, HW, C]
-                       for t in self.qkv(self.norm2(x)).reshape(n, c, 3, hh * ww).unbind(2))
+                       for t in self.qkv(self.norm2(x, train)).reshape(n, c, 3, hh * ww)
+                       .unbind(2))
             a = F.scaled_dot_product_attention(q, k, v)[:, 0].transpose(1, 2)
             x = (self.proj(a.reshape(n, c, hh, ww)) + x) * SKIP_SCALE
         return x
@@ -225,7 +251,7 @@ class SongUNet(nn.Module):
                 attn = idx == spec.num_blocks and res in spec.attn_resolutions
                 self.dec[f"{res}x{res}_block{idx}"] = UNetBlock(cin, cout, attention=attn, **block)
         res = spec.img_resolution
-        self.dec[f"{res}x{res}_aux_norm"] = GroupNorm(cout, dtype)
+        self.dec[f"{res}x{res}_aux_norm"] = GroupNorm(cout, dtype, silu=True)
         self.dec[f"{res}x{res}_aux_conv"] = Conv2d(cout, spec.out_channels, 3, padding=1,
                                                    compute_dtype=dtype)
 
@@ -251,8 +277,8 @@ class SongUNet(nn.Module):
                 if x.shape[1] != block.in_channels:
                     x = torch.cat([x, skips.pop()], dim=1)
                 x = block(x, emb, train)
-            elif isinstance(block, GroupNorm):  # the output's aux_norm, then its aux_conv
-                x = F.silu(block(x))
+            elif isinstance(block, GroupNorm):  # the output's aux_norm (+ SiLU), then its aux_conv
+                x = block(x, train)
             else:
                 x = block(x)
         return x

@@ -38,9 +38,19 @@ differs from sample to sample.
   parameter's version counter, storage or layout changes (``load_state_dict``,
   an in-place update, a move to another device). A write through ``.data``
   bumps no version counter and is not seen.
+- ``group_norm_cuda``: a standalone GroupNorm (+ ReLU or SiLU) of an NHWC
+  map on the card (CorrDiff's SongUNet, ``models/songunet.py``), from the same
+  library: ``group_norm_stats`` (one fp32 reduction of the map into
+  ``gn_apply``'s statistics layout, by the conv kernels' deterministic path)
+  and ``group_norm_apply`` (``gn_apply``'s body under a name of its own, so
+  that a trace bills it apart from K1); ``plain_group_norm_stats`` is the
+  statistics' plain version, ``plain_gn_apply`` the normalise's.
 - ``conv3x3_stats_launches`` / ``gn_apply_launches``: how many times each
   kernel was launched in this process; ``conv3x3_stats_sample_bias_launches``
-  how many of the conv kernel's launches took a per-sample bias. A call made
+  how many of the conv kernel's launches took a per-sample bias;
+  ``group_norm_launches`` / ``group_norm_stats_launches`` how many times a
+  standalone GroupNorm's normalise and statistics kernels were launched (keys
+  ``group_norm`` and ``group_norm_stats`` in a graph's launches). A call made
   while its stream is being captured into a CUDA graph launches nothing: it
   adds to ``recorded`` instead, and each replay of the graph adds its kernels
   to the counts (``count_replay``, called by ``capture.Graph.replay``).
@@ -92,11 +102,16 @@ _WS_MAX_CIN = 128  # resident weights up to here: 9 x 128 x 64 bf16 = 147 KB
 FP32_LAUNCH_SHAPES = ((16, 16, 8, False), (8, 16, 8, False))
 _APPLY_THREADS, _APPLY_UNROLL = 256, 4
 _APPLY_BLOCKS_PER_SM = 16  # gn_apply blocks in flight per SM over the whole batch
+# group_norm_stats blocks an SM over the batch: one wave, below the 5 its 48 registers a
+# thread let an SM hold (the fastest of 4-16 at CorrDiff's maps on an H100)
+_STATS_BLOCKS_PER_SM = 4
 _MAX_CHANNELS = MAX_SHARED_BYTES // 8  # gn_apply keeps 8 bytes per channel in shared memory
 
 conv3x3_stats_launches = 0
 conv3x3_stats_sample_bias_launches = 0
 gn_apply_launches = 0
+group_norm_launches = 0
+group_norm_stats_launches = 0
 _ACTIVATIONS = {False: 0, True: 1, "relu": 1, "silu": 2}  # gn_apply's epilogue codes
 recorded = collections.Counter()  # launches recorded into CUDA graphs, by kernel
 _local = threading.local()  # .scope: (ticket counters, pack hits) of the capture in progress
@@ -116,9 +131,12 @@ def count_replay(per_replay: dict) -> None:
     """Add one replay of a graph that holds ``per_replay`` launches of each
     kernel (by name) to the launch counts."""
     global conv3x3_stats_launches, conv3x3_stats_sample_bias_launches, gn_apply_launches
+    global group_norm_launches, group_norm_stats_launches
     conv3x3_stats_launches += per_replay.get("conv3x3_stats", 0)
     conv3x3_stats_sample_bias_launches += per_replay.get("conv3x3_stats_sample_bias", 0)
     gn_apply_launches += per_replay.get("gn_apply", 0)
+    group_norm_launches += per_replay.get("group_norm", 0)
+    group_norm_stats_launches += per_replay.get("group_norm_stats", 0)
 
 
 @contextlib.contextmanager
@@ -149,8 +167,10 @@ def build_library() -> _nvcc.BuiltLibrary:
     built.lib.sbgm_conv3x3_stats.argtypes = [p] * 8 + [i] * 13 + [p]
     built.lib.sbgm_conv3x3_stats.restype = i
     built.lib.sbgm_gn_apply.argtypes = [p, p, p, p, p, i, ctypes.c_longlong, i, i,
-                                        ctypes.c_float, i, i, i, p]
+                                        ctypes.c_float, i, i, i, i, p]
     built.lib.sbgm_gn_apply.restype = i
+    built.lib.sbgm_group_norm_stats.argtypes = [p, p, p, p, i, ctypes.c_longlong, i, i, i, i, p]
+    built.lib.sbgm_group_norm_stats.restype = i
     return built
 
 
@@ -521,11 +541,14 @@ def apply_blocks(n: int, pixels: int, c: int, itemsize: int) -> int:
     return max(1, min(want, _APPLY_BLOCKS_PER_SM * _SMS // n, 65535))
 
 
-def gn_apply(conv: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-             groups: int, eps: float = 1e-5, activation=True) -> torch.Tensor:
-    """The normalise kernel: conv [N, H, W, C] and its stats -> the GroupNorm
-    (+ ReLU, or SiLU with ``activation="silu"``) of conv in conv's dtype."""
-    _require_cuda("gn_apply", conv=conv, stats=stats, gamma=gamma, beta=beta)
+def _normalise(conv: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor,
+               beta: torch.Tensor, groups: int, eps: float, activation,
+               standalone: bool) -> torch.Tensor:
+    """``gn_apply``'s and ``group_norm_apply``'s checks and launch: the
+    normalise body as ``group_norm_apply_kernel`` (counted as ``group_norm``)
+    where ``standalone``, else as ``gn_apply_kernel`` (``gn_apply``)."""
+    entry = "group_norm_apply" if standalone else "gn_apply"
+    _require_cuda(entry, conv=conv, stats=stats, gamma=gamma, beta=beta)
     act = _activation_code(activation)
     n, h, w, c = conv.shape
     if conv.dtype not in _DTYPE_CODES or not conv.is_contiguous():
@@ -536,7 +559,7 @@ def gn_apply(conv: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor, beta:
         raise ValueError(f"gamma and beta must be [{c}], got {tuple(gamma.shape)} and "
                          f"{tuple(beta.shape)}")
     if c > _MAX_CHANNELS or n > 65535:
-        raise ValueError(f"gn_apply: {c} channels (at most {_MAX_CHANNELS}) or batch {n} (at "
+        raise ValueError(f"{entry}: {c} channels (at most {_MAX_CHANNELS}) or batch {n} (at "
                          "most 65535) not supported")
     stats = stats.contiguous()
     out = torch.empty_like(conv)
@@ -547,11 +570,74 @@ def gn_apply(conv: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor, beta:
         rc = built.lib.sbgm_gn_apply(
             conv.data_ptr(), stats.data_ptr(), gamma_f.data_ptr(), beta_f.data_ptr(),
             out.data_ptr(), n, h * w, c, groups, eps, act,
-            _DTYPE_CODES[conv.dtype], apply_blocks(n, h * w, c, conv.element_size()), stream,
+            _DTYPE_CODES[conv.dtype], apply_blocks(n, h * w, c, conv.element_size()),
+            int(standalone), stream,
         )
-        _nvcc.check_launch(built, rc, "gn_apply")
-        _count("gn_apply")
+        _nvcc.check_launch(built, rc, entry)
+        _count("group_norm" if standalone else "gn_apply")
     return out
+
+
+def gn_apply(conv: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+             groups: int, eps: float = 1e-5, activation=True) -> torch.Tensor:
+    """The normalise kernel: conv [N, H, W, C] and its stats -> the GroupNorm
+    (+ ReLU, or SiLU with ``activation="silu"``) of conv in conv's dtype."""
+    return _normalise(conv, stats, gamma, beta, groups, eps, activation, standalone=False)
+
+
+def plain_group_norm_stats(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """``group_norm_stats``'s plain version: per-(sample, group) [sum, sum of
+    squares] of x [N, H, W, C] in fp32, [N, groups, 2]."""
+    n, c = x.shape[0], x.shape[-1]
+    grouped = x.float().reshape(n, -1, groups, c // groups)
+    return torch.stack([grouped.sum((1, 3)), (grouped * grouped).sum((1, 3))], dim=-1)
+
+
+def stats_slots(n: int, pixels: int, c: int, itemsize: int) -> int:
+    """``group_norm_stats``'s blocks per sample and 64-channel tile: one wave
+    of ``_STATS_BLOCKS_PER_SM`` blocks an SM over the batch, at most one per
+    trip of a block's pixel rows."""
+    vec = 16 // itemsize
+    rows = _APPLY_THREADS // (_BN // vec if c % vec == 0 else _BN)  # pixel rows a trip
+    return max(1, min(math.ceil(pixels / rows),
+                      _STATS_BLOCKS_PER_SM * _SMS // (n * math.ceil(c / _BN))))
+
+
+def group_norm_stats(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """The statistics kernel: x [N, H, W, C] (float32 or bfloat16) -> [N,
+    groups, 2] fp32, the sum and the sum of squares of each (sample, group)."""
+    dev = _require_cuda("group_norm_stats", x=x)
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"x: dtype {x.dtype} not supported (float32 or bfloat16)")
+    if x.dim() != 4 or min(x.shape) < 1 or groups < 1 or x.shape[-1] % groups != 0:
+        raise ValueError(f"x must be [N, H, W, C] with C divisible by groups {groups}, got "
+                         f"{tuple(x.shape)}")
+    if x.shape[0] > 65535:
+        raise ValueError(f"group_norm_stats: batch {x.shape[0]} (at most 65535) not supported")
+    x = x.contiguous()
+    n, h, w, c = x.shape
+    slots = stats_slots(n, h * w, c, x.element_size())
+    built = build_library()
+    with torch.cuda.device(dev):
+        # partials [n, slots, c, 2] and stats [n, groups, 2] in one allocation
+        scratch = torch.empty((n * slots * c * 2 + n * groups * 2,), dtype=torch.float32,
+                              device=dev)
+        stats = scratch[n * slots * c * 2:].view(n, groups, 2)
+        stream = _current_stream(dev)
+        rc = built.lib.sbgm_group_norm_stats(
+            x.data_ptr(), scratch.data_ptr(), _ticket_counters(dev, stream, n).data_ptr(),
+            stats.data_ptr(), n, h * w, c, groups, _DTYPE_CODES[x.dtype], slots, stream)
+        _nvcc.check_launch(built, rc, "group_norm_stats")
+        _count("group_norm_stats")
+    return stats
+
+
+def group_norm_apply(x: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor,
+                     beta: torch.Tensor, groups: int, eps: float = 1e-5,
+                     activation=False) -> torch.Tensor:
+    """The standalone GroupNorm's normalise kernel: ``gn_apply`` launched as
+    ``group_norm_apply_kernel``; counted in ``group_norm_launches``."""
+    return _normalise(x, stats, gamma, beta, groups, eps, activation, standalone=True)
 
 
 class _Conv3x3GN(torch.autograd.Function):
@@ -567,6 +653,27 @@ class _Conv3x3GN(torch.autograd.Function):
             "the CUDA conv3x3 + GroupNorm kernels have no backward; the JAX kernel has no "
             "VJP either, and the training port decides how the decoder runs under autograd"
         )
+
+
+class _GroupNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, groups, eps, activation):
+        x = x.contiguous()
+        return group_norm_apply(x, group_norm_stats(x, groups), gamma, beta, groups, eps,
+                                activation)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "the CUDA GroupNorm kernels have no backward; training takes F.group_norm")
+
+
+def group_norm_cuda(x, gamma, beta, groups: int, eps: float = 1e-5,
+                    activation=False) -> torch.Tensor:
+    """GroupNorm (+ ReLU, or SiLU with ``activation="silu"``) of NHWC x [N, H,
+    W, C] on the card: fp32 statistics of x, then the normalise pass; the
+    result [N, H, W, C] contiguous in x's dtype. CUDA tensors only."""
+    return _GroupNorm.apply(x, gamma, beta, groups, eps, activation)
 
 
 def conv3x3_gn_cuda(x, kernel, bias, gamma, beta, groups: int = 8, eps: float = 1e-5,
