@@ -260,6 +260,7 @@ import torch
 from profile_port import (CHAINS_128, CHAINS_FULL, COLD_COPIES, DATA_DAYS, K1_RAGGED, OnCard,
                           RepeatedDays, bound, data_config, device_ms, k2bwd_rows, profile,
                           sampler_profile, sfu_rate, step_seconds, train_batches, train_config)
+from sbgm_danra_tpu_torch.ops import launches as launch_counts
 
 FULL_DOMAIN = (589, 789)
 EDM_NODES = 18
@@ -358,7 +359,6 @@ def phase_attention_kernel(dev, exp_rate: float):
     from sbgm_danra_tpu_torch.ops import cuda_attention
     from sbgm_danra_tpu_torch.ops import flash_attention as fa
 
-    by_variant = cuda_attention.launches_by_variant
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(dev).manual_seed(0)
     results, failed = [], []
@@ -370,10 +370,10 @@ def phase_attention_kernel(dev, exp_rate: float):
         else:
             run = lambda: cuda_attention.flash_attention_cuda(q, k, v)  # noqa: E731
         try:
-            before = dict(by_variant)
+            before = launch_counts.snapshot()
             out = run()
             torch.cuda.synchronize()
-            ran = {name: n - before[name] for name, n in by_variant.items()}
+            ran = k2_counts("fwd", launch_counts.since(before))
             repeat_identical = torch.equal(run(), out)
             ms = cuda_ms(run, 20)
         finally:
@@ -386,7 +386,7 @@ def phase_attention_kernel(dev, exp_rate: float):
         else:
             tol, tol_text = 2.0**-8 * ref.abs() + 2.0**-8 * ref_max, BF16_TOLERANCE
         worst = (err / tol).max().item()
-        variant_ok = ran == {name: int(name == K2_VARIANT[dtype]) for name in by_variant}
+        variant_ok = ran == {name: int(name == K2_VARIANT[dtype]) for name in ran}
         extra = {}
         if packed:
             contiguous = cuda_attention.flash_attention_cuda(q.contiguous(), k.contiguous(),
@@ -431,13 +431,11 @@ def phase_attention_backward(dev):
     (``profile_port.k2bwd_rows``); each gradient within the dtype's tolerance
     of its max |ref|, a repeat bit-identical, the forward's lse output within
     1e-4 of the plain lse, and only the dtype's variant launched."""
-    from sbgm_danra_tpu_torch.ops import cuda_attention as ca
-
     rows = []
     for dtype, shapes in K2_BWD_SHAPES.items():
-        before = dict(ca.bwd_launches_by_variant)
+        before = launch_counts.snapshot()
         got = k2bwd_rows(torch, dev, dtype_name(dtype), shapes)
-        ran = {n: c - before[n] for n, c in ca.bwd_launches_by_variant.items()}
+        ran = k2_counts("bwd", launch_counts.since(before))
         variant, tol = K2_VARIANT[dtype], K2_BWD_TOLERANCE[dtype]
         for row in got:
             worst = max(row["rel_err"].values())
@@ -646,9 +644,9 @@ def phase_corrdiff_k1(dev):
         sample_bias = torch.randn(n, cout, generator=gen, device=dev)
         gamma = 1.0 + 0.1 * torch.randn(cout, generator=gen, device=dev)
         beta = 0.1 * torch.randn(cout, generator=gen, device=dev)
-        before = k1.conv3x3_stats_sample_bias_launches
+        before = launch_counts.snapshot()
         conv, stats = k1.conv3x3_stats(x, kernel, bias, groups, sample_bias=sample_bias)
-        launches = k1.conv3x3_stats_sample_bias_launches - before
+        launches = launch_counts.since(before)["conv3x3_stats_sample_bias"]
         out = k1.gn_apply(conv, stats, gamma, beta, groups, 1e-6, "silu")
         plain_conv, plain_stats = k1.plain_conv3x3_stats(x.float(), kernel.to(dtype),
                                                          bias.to(dtype), groups, sample_bias)
@@ -714,10 +712,10 @@ def phase_group_norm_kernel(dev):
         x = torch.randn(n, h, w, c, generator=gen, device=dev).to(dtype)
         gamma = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
         beta = 0.1 * torch.randn(c, generator=gen, device=dev)
-        before = (k1.group_norm_launches, k1.group_norm_stats_launches, k1.gn_apply_launches)
+        before = launch_counts.snapshot()
         out = k1.group_norm_cuda(x, gamma, beta, groups, eps, "silu")
-        launches = (k1.group_norm_launches - before[0], k1.group_norm_stats_launches - before[1],
-                    k1.gn_apply_launches - before[2])
+        ran = launch_counts.since(before)
+        launches = (ran["group_norm"], ran["group_norm_stats"], ran["gn_apply"])
         repeat = torch.equal(k1.group_norm_cuda(x, gamma, beta, groups, eps, "silu"), out)
         x_nchw = x.permute(0, 3, 1, 2)
         want = F.silu(F.group_norm(x_nchw.float(), groups, gamma, beta, eps)).permute(0, 2, 3, 1)
@@ -774,9 +772,9 @@ def phase_upsample_kernel(dev):
     rows = []
     for path, shape, dtype in UPSAMPLE_SHAPES:
         x = torch.randn(shape, generator=gen, device=dev).to(dtype)
-        before = up.launches
+        before = launch_counts.snapshot()
         out = up.upsample2x(x)
-        launches = up.launches - before
+        launches = launch_counts.since(before)["upsample2x"]
         bit_identical = torch.equal(out, up.upsample2x_bilinear(x))
         repeat = torch.equal(up.upsample2x(x), out)
         x_bytes = x.numel() * x.element_size()
@@ -814,43 +812,14 @@ def phase_upsample_kernel(dev):
     return rows
 
 
-def k1_counts():
-    from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
-
-    return k1.conv3x3_stats_launches, k1.gn_apply_launches
+def k1_counts() -> tuple:
+    return launch_counts.counts["conv3x3_stats"], launch_counts.counts["gn_apply"]
 
 
-def up_counts() -> int:
-    from sbgm_danra_tpu_torch.ops import upsample as up
-
-    return up.launches
-
-
-def reset_counts():
-    from sbgm_danra_tpu_torch.ops import cuda_attention
-    from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
-    from sbgm_danra_tpu_torch.ops import upsample as up
-
-    cuda_attention.launches = cuda_attention.bwd_launches = 0
-    for name in cuda_attention.launches_by_variant:
-        cuda_attention.launches_by_variant[name] = 0
-        cuda_attention.bwd_launches_by_variant[name] = 0
-    k1.conv3x3_stats_launches = k1.gn_apply_launches = 0
-    k1.conv3x3_stats_sample_bias_launches = 0
-    k1.group_norm_launches = k1.group_norm_stats_launches = 0
-    up.launches = 0
-
-
-def k2_counts() -> dict:
-    from sbgm_danra_tpu_torch.ops import cuda_attention
-
-    return dict(cuda_attention.launches_by_variant)
-
-
-def k2_bwd_counts() -> dict:
-    from sbgm_danra_tpu_torch.ops import cuda_attention
-
-    return dict(cuda_attention.bwd_launches_by_variant)
+def k2_counts(kind: str = "fwd", counts=None) -> dict:
+    """K2's ``kind`` ("fwd" or "bwd") launches by variant in ``counts`` (default: all so far)."""
+    counts = launch_counts.counts if counts is None else counts
+    return {v: counts[f"flash_attention_{kind}_{v}"] for v in K2_VARIANT.values()}
 
 
 def check_k1(counts, evaluations: int, where: str) -> None:
@@ -892,27 +861,21 @@ def plain_k1():
 K1_FWD_TOL = {"bfloat16": 5e-2, "float32": 1e-4}  # UNet forward, K1 vs the plain chain: of max|ref|
 
 
-def set_k1_counts(counts) -> None:
-    from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
-
-    k1.conv3x3_stats_launches, k1.gn_apply_launches = counts
-
-
 def k1_vs_plain_forward(model, batch, dev, dtype: str, seed: int) -> dict:
     """``model`` (``train=False``) on a data batch's conditioning and noised
     field at a seeded t, with K1 and with the plain chain, inside the fp32
     precision rule of the trainer's steps (``exact_fp32``): the relative error
-    of max |ref|, finiteness, and K1's launches in the K1 forward. The launches
-    are taken back out of K1's counts: they compare, they do not run the path."""
+    of max |ref|, finiteness, and K1's launches in the K1 forward. The launch
+    counts are put back afterwards: the forwards compare, they do not run the path."""
     from sbgm_danra_tpu_torch.precision import exact_fp32
 
     g = torch.Generator(dev).manual_seed(seed)
     cond = {k: batch[k] for k in ("y", "cond_img", "lsm_cond", "topo_cond")}
     x = batch["x"] + torch.randn(batch["x"].shape, generator=g, device=dev)
     t = torch.rand(batch["x"].shape[0], generator=g, device=dev) * 0.9 + 0.05
-    before = k1_counts()
+    before = launch_counts.snapshot()
     with torch.no_grad(), exact_fp32(dtype):
-        reset_counts()
+        launch_counts.reset()
         got = model(x, t, **cond)
         counts = k1_counts()
         restore = plain_k1()
@@ -920,7 +883,8 @@ def k1_vs_plain_forward(model, batch, dev, dtype: str, seed: int) -> dict:
             ref = model(x, t, **cond)
         finally:
             restore()
-    set_k1_counts(before)
+    launch_counts.reset()
+    launch_counts.add_replay(before)
     rel = _rel(got, ref)
     return dict(rel_err=rel, tolerance=K1_FWD_TOL[dtype], finite=bool(torch.isfinite(got).all()),
                 k1_launches=list(counts), batch=int(x.shape[0]), dtype=dtype)
@@ -987,7 +951,7 @@ def phase_model(dev):
         model.to(dev)
         torch.backends.cudnn.allow_tf32 = False
         fa._FORCE_KERNEL = True
-        reset_counts()
+        launch_counts.reset()
         try:
             got = model(x.to(dev), t.to(dev), **{k: v.to(dev) for k, v in cond.items()}).cpu()
         finally:
@@ -1009,7 +973,7 @@ def phase_model(dev):
                           device=dev)
     t = torch.linspace(0.05, 1.0, 16, device=dev)
     with torch.inference_mode():
-        reset_counts()
+        launch_counts.reset()
         got = serve_model(x, t, **cond)
         counts = k1_counts()
         restore = plain_k1()
@@ -1031,9 +995,9 @@ def phase_model(dev):
     x = 2.0 * torch.randn(2, *hw, 1, generator=torch.Generator(dev).manual_seed(7), device=dev)
     t = torch.full((2,), 0.5, device=dev)
     with torch.inference_mode():
-        reset_counts()
+        launch_counts.reset()
         got = model(x, t, **cond)
-        check(cuda_attention.launches == 1 and k2_counts()["tc_bf16"] == 1,
+        check(k2_counts() == {"tc_bf16": 1, "fp32": 0},
               "the full-domain forward did not use the tensor-core kernel")
         check_k1(k1_counts(), 1, "full-domain forward")
         fa.flash_attention_cuda = cuda_attention.flash_attention_reference
@@ -1093,7 +1057,6 @@ def phase_full_domain(dev, model):
     launches counted; then the eager loop (``capture=False``) on the second
     replay's draws, which the graph must reproduce."""
     from sbgm_danra_tpu_torch.evaluate.full_domain import sample_full_domain
-    from sbgm_danra_tpu_torch.ops import cuda_attention
     from sbgm_danra_tpu_torch.sampling.samplers import SamplerConfig
 
     cond = make_cond(1, FULL_DOMAIN, dev, 8)
@@ -1105,17 +1068,19 @@ def phase_full_domain(dev, model):
             config=config, sampler="edm_sampler", capture=capture))
 
     _, capture_call_s = run(0)  # warm-up, capture and one replay
-    reset_counts()  # the main path's run starts here: a replay of the graph
+    launch_counts.reset()  # the main path's run starts here: a replay of the graph
     out, first_s = run(1)
-    launches, k2_first, k1_first = cuda_attention.launches, k2_counts(), k1_counts()
-    up_first = up_counts()
-    reset_counts()
+    k2_first, k1_first = k2_counts(), k1_counts()
+    launches = sum(k2_first.values())
+    up_first = launch_counts.counts["upsample2x"]
+    launch_counts.reset()
     out2, second_s = run(2)
-    launches2, k2_second, k1_second = cuda_attention.launches, k2_counts(), k1_counts()
-    up_second = up_counts()
-    reset_counts()
+    k2_second, k1_second = k2_counts(), k1_counts()
+    launches2 = sum(k2_second.values())
+    up_second = launch_counts.counts["upsample2x"]
+    launch_counts.reset()
     eager, eager_s = run(1, capture=False)
-    k2_eager, k1_eager, up_eager = k2_counts(), k1_counts(), up_counts()
+    k2_eager, k1_eager, up_eager = k2_counts(), k1_counts(), launch_counts.counts["upsample2x"]
     evaluations = 2 * (EDM_NODES - 1)
     finite = bool(np.isfinite(out).all() and np.isfinite(out2).all())
     vs_eager = compare(out, eager, GRAPH_TOL["bfloat16"])
@@ -1179,7 +1144,7 @@ def phase_fp32_full_width(dev, bf16_wall_s):
     with torch.inference_mode():
         torch.backends.cudnn.allow_tf32 = False
         try:
-            reset_counts()  # the fp32 forward's run starts here
+            launch_counts.reset()  # the fp32 forward's run starts here
             got = model(x, t, **cond)
             forward_k2, forward_k1 = k2_counts(), k1_counts()
             fa.flash_attention_cuda = cuda_attention.flash_attention_reference
@@ -1237,11 +1202,11 @@ def phase_fp32_full_width(dev, bf16_wall_s):
     _, capture_call_s = timed(lambda: sample(False))  # warm-up, capture, one replay
     tf32_inside = any(tf32_seen)  # the flags the graph was captured under
     evaluations_seen = len(tf32_seen)
-    reset_counts()  # the fp32 full-domain sample's run starts here: a replay
+    launch_counts.reset()  # the fp32 full-domain sample's run starts here: a replay
     out, wall = timed(lambda: sample(False))
     k2, k1c = k2_counts(), k1_counts()
     tf32_restored = torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
-    reset_counts()
+    launch_counts.reset()
     eager, eager_wall = timed(lambda: sample(False, capture=False))
     k2_eager, k1_eager = k2_counts(), k1_counts()
     vs_eager = compare(out, eager, GRAPH_TOL["float32"])
@@ -1416,9 +1381,9 @@ def phase_train_128(dev):
             pipe.train_loader = loader
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            reset_counts()  # the 128-px training path's run starts here
+            launch_counts.reset()  # the 128-px training path's run starts here
             loss = pipe.train_batches(spec["steps"])
-            k1c, k2f, k2b = k1_counts(), k2_counts(), k2_bwd_counts()
+            k1c, k2f, k2b = k1_counts(), k2_counts(), k2_counts("bwd")
             peak = torch.cuda.max_memory_allocated() / 1e9
             steps = loader.step_s()
             after, ema = _snapshot(pipe.state)
@@ -1428,7 +1393,7 @@ def phase_train_128(dev):
             eval_step = make_eval_step(pipe.model, pipe.sde, use_ema=True, capture=capture)
             gen = lambda: torch.Generator(dev).manual_seed(1)  # noqa: E731
             eval_step(pipe.state, batches[0], gen())  # the eval graph's capture
-            reset_counts()
+            launch_counts.reset()
             eval_loss = eval_step(pipe.state, batches[0], gen())["loss"].item()
             eval_k1 = k1_counts()
             stats = graph_stats("train step") + graph_stats("eval step")
@@ -1624,7 +1589,7 @@ def phase_train_data(dev, tmp):
 
     with torch.inference_mode():
         _, capture_call_s = timed(sample)  # warm-up, capture, one replay
-        reset_counts()  # the conditioned full-domain sample's run starts here: a replay
+        launch_counts.reset()  # the conditioned full-domain sample's run starts here: a replay
         out, sample_s = timed(sample)
         k1c, k2c = k1_counts(), k2_counts()
     mm = np.asarray(back_transforms_for_config(cfg)["generated"](out))
@@ -1778,7 +1743,7 @@ def phase_generate(dev, tmp):
     cfg = data_config(tmp)
     cfg.evaluation.gen_type = tuple(GEN_ARTIFACTS)
     before = torch.cuda.memory_allocated(dev)
-    reset_counts()  # the generate call's run starts here
+    launch_counts.reset()  # the generate call's run starts here
     run, call_s = timed(lambda: run_mode(cfg, "generate", args))
     first_k1, first_k2 = k1_counts(), k2_counts()
     load_gib = (torch.cuda.memory_allocated(dev) - before) / 2**30
@@ -1788,7 +1753,7 @@ def phase_generate(dev, tmp):
         graph_name = f"dpmpp_sampler {n}x128x128"
         captured = _mode_graph(graph_name)
         call = getattr(generator, f"generate_{mode}")
-        reset_counts()  # the mode alone: a replay of its graph
+        launch_counts.reset()  # the mode alone: a replay of its graph
         _, replay_s = timed(call)
         k1c, k2c = k1_counts(), k2_counts()
         again = _mode_graph(graph_name)
@@ -1827,7 +1792,7 @@ def phase_generate(dev, tmp):
             x = 2.0 * torch.randn(rows, *SERVE_HW, 1,
                                   generator=torch.Generator(dev).manual_seed(rows), device=dev)
             t = torch.linspace(0.05, 1.0, rows, device=dev)
-            reset_counts()
+            launch_counts.reset()
             got = model(x, t, **cond)
             counts = k1_counts()
             restore = plain_k1()
@@ -1854,13 +1819,13 @@ def phase_generate(dev, tmp):
     fd_cfg.evaluation.n_steps = EDM_NODES
     fd_cfg.evaluation.gen_type = ("full_domain",)
     fd_evaluations = 2 * (EDM_NODES - 1)
-    reset_counts()
+    launch_counts.reset()
     run, fd_call_s = timed(lambda: run_mode(fd_cfg, "generate", args))
     fd_first = (k1_counts(), k2_counts())
     fd = run["generators"]["full_domain"]
     graph_name = "edm_sampler 1x608x800"
     captured = _mode_graph(graph_name)
-    reset_counts()  # the full-domain mode alone: a replay of its graph
+    launch_counts.reset()  # the full-domain mode alone: a replay of its graph
     _, fd_replay_s = timed(fd.generate_full_domain)
     k1c, k2c = k1_counts(), k2_counts()
     checks = _artifact_checks(sample_path, "full_domain", 1, FULL_DOMAIN)
@@ -1914,7 +1879,7 @@ def phase_generate(dev, tmp):
 
     # 4. the exact-score quality study on the card
     grid = [s for s in qs.SAMPLER_GRID if s["label"] in STUDY_GRID]
-    reset_counts()
+    launch_counts.reset()
     study, study_s = timed(lambda: qs.run_study(sampler_grid=grid,
                                                 regimes=qs.default_regimes(stress=False),
                                                 device=dev))
@@ -1948,7 +1913,7 @@ def phase_generate(dev, tmp):
     stale_before = k1.stale_packs()  # the packs the first preview made, still current
     pipe.train_batches(3)
     stale_after = k1.stale_packs()  # written by the train replays (Graph.writes)
-    reset_counts()  # the second preview's run on its graph: captured, then replayed
+    launch_counts.reset()  # the second preview's run on its graph: captured, then replayed
     p2, p2_s = preview(capture=True)
     pv_k1 = k1_counts()
     held = graph_stats(f"dpmpp_sampler {GEN_ARTIFACTS['multiple'][1]}x128x128")
@@ -2134,7 +2099,7 @@ def phase_quality(dev, tmp):
     out_dir = os.path.join(tmp, "quality")
 
     # 1. the flagship quality script
-    reset_counts()
+    launch_counts.reset()
     flagship, flagship_s = timed(lambda: flagship_quality_eval.main(
         [*QUALITY_FLAGSHIP_ARGS, "--out", os.path.join(out_dir, "flagship.json"),
          "--device", str(dev)], cfg=cfg))
@@ -2174,7 +2139,7 @@ def phase_quality(dev, tmp):
     torch.cuda.empty_cache()
 
     # 2. the full-domain quality script
-    reset_counts()
+    launch_counts.reset()
     full, full_s = timed(lambda: full_domain_quality_eval.main(
         [*QUALITY_FULL_ARGS, "--out", os.path.join(out_dir, "full_domain.json"),
          "--device", str(dev)], cfg=cfg))
@@ -2214,7 +2179,7 @@ def phase_quality(dev, tmp):
     torch.cuda.empty_cache()
 
     # 3. the exact-score study
-    reset_counts()
+    launch_counts.reset()
     study, study_s = timed(lambda: edm_quality_study.main([*QUALITY_STUDY_ARGS, "--device",
                                                             str(dev)]))
     check(all(np.isfinite(m["std_ratio"]) and np.isfinite(m["spread_skill"])
@@ -2390,7 +2355,7 @@ def phase_data_prep(dev, tmp):
     del pipe
     graphs.clear()
     torch.cuda.empty_cache()
-    reset_counts()  # the generate call's run starts here
+    launch_counts.reset()  # the generate call's run starts here
     run = mode("generate_single", lambda: run_mode(cfg, "generate", args))
     k1c, k2c = k1_counts(), k2_counts()
     sample_path = run["generators"]["single"].sample_path
@@ -2675,7 +2640,7 @@ def phase_windowed(dev, tmp):
     pipe._fused, pipe.train_batches = fused_call, train_batches
     losses = recorded_losses(pipe)
     with watched_validations() as validations:
-        reset_counts()  # the windowed run starts here
+        launch_counts.reset()  # the windowed run starts here
         pipe.train(epochs=2)
         graphs_two_epochs = graph_stats("fused")
         train.window_steps = 0  # the same loader, swap-on-ready
@@ -2854,7 +2819,7 @@ def phase_sweep(dev, tmp):
 
     before = torch.cuda.memory_reserved(dev)
     with watched_validations(k1_at_eval_batch) as validations:
-        reset_counts()  # the sweep's run starts here
+        launch_counts.reset()  # the sweep's run starts here
         t0 = time.perf_counter()
         study = run_sweep(config_path, os.path.join(root, "study.db"), n_trials=SWEEP_TRIALS,
                           epochs=1, steps_per_epoch=sweep["training"]["steps_per_epoch"],
@@ -2952,9 +2917,9 @@ def _dp_step_vs_single(dev, tmp, mesh, cfg, batch, seed: int, steps: int, t_eps=
     pipe = TrainingPipeline(cfg, [], device=dev, mesh=mesh)
     before, _ = _snapshot(pipe.state)
     local = pipe.shard(batch)
-    reset_counts()
+    launch_counts.reset()
     dp_loss = pipe._train_step(pipe.state, local, t=t, z=z)["loss"].item()
-    k2f, k2b = k2_counts(), k2_bwd_counts()
+    k2f, k2b = k2_counts(), k2_counts("bwd")
     dp_after, dp_ema = _snapshot(pipe.state)
     dp_grads = _grads(pipe.model)
     out = dict(loss=dp_loss, route=pipe._train_step.route, rows=int(local["x"].shape[0]),
@@ -3045,7 +3010,7 @@ def _ensemble(dev, mesh):
 
     with torch.inference_mode():
         call(mesh)  # the capture
-        reset_counts()  # this rank's ensemble run: one replay
+        launch_counts.reset()  # this rank's ensemble run: one replay
         rows, wall = timed(lambda: call(mesh))
         counts = k1_counts()
     per = PAR_ENSEMBLE // mesh.size
@@ -3529,9 +3494,9 @@ def phase_train_full_domain(dev, dtype: str, steps: int, compare: bool):
         pipe.train_loader = loader
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_counts()  # the full-domain training path's run starts here: graph replays
+        launch_counts.reset()  # the full-domain training path's run starts here: graph replays
         loss = pipe.train_batches(steps)
-        k1c, k2f, k2b = k1_counts(), k2_counts(), k2_bwd_counts()
+        k1c, k2f, k2b = k1_counts(), k2_counts(), k2_counts("bwd")
         peak = torch.cuda.max_memory_allocated() / 1e9
         step_s = loader.step_s()
         stats = graph_stats("train step")
@@ -3543,9 +3508,9 @@ def phase_train_full_domain(dev, dtype: str, steps: int, compare: bool):
             # the graph's step against the eager step from one state, same t and z
             loss_g, grads_g, saved = _step_grads(pipe, batches[0], t, z, step=pipe._train_step)
             _restore(pipe, saved)
-            reset_counts()
+            launch_counts.reset()
             _, eager_s = timed(lambda: _step_grads(pipe, batches[0], t, z))
-            eager_k2 = (k2_counts()[variant], k2_bwd_counts()[variant])
+            eager_k2 = (k2_counts()[variant], k2_counts("bwd")[variant])
             _restore(pipe, saved)
             loss_k, grads_k, _ = _step_grads(pipe, batches[0], t, z)
             _restore(pipe, saved)
@@ -3614,7 +3579,6 @@ def phase_corrdiff(dev):
 
     from sbgm_danra_tpu_torch.evaluate.corrdiff import generate
     from sbgm_danra_tpu_torch.models.songunet import SongUNetSpec, UNetBlock, build_corrdiff
-    from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
 
     (h, w), members, evals = CORRDIFF["hw"], CORRDIFF["members"], CORRDIFF["evaluations"]
     spec = SongUNetSpec(cond_channels=6, img_resolution=h, compute_dtype="bfloat16")
@@ -3630,13 +3594,10 @@ def phase_corrdiff(dev):
         return timed(lambda: generate(net, cond, members, torch.Generator(dev).manual_seed(seed)))
 
     _, capture_call_s = call(1)  # the regression, the sampler's warm-up and capture, a replay
-    reset_counts()  # the main path's run starts here: the regression eagerly, one replay
+    launch_counts.reset()  # the main path's run starts here: the regression eagerly, one replay
     out, call_s = call(2)
-    counts = dict(group_norm=k1.group_norm_launches,
-                  group_norm_stats=k1.group_norm_stats_launches,
-                  conv3x3_stats=k1.conv3x3_stats_launches,
-                  conv3x3_stats_sample_bias=k1.conv3x3_stats_sample_bias_launches,
-                  gn_apply=k1.gn_apply_launches)
+    counts = {name: launch_counts.counts[name] for name in (
+        "group_norm", "group_norm_stats", "conv3x3_stats", "conv3x3_stats_sample_bias", "gn_apply")}
     stats = graph_stats(f"edm_sampler {members}x{h}x{w}x1")
     per_replay = stats[-1]["launches_per_replay"] if stats else {}
     expected_replay = {name: evals * per_eval["k1" if name.startswith(("conv", "gn_")) else
@@ -3682,7 +3643,7 @@ def phase_serving(dev):
     warm_s = engine.warmup()  # the dispatch graph's capture
     stats = graph_stats("dpmpp_sampler 8x128x128")
     per_replay = stats[0]["launches_per_replay"] if stats else {}
-    reset_counts()  # the serving path's run starts here: one replay per dispatch
+    launch_counts.reset()  # the serving path's run starts here: one replay per dispatch
     server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(engine))
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -3734,7 +3695,7 @@ def phase_serving(dev):
                                    capture=False)
     try:
         eager_warm_s = eager_engine.warmup()
-        reset_counts()
+        launch_counts.reset()
         eager = {n: timed(lambda n=n, seed=seed: eager_engine.generate(conditions, n, seed))
                  for n, seed in requests}
         eager_counts = k1_counts()
@@ -3801,10 +3762,10 @@ def phase_samplers(dev, model):
 
         with torch.inference_mode():
             _, capture_call_s = timed(graph_call)  # warm-up, capture, one replay
-            reset_counts()  # this sampler's run starts here: a replay of its graph
+            launch_counts.reset()  # this sampler's run starts here: a replay of its graph
             out, wall = timed(graph_call)
             counts = k1_counts()
-            reset_counts()
+            launch_counts.reset()
             eager, eager_wall = timed(lambda: get_sampler(name)(
                 score_fn, torch.Generator(dev).manual_seed(12), shape, config=config, cond=cond))
             eager_counts = k1_counts()

@@ -21,12 +21,10 @@ model's parameters, a train state, resident data) its owner keeps alive.
   error as its cause): a host sync (``.item()``, ``bool`` of a device
   tensor), a copy from pageable host memory, or an op that does not capture.
   Nothing falls back to the eager call.
-- Launch counts. A kernel wrapper called during a capture records its launch
-  (``fused_conv_gn.recorded``, ``cuda_attention.recorded``,
-  ``upsample.recorded``) instead of counting it; the graph keeps what its
-  capture recorded (``launches``, by kernel) and each replay adds that to the
-  wrappers' counts, so the counts stay the number of kernel launches on the
-  card.
+- Launch counts (``ops/launches.py``). A kernel wrapper called during a
+  capture records its launch instead of counting it; the graph keeps what its
+  capture recorded (``launches``, by kernel name) and each replay adds that
+  to the counts, so they stay the number of kernel launches on the card.
 - Staleness. The graph reads every tensor at the address it had at capture.
   K1's cached weight packs are checked on every replay (``valid``): a
   parameter updated in place since the capture makes ``valid`` False, and
@@ -54,12 +52,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from sbgm_danra_tpu_torch.ops import cuda_attention as k2
 from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
-from sbgm_danra_tpu_torch.ops import upsample as up
+from sbgm_danra_tpu_torch.ops import launches
 
 WARMUP_CALLS = 2
-_COUNTERS = {"k1": k1, "k2": k2, "up": up}  # the kernel wrappers, by a graph's launch-key prefix
 _live = weakref.WeakSet()  # every Graph not yet collected, for stats()
 
 
@@ -77,26 +73,6 @@ def use_graphs(capture: Optional[bool], device) -> bool:
             raise ValueError(f"CUDA graphs need a CUDA device; got {device}")
         return False
     return capture is None or bool(capture)
-
-
-def _records() -> Dict[str, int]:
-    return {f"{prefix}/{k}": v for prefix, module in _COUNTERS.items()
-            for k, v in module.recorded.items()}
-
-
-def kernel_names(launches: Dict[str, int]) -> Dict[str, int]:
-    """A graph's launches under the kernels' report names: ``conv3x3_stats``
-    (``conv3x3_stats_sample_bias`` those with a per-sample bias), ``gn_apply``,
-    ``group_norm_stats``, ``group_norm``, ``flash_attention_fwd_<variant>``,
-    ``flash_attention_bwd_<variant>``, ``upsample2x``."""
-    out = {}
-    for key, n in launches.items():
-        module, name = key.split("/", 1)
-        if module == "k2":
-            kind, variant = name.split("/")
-            name = f"flash_attention_{kind}_{variant}"
-        out[name] = out.get(name, 0) + n
-    return out
 
 
 _capture_streams: Dict[int, "torch.cuda.Stream"] = {}
@@ -151,7 +127,7 @@ class Graph:
                 reset()
             stream.wait_stream(current)
             torch.cuda.synchronize(dev)
-            before = _records()
+            before = launches.recorded.copy()
             self.graph = torch.cuda.CUDAGraph()
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(dev)
@@ -173,15 +149,9 @@ class Graph:
             raise
         except Exception as e:
             raise CaptureError(f"capturing {name} into a CUDA graph failed: {e}") from e
-        after = _records()
-        self.launches = {k: after.get(k, 0) - before.get(k, 0)
-                         for k in after if after.get(k, 0) != before.get(k, 0)}
+        self.launches = dict(launches.recorded - before)
         self.capture_s, self.instantiate_s = t1 - t0, t2 - t1
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self._by_module = {prefix: {} for prefix in _COUNTERS}  # as each wrapper counts them
-        for key, n in self.launches.items():
-            prefix, name = key.split("/", 1)
-            self._by_module[prefix][name] = n
         self.replays = 0
         _live.add(self)
 
@@ -196,12 +166,11 @@ class Graph:
         if self.writes:
             torch.autograd.graph.increment_version(self.writes)
         self.replays += 1
-        for prefix, module in _COUNTERS.items():
-            module.count_replay(self._by_module[prefix])
+        launches.add_replay(self.launches)
         return self.outputs
 
     def stats(self) -> dict:
-        return dict(name=self.name, launches_per_replay=kernel_names(self.launches),
+        return dict(name=self.name, launches_per_replay=dict(self.launches),
                     replays=self.replays, capture_s=self.capture_s,
                     instantiate_s=self.instantiate_s, pool_bytes=self.pool_bytes)
 

@@ -26,13 +26,9 @@ first use, and loads it with ``ctypes``.
   ``attention_lse`` the plain log-sum-exp and ``flash_attention_bwd_reference``
   the plain backward (dense, fp32), which the CPU tests hold against
   ``jax.grad`` of the Pallas kernel and the card holds the kernels against.
-- ``launches`` / ``launches_by_variant``: forward launches in this process;
-  ``bwd_launches`` / ``bwd_launches_by_variant`` backward calls (each one
-  launches the three backward kernels of its dtype's variant). A call made
-  while its stream is being captured into a CUDA graph launches nothing: it
-  adds to ``recorded`` instead, and each replay of the graph adds its
-  kernels to the counts (``count_replay``, called by
-  ``capture.Graph.replay``).
+- Each forward launch is counted in ``ops/launches.py`` as
+  ``flash_attention_fwd_<variant>``, each backward call (the three backward
+  kernels of its dtype's variant) as ``flash_attention_bwd_<variant>``.
 
 q, k and v may be strided views, as the chunks of a packed QKV projection
 are: the kernels take each one's batch and row strides. They need a unit
@@ -44,7 +40,6 @@ there. The output and the gradients are fresh contiguous [B, S, H, D].
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 import math
@@ -53,43 +48,13 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from sbgm_danra_tpu_torch.ops import _nvcc
+from sbgm_danra_tpu_torch.ops import _nvcc, launches
 
 SOURCE = _nvcc.CSRC_DIR / "flash_attention.cu"
 HEAD_DIMS = (32, 64, 128)
 VARIANTS = {torch.bfloat16: "tc_bf16", torch.float32: "fp32"}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535  # batch * heads is the grid's y dimension
-
-launches = 0
-launches_by_variant = {name: 0 for name in VARIANTS.values()}
-bwd_launches = 0
-bwd_launches_by_variant = {name: 0 for name in VARIANTS.values()}
-recorded = collections.Counter()  # calls recorded into CUDA graphs: "fwd/<variant>", "bwd/<variant>"
-
-
-def _count(kind: str, variant: str) -> None:
-    """One forward (``kind`` "fwd") or backward ("bwd") call of ``variant`` on
-    the current stream: launches, or, during a capture, a record that the
-    graph's replays count."""
-    if torch.cuda.is_current_stream_capturing():
-        recorded[f"{kind}/{variant}"] += 1
-    else:
-        count_replay({f"{kind}/{variant}": 1})
-
-
-def count_replay(per_replay: dict) -> None:
-    """Add one replay of a graph that holds ``per_replay`` calls (keys as
-    ``recorded``'s) to the launch counts."""
-    global launches, bwd_launches
-    for key, n in per_replay.items():
-        kind, variant = key.split("/")
-        if kind == "fwd":
-            launches += n
-            launches_by_variant[variant] += n
-        else:
-            bwd_launches += n
-            bwd_launches_by_variant[variant] += n
 
 
 class KernelLayout(NamedTuple):
@@ -196,7 +161,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool = 
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
         _nvcc.check_launch(built, rc, "flash attention")
-        _count("fwd", layout.variant)
+        launches.count(f"flash_attention_fwd_{layout.variant}")
     return (out[..., :d].contiguous() if layout.padded else out), lse
 
 
@@ -227,7 +192,7 @@ def _launch_bwd(q, k, v, out, dout, lse):
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
         _nvcc.check_launch(built, rc, "flash attention backward")
-        _count("bwd", layout.variant)
+        launches.count(f"flash_attention_bwd_{layout.variant}")
     if layout.padded:
         return tuple(g[..., :d].contiguous() for g in grads)
     return tuple(grads)

@@ -45,15 +45,9 @@ differs from sample to sample.
   and ``group_norm_apply`` (``gn_apply``'s body under a name of its own, so
   that a trace bills it apart from K1); ``plain_group_norm_stats`` is the
   statistics' plain version, ``plain_gn_apply`` the normalise's.
-- ``conv3x3_stats_launches`` / ``gn_apply_launches``: how many times each
-  kernel was launched in this process; ``conv3x3_stats_sample_bias_launches``
-  how many of the conv kernel's launches took a per-sample bias;
-  ``group_norm_launches`` / ``group_norm_stats_launches`` how many times a
-  standalone GroupNorm's normalise and statistics kernels were launched (keys
-  ``group_norm`` and ``group_norm_stats`` in a graph's launches). A call made
-  while its stream is being captured into a CUDA graph launches nothing: it
-  adds to ``recorded`` instead, and each replay of the graph adds its kernels
-  to the counts (``count_replay``, called by ``capture.Graph.replay``).
+- Each launch is counted in ``ops/launches.py`` under its kernel's name:
+  ``conv3x3_stats`` (also ``conv3x3_stats_sample_bias`` where it takes a
+  per-sample bias), ``gn_apply``, ``group_norm_stats`` and ``group_norm``.
 - ``capture_scope``: what a CUDA graph's capture needs of the wrapper. The
   kernel's ticket counters (one int32 per sample, which the kernel's last
   block of a sample resets) are kept per graph, made during the warm-up on
@@ -70,7 +64,6 @@ through the kernels raises.
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import ctypes
 import functools
@@ -82,7 +75,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from sbgm_danra_tpu_torch.ops import _nvcc
+from sbgm_danra_tpu_torch.ops import _nvcc, launches
 
 SOURCE = _nvcc.CSRC_DIR / "conv3x3_gn.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -107,36 +100,8 @@ _APPLY_BLOCKS_PER_SM = 16  # gn_apply blocks in flight per SM over the whole bat
 _STATS_BLOCKS_PER_SM = 4
 _MAX_CHANNELS = MAX_SHARED_BYTES // 8  # gn_apply keeps 8 bytes per channel in shared memory
 
-conv3x3_stats_launches = 0
-conv3x3_stats_sample_bias_launches = 0
-gn_apply_launches = 0
-group_norm_launches = 0
-group_norm_stats_launches = 0
 _ACTIVATIONS = {False: 0, True: 1, "relu": 1, "silu": 2}  # gn_apply's epilogue codes
-recorded = collections.Counter()  # launches recorded into CUDA graphs, by kernel
 _local = threading.local()  # .scope: (ticket counters, pack hits) of the capture in progress
-
-
-def _count(*names: str) -> None:
-    """One call of kernel ``names[0]`` (and of its variants ``names[1:]``) on
-    the current stream: a launch, or, during a capture, a record that the
-    graph's replays count."""
-    if torch.cuda.is_current_stream_capturing():
-        recorded.update(names)
-    else:
-        count_replay(dict.fromkeys(names, 1))
-
-
-def count_replay(per_replay: dict) -> None:
-    """Add one replay of a graph that holds ``per_replay`` launches of each
-    kernel (by name) to the launch counts."""
-    global conv3x3_stats_launches, conv3x3_stats_sample_bias_launches, gn_apply_launches
-    global group_norm_launches, group_norm_stats_launches
-    conv3x3_stats_launches += per_replay.get("conv3x3_stats", 0)
-    conv3x3_stats_sample_bias_launches += per_replay.get("conv3x3_stats_sample_bias", 0)
-    gn_apply_launches += per_replay.get("gn_apply", 0)
-    group_norm_launches += per_replay.get("group_norm", 0)
-    group_norm_stats_launches += per_replay.get("group_norm_stats", 0)
 
 
 @contextlib.contextmanager
@@ -525,7 +490,8 @@ def conv3x3_stats(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
         )
         if rc != 0:
             _nvcc.check_launch(built, rc, f"conv3x3_stats ({p})")
-        _count("conv3x3_stats", *(() if sample_t is None else ("conv3x3_stats_sample_bias",)))
+        launches.count("conv3x3_stats",
+                       *(() if sample_t is None else ("conv3x3_stats_sample_bias",)))
     return conv, stats
 
 
@@ -574,7 +540,7 @@ def _normalise(conv: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor,
             int(standalone), stream,
         )
         _nvcc.check_launch(built, rc, entry)
-        _count("group_norm" if standalone else "gn_apply")
+        launches.count("group_norm" if standalone else "gn_apply")
     return out
 
 
@@ -628,7 +594,7 @@ def group_norm_stats(x: torch.Tensor, groups: int) -> torch.Tensor:
             x.data_ptr(), scratch.data_ptr(), _ticket_counters(dev, stream, n).data_ptr(),
             stats.data_ptr(), n, h * w, c, groups, _DTYPE_CODES[x.dtype], slots, stream)
         _nvcc.check_launch(built, rc, "group_norm_stats")
-        _count("group_norm_stats")
+        launches.count("group_norm_stats")
     return stats
 
 
@@ -636,7 +602,7 @@ def group_norm_apply(x: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor,
                      beta: torch.Tensor, groups: int, eps: float = 1e-5,
                      activation=False) -> torch.Tensor:
     """The standalone GroupNorm's normalise kernel: ``gn_apply`` launched as
-    ``group_norm_apply_kernel``; counted in ``group_norm_launches``."""
+    ``group_norm_apply_kernel``; counted as ``group_norm``."""
     return _normalise(x, stats, gamma, beta, groups, eps, activation, standalone=True)
 
 

@@ -24,27 +24,20 @@ replication, up to fp32 rounding (it sums in another order).
   C >= 1 (a non-contiguous x is copied first) up to 2^30 of the kernel's
   accesses of x (16-byte vectors; single channels where C or x is off 16
   bytes), beyond which the launch raises; it has no backward.
-- ``launches``: the kernel's launches in this process. A call made while its
-  stream is being captured into a CUDA graph launches nothing: it adds to
-  ``recorded`` instead, and each replay of the graph adds its launches
-  (``count_replay``, called by ``capture.Graph.replay``).
+- Each launch is counted in ``ops/launches.py`` as ``upsample2x``.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 
 import torch
 
-from sbgm_danra_tpu_torch.ops import _nvcc
+from sbgm_danra_tpu_torch.ops import _nvcc, launches
 
 SOURCE = _nvcc.CSRC_DIR / "upsample2x.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-launches = 0
-recorded = collections.Counter()  # launches recorded into CUDA graphs, by kernel
 
 
 def _upsample_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -65,13 +58,6 @@ def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def count_replay(per_replay: dict) -> None:
-    """Add one replay of a graph that holds ``per_replay`` launches (by kernel
-    name) to the launch count."""
-    global launches
-    launches += per_replay.get("upsample2x", 0)
-
-
 @functools.lru_cache(maxsize=1)
 def build_library() -> _nvcc.BuiltLibrary:
     """Compile (once per source and flags) and load the kernel's library."""
@@ -83,7 +69,6 @@ def build_library() -> _nvcc.BuiltLibrary:
 
 
 def _launch(x: torch.Tensor) -> torch.Tensor:
-    global launches
     if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
         where = x.device if isinstance(x, torch.Tensor) else type(x).__name__
         raise ValueError(f"upsample2x_cuda launches a CUDA kernel and needs a CUDA tensor; x is "
@@ -101,10 +86,7 @@ def _launch(x: torch.Tensor) -> torch.Tensor:
                                        _DTYPE_CODES[x.dtype],
                                        torch._C._cuda_getCurrentRawStream(x.device.index))
         _nvcc.check_launch(built, rc, "upsample2x")
-        if torch.cuda.is_current_stream_capturing():
-            recorded["upsample2x"] += 1
-        else:
-            launches += 1
+        launches.count("upsample2x")
     return out
 
 

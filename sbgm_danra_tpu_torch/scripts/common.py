@@ -25,7 +25,7 @@ import torch
 
 from sbgm_danra_tpu_torch import capture
 from sbgm_danra_tpu_torch.ops import cuda_attention as k2
-from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
+from sbgm_danra_tpu_torch.ops import launches
 from sbgm_danra_tpu_torch.sampling import graphs
 
 
@@ -44,10 +44,6 @@ def chunk_generator(device, seed: int, index: int) -> torch.Generator:
     """A generator on ``device`` seeded from ``(seed, index)``."""
     state = np.random.SeedSequence((int(seed), int(index))).generate_state(2, np.uint32)
     return torch.Generator(device).manual_seed(int(state[0]) << 32 | int(state[1]))
-
-
-def _launches() -> tuple:
-    return k1.conv3x3_stats_launches, k1.gn_apply_launches, dict(k2.launches_by_variant)
 
 
 @dataclasses.dataclass
@@ -75,7 +71,7 @@ class RunMeter:
     def __init__(self, score: CountedScore, graph: bool):
         self.score, self.graph = score, graph
         self.run = Run(route="graph" if graph else "eager")
-        self._before = _launches()
+        self._before = launches.snapshot()
 
     def call(self, fn: Callable[[], torch.Tensor]) -> torch.Tensor:
         out = fn()
@@ -99,8 +95,8 @@ class RunMeter:
                 run.pool_bytes = sum(g.pool_bytes for g in held)
         else:
             run.unet_evaluations = self.score.calls
-        after = _launches()
-        run.k1_launches = [after[0] - self._before[0], after[1] - self._before[1]]
-        run.k2_launches_by_variant = {k: v - self._before[2].get(k, 0)
-                                      for k, v in after[2].items()}
+        ran = launches.since(self._before)
+        run.k1_launches = [ran["conv3x3_stats"], ran["gn_apply"]]
+        run.k2_launches_by_variant = {v: ran[f"flash_attention_fwd_{v}"]
+                                      for v in k2.VARIANTS.values()}
         return run

@@ -14,7 +14,7 @@ from sbgm_danra_tpu.ops import flash_attention as jax_fa
 from sbgm_danra_tpu.ops.pallas_attention import pallas_flash_attention
 from sbgm_danra_tpu_torch.convert import state_dict_from_flax
 from sbgm_danra_tpu_torch.models.attention import SpatialSelfAttention
-from sbgm_danra_tpu_torch.ops import _nvcc, cuda_attention
+from sbgm_danra_tpu_torch.ops import _nvcc, cuda_attention, launches
 from sbgm_danra_tpu_torch.ops import flash_attention as fa
 from sbgm_danra_tpu_torch.ops.cuda_attention import (
     KernelLayout,
@@ -98,10 +98,10 @@ class TestCudaEntryPoint:
     def test_raises_on_cpu_tensors(self):
         """The kernel's entry point never computes on the CPU in its stead."""
         q, k, v = map(torch.from_numpy, _qkv(s=64))
-        before = cuda_attention.launches
+        before = launches.snapshot()
         with pytest.raises(ValueError, match="needs CUDA tensors"):
             flash_attention_cuda(q, k, v)
-        assert cuda_attention.launches == before
+        assert not launches.since(before)
 
     def test_build_names_missing_nvcc(self, monkeypatch, tmp_path):
         monkeypatch.setenv("PATH", str(tmp_path))
@@ -139,10 +139,10 @@ class TestCudaEntryPoint:
         raises, and nothing gives way to the plain backward."""
         q, k, v = map(torch.from_numpy, _qkv(s=64))
         ctx = SimpleNamespace(saved_tensors=(q, k, v, q, torch.zeros(2, 2, 64)))
-        before = cuda_attention.bwd_launches
+        before = launches.snapshot()
         with pytest.raises(ValueError, match="needs CUDA tensors"):
             cuda_attention._FlashAttention.backward(ctx, torch.zeros_like(q))
-        assert cuda_attention.bwd_launches == before
+        assert not launches.since(before)
 
 
 def _layout(*tensors):

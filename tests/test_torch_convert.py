@@ -22,12 +22,13 @@ from sbgm_danra_tpu_torch.convert import (
     write_flax_npz,
 )
 from sbgm_danra_tpu_torch.models.unet import ModelSpec, build_score_model
-from tests.torch_parity import (
+from tests.torch_parity import (  # noqa: F401 (one_thread: a module fixture)
     TINY,
     jax_apply,
     jax_model_and_variables,
     jax_to_np,
     model_inputs,
+    one_thread,
     rel_err,
     torch_inputs,
     torch_model,
@@ -192,13 +193,8 @@ def port_trained(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("to_flax"))
     path = _write(root, _trained_cfg(root))
     main_app.main(["--config_path", path, "--mode", "synthetic_data", "--n_days", "16"])
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        with torch.backends.mkldnn.flags(enabled=False):
-            main_app.main(["--config_path", path, "--mode", "train", "--device", "cpu"])
-    finally:
-        torch.set_num_threads(threads)
+    with torch.backends.mkldnn.flags(enabled=False):
+        main_app.main(["--config_path", path, "--mode", "train", "--device", "cpu"])
     npz = os.path.join(root, "w.npz")
     assert convert.main(["--to_flax", "--config_path", path, "--out", npz, "--best"]) == 0
     jax_dir = os.path.join(root, "jax_ckpt")

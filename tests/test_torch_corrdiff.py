@@ -24,7 +24,6 @@ from torch.profiler import ProfilerActivity, profile
 
 from portbench.reference import corrdiff as ref
 from portbench.reference.unet import fake_bf16
-from sbgm_danra_tpu_torch import capture
 from sbgm_danra_tpu_torch.config import from_dict
 from sbgm_danra_tpu_torch.evaluate.corrdiff import SAMPLER, generate
 from sbgm_danra_tpu_torch.models.songunet import (
@@ -37,6 +36,7 @@ from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
 from sbgm_danra_tpu_torch.sampling import samplers as S
 from sbgm_danra_tpu_torch.sde import EDMSDE
 from sbgm_danra_tpu_torch.utils import profiling
+from tests.torch_parity import one_thread  # noqa: F401 (a module fixture)
 
 FULL = json.loads((Path(__file__).resolve().parents[1] / "portbench" / "configs"
                    / "corrdiff-448.json").read_text())
@@ -58,14 +58,6 @@ def spec_of(cfg: dict) -> SongUNetSpec:
         model_channels=m["model_channels"], channel_mult=tuple(m["channel_mult"]),
         num_blocks=m["num_blocks"], attn_resolutions=tuple(m["attn_resolutions"]),
         compute_dtype=m["compute_dtype"])
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)
@@ -291,14 +283,3 @@ def test_k1_refuses_a_bad_sample_bias_or_activation():
         k1.reference_chain(x, kernel, vec, vec, vec, 4, activation="gelu")
 
 
-def test_sample_bias_launch_counter_in_graph_stats():
-    """The per-sample-bias variant's launches: a key of its own in a graph's
-    ``launches_per_replay`` and a count that each replay adds to."""
-    assert capture.kernel_names({"k1/conv3x3_stats": 110, "k1/conv3x3_stats_sample_bias": 110,
-                                 "k1/gn_apply": 110}) == {
-        "conv3x3_stats": 110, "conv3x3_stats_sample_bias": 110, "gn_apply": 110}
-    before = (k1.conv3x3_stats_launches, k1.conv3x3_stats_sample_bias_launches,
-              k1.gn_apply_launches)
-    k1.count_replay({"conv3x3_stats": 3, "conv3x3_stats_sample_bias": 2, "gn_apply": 3})
-    assert (k1.conv3x3_stats_launches, k1.conv3x3_stats_sample_bias_launches,
-            k1.gn_apply_launches) == (before[0] + 3, before[1] + 2, before[2] + 3)

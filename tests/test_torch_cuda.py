@@ -13,6 +13,7 @@ import torch
 from sbgm_danra_tpu_torch.ops import cuda_attention
 from sbgm_danra_tpu_torch.ops import flash_attention as fa
 from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
+from sbgm_danra_tpu_torch.ops import launches
 from sbgm_danra_tpu_torch.ops import upsample as up
 from sbgm_danra_tpu_torch.ops.cuda_attention import flash_attention_cuda, flash_attention_reference
 
@@ -25,6 +26,16 @@ def cuda():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     torch.backends.cuda.matmul.allow_tf32 = False  # full fp32 for the plain version
     return torch.device("cuda")
+
+
+def _k2_ran(before, kind="fwd") -> dict:
+    """K2's ``kind`` ("fwd" or "bwd") launches by variant since the snapshot ``before``."""
+    ran = launches.since(before)
+    return {v: ran[f"flash_attention_{kind}_{v}"] for v in cuda_attention.VARIANTS.values()}
+
+
+def _only(variant) -> dict:
+    return {v: int(v == variant) for v in cuda_attention.VARIANTS.values()}
 
 
 def _qkv(shape, dtype, cuda, seed=0):
@@ -55,9 +66,9 @@ def test_bf16_matches_plain_version(cuda, shape):
     """The tensor-core variant against the fp32 plain version on the same
     bf16-rounded inputs (tolerance: _bf16_tolerance)."""
     q, k, v = _qkv(shape, torch.bfloat16, cuda)
-    before = dict(cuda_attention.launches_by_variant)
+    before = launches.snapshot()
     got = flash_attention_cuda(q, k, v).float()
-    assert cuda_attention.launches_by_variant == {**before, "tc_bf16": before["tc_bf16"] + 1}
+    assert _k2_ran(before) == _only("tc_bf16")
     want = flash_attention_reference(q.float(), k.float(), v.float())
     assert ((got - want).abs() <= _bf16_tolerance(want)).all()
 
@@ -132,9 +143,9 @@ def test_repeated_calls_bit_identical(cuda, dtype):
 @pytest.mark.parametrize("dtype, variant", [(torch.bfloat16, "tc_bf16"), (torch.float32, "fp32")])
 def test_variant_chosen_by_dtype(cuda, dtype, variant):
     q, k, v = _qkv((1, 64, 2, 32), dtype, cuda)
-    before = dict(cuda_attention.launches_by_variant)
+    before = launches.snapshot()
     flash_attention_cuda(q, k, v)
-    assert cuda_attention.launches_by_variant == {**before, variant: before[variant] + 1}
+    assert _k2_ran(before) == _only(variant)
 
 
 def test_rejects_unaligned_bf16_rows(cuda):
@@ -146,10 +157,10 @@ def test_rejects_unaligned_bf16_rows(cuda):
 
 def test_dispatcher_counts_one_launch_per_long_call(cuda):
     q, k, v = _qkv((1, 4096, 2, 32), torch.float32, cuda)
-    before = cuda_attention.launches
+    before = launches.snapshot()
     fa.flash_attention(q, k, v)
     fa.flash_attention(*(x[:, :100] for x in (q, k, v)))  # short: dense attention
-    assert cuda_attention.launches == before + 1
+    assert sum(_k2_ran(before).values()) == 1
 
 
 def test_rejects_mixed_dtypes(cuda):
@@ -406,9 +417,9 @@ def test_k1_sample_bias_silu_matches_plain_version(cuda, shape, dtype):
     x, kernel, bias, gamma, beta = _k1_args(n, h, w, cin, cout, dtype, cuda)
     sample_bias = torch.randn(n, cout, generator=torch.Generator(cuda).manual_seed(9),
                               device=cuda)
-    before = k1.conv3x3_stats_sample_bias_launches
+    before = launches.snapshot()
     conv, stats = k1.conv3x3_stats(x, kernel, bias, 32, sample_bias=sample_bias)
-    assert k1.conv3x3_stats_sample_bias_launches == before + 1
+    assert launches.since(before)["conv3x3_stats_sample_bias"] == 1
     plain_conv, plain_stats = k1.plain_conv3x3_stats(x.float(), kernel.to(dtype), bias.to(dtype),
                                                      32, sample_bias)
     out = k1.gn_apply(conv, stats, gamma, beta, 32, 1e-6, "silu").float()
@@ -470,9 +481,9 @@ def test_corrdiff_evaluation_takes_k1_with_its_sample_bias(cuda):
     x, sigma = torch.randn(2, 16, 16, 1, generator=g), torch.tensor([3.0, 0.02])
     blocks = sum(isinstance(m, UNetBlock) for m in card.residual.modules())
     with torch.no_grad():
-        before = k1.conv3x3_stats_sample_bias_launches
+        before = launches.snapshot()
         got = card.denoise(x.to(cuda), sigma.to(cuda), **{k: v.to(cuda) for k, v in cond.items()})
-        assert k1.conv3x3_stats_sample_bias_launches == before + blocks
+        assert launches.since(before)["conv3x3_stats_sample_bias"] == blocks
         want = cpu.denoise(x, sigma, **cond)
         assert (got.cpu() - want).abs().max() <= 2e-4 * want.abs().max()
         mean = card.mean(**{k: v.to(cuda) for k, v in cond.items()})
@@ -535,13 +546,14 @@ def test_cuda_tensors_never_reach_the_plain_version(cuda, monkeypatch):
 
     monkeypatch.setattr(k1, "reference_chain", refuse)
     args = _k1_args(1, 8, 8, 16, 16, torch.float32, cuda)
-    before = (k1.conv3x3_stats_launches, k1.gn_apply_launches)
+    before = launches.snapshot()
     k1.conv3x3_gn_relu(*args, groups=8)
     block = DecoderBlock(16, 8, time_embedding=16, gn_groups=4).to(cuda)
     with torch.no_grad():
         block(torch.randn(2, 16, 4, 4, device=cuda), torch.randn(2, 8, 8, 8, device=cuda),
               torch.rand(2, device=cuda))
-    assert (k1.conv3x3_stats_launches, k1.gn_apply_launches) == (before[0] + 3, before[1] + 3)
+    ran = launches.since(before)
+    assert (ran["conv3x3_stats"], ran["gn_apply"]) == (3, 3)
 
 
 def test_k1_rejects_mixed_devices(cuda):
@@ -570,9 +582,9 @@ def test_upsample_kernel_equals_the_plain_version(cuda, shape, dtype):
     """The dispatcher launches the kernel once a call, and it equals the plain
     version bit for bit (one channel a thread where C is off the 16-byte vector)."""
     x = _up_x(shape, dtype, cuda)
-    before = up.launches
+    before = launches.snapshot()
     got = up.upsample2x(x)
-    assert up.launches == before + 1
+    assert launches.since(before)["upsample2x"] == 1
     assert got.dtype == dtype and got.shape == (shape[0], 2 * shape[1], 2 * shape[2], shape[3])
     assert torch.equal(got, up.upsample2x_bilinear(x))
 
@@ -614,12 +626,12 @@ def test_decoder_takes_the_upsample_kernel_only_in_evaluation(cuda):
     block = DecoderBlock(16, 8, time_embedding=16, gn_groups=4).to(cuda)
     fmap = torch.randn(2, 16, 4, 6, device=cuda)
     skip, t = torch.randn(2, 8, 8, 12, device=cuda), torch.rand(2, device=cuda)
-    before = up.launches
+    before = launches.snapshot()
     with torch.no_grad():
         block(fmap, skip, t)
-    assert up.launches == before + 1
+    assert launches.since(before)["upsample2x"] == 1
     block(fmap, skip, t, train=True).sum().backward()
-    assert up.launches == before + 1
+    assert launches.since(before)["upsample2x"] == 1
 
 
 # K2's backward (bwd_delta, bwd_dkdv, bwd_dq) and the forward's lse output
@@ -657,10 +669,10 @@ def _check_bwd(shape, dtype, cuda, late_key_scale=None):
         k[:, 4000:] *= late_key_scale
     g = torch.Generator(cuda).manual_seed(4)
     dout = torch.randn(shape, generator=g, device=cuda).to(dtype)
-    before = dict(cuda_attention.bwd_launches_by_variant)
+    before = launches.snapshot()
     out, got = _kernel_grads(q, k, v, dout)
     variant = "tc_bf16" if dtype == torch.bfloat16 else "fp32"
-    assert cuda_attention.bwd_launches_by_variant == {**before, variant: before[variant] + 1}
+    assert _k2_ran(before, "bwd") == _only(variant)
     _, again = _kernel_grads(q, k, v, dout)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     lse = cuda_attention.attention_lse(q, k)
@@ -712,12 +724,12 @@ def test_bwd_one_call_is_one_launch_of_its_variant(cuda, dtype):
     variant = "tc_bf16" if dtype == torch.bfloat16 else "fp32"
     for _ in range(3):
         out = flash_attention_cuda(q, k, v)
-        before = dict(cuda_attention.bwd_launches_by_variant)
+        before = launches.snapshot()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             out.backward(torch.ones_like(out))
             torch.cuda.synchronize()
-        assert cuda_attention.bwd_launches_by_variant == {**before, variant: before[variant] + 1}
+        assert _k2_ran(before, "bwd") == _only(variant)
         device = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
         if device:
             break
@@ -957,7 +969,7 @@ def test_sampler_graph_with_draws_takes_each_calls_conditioning(cuda, monkeypatc
 
 def test_graph_launch_counts_per_replay(cuda, monkeypatch):
     """A graph records K1's, K2's and the upsample's launches at capture and
-    adds them to the wrappers' counts at every replay: one replay counts what
+    adds them to the launch counts at every replay: one replay counts what
     one eager call launches (8 K1 chains, one K2 per attention layer and 5
     upsamples per evaluation)."""
     from sbgm_danra_tpu_torch import capture
@@ -971,8 +983,9 @@ def test_graph_launch_counts_per_replay(cuda, monkeypatch):
     cond = _card_cond(2, shape[1:3], cuda, 5)
 
     def counts():
-        return (k1.conv3x3_stats_launches, k1.gn_apply_launches, cuda_attention.launches,
-                up.launches)
+        c = launches.counts
+        return (c["conv3x3_stats"], c["gn_apply"],
+                c["flash_attention_fwd_tc_bf16"] + c["flash_attention_fwd_fp32"], c["upsample2x"])
 
     with torch.inference_mode():
         before = counts()

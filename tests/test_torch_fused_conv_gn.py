@@ -19,6 +19,7 @@ from sbgm_danra_tpu.ops import fused_conv_gn as jax_k1
 from sbgm_danra_tpu_torch.convert import state_dict_from_flax
 from sbgm_danra_tpu_torch.models.unet import DecoderBlock
 from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
+from sbgm_danra_tpu_torch.ops import launches
 from profile_port import CHAINS_128, CHAINS_FULL, K1_RAGGED
 from tests.torch_parity import random_variables, rel_err
 
@@ -78,11 +79,11 @@ class TestConv3x3GN:
 
     def test_cpu_tensor_takes_the_plain_version(self):
         args = [torch.from_numpy(a) for a in _inputs((2, 8, 8, 16), 16, seed=3)]
-        before = (k1.conv3x3_stats_launches, k1.gn_apply_launches)
+        before = launches.snapshot()
         got = k1.conv3x3_gn_relu(*args, groups=4, activation=False)
         torch.testing.assert_close(got, k1.reference_chain(*args, groups=4, activation=False),
                                    rtol=0, atol=0)
-        assert (k1.conv3x3_stats_launches, k1.gn_apply_launches) == before
+        assert not launches.since(before)
 
     def test_kernel_entry_point_refuses_cpu_tensors(self):
         args = [torch.from_numpy(a) for a in _inputs((1, 8, 8, 8), 8, seed=4)]

@@ -25,6 +25,7 @@ from sbgm_danra_tpu_torch import capture
 from sbgm_danra_tpu_torch.models import songunet
 from sbgm_danra_tpu_torch.models.songunet import CorrDiff, GroupNorm, SongUNetSpec, UNetBlock
 from sbgm_danra_tpu_torch.ops import fused_conv_gn as k1
+from sbgm_danra_tpu_torch.ops import launches
 
 ROOT = Path(__file__).resolve().parents[1]
 FULL = json.loads((ROOT / "portbench" / "configs" / "corrdiff-448.json").read_text())
@@ -118,27 +119,6 @@ def test_published_nets_run_62_group_norms_an_evaluation():
         net.denoise(x, torch.ones(1), **cond, train=True)
     assert len(calls) == _standalone_norms(net.residual) == 62
     assert 34 * len(calls) == 2108
-
-
-def _gn_counts():
-    return (k1.group_norm_launches, k1.group_norm_stats_launches, k1.gn_apply_launches,
-            k1.conv3x3_stats_launches)
-
-
-def test_group_norm_counter_in_graph_stats():
-    """``group_norm`` and ``group_norm_stats``: keys of their own in a graph's
-    ``launches_per_replay``, each added per replay to its own count and to no
-    K1 count."""
-    assert capture.kernel_names({"k1/conv3x3_stats": 1870, "k1/gn_apply": 1870,
-                                 "k1/group_norm": 2108, "k1/group_norm_stats": 2108}) == {
-        "conv3x3_stats": 1870, "gn_apply": 1870, "group_norm": 2108, "group_norm_stats": 2108}
-    before = _gn_counts()
-    k1.count_replay({"group_norm": 2108})
-    assert _gn_counts() == (before[0] + 2108, *before[1:])
-    k1.count_replay({"group_norm_stats": 2108})
-    assert _gn_counts() == (before[0] + 2108, before[1] + 2108, *before[2:])
-    k1.count_replay({"gn_apply": 3})
-    assert _gn_counts()[:2] == (before[0] + 2108, before[1] + 2108)
 
 
 def _kernels(source: str) -> dict:
@@ -251,9 +231,9 @@ def test_kernels_match_f_group_norm(cuda, case, dtype, activation):
     x = (mean + torch.randn(shape, generator=g, device=cuda)).to(dtype)
     gamma = 1.0 + 0.1 * torch.randn(c, generator=g, device=cuda)
     beta = 0.1 * torch.randn(c, generator=g, device=cuda)
-    before = _gn_counts()
+    before = launches.snapshot()
     got = k1.group_norm_cuda(x, gamma, beta, groups, EPS, activation)
-    assert _gn_counts() == (before[0] + 1, before[1] + 1, *before[2:])
+    assert launches.since(before) == {"group_norm": 1, "group_norm_stats": 1}
     assert got.dtype == dtype and got.shape == x.shape and got.is_contiguous()
     assert torch.equal(k1.group_norm_cuda(x, gamma, beta, groups, EPS, activation), got)
     want = _f_group_norm(x, gamma, beta, groups, activation)
@@ -319,10 +299,12 @@ def test_corrdiff_on_the_card_takes_the_kernels(cuda):
     x, sigma = torch.randn(2, 16, 16, 1, generator=g), torch.tensor([3.0, 0.02])
     norms = _standalone_norms(card.residual)
     with exact(), torch.no_grad():
-        before = _gn_counts()
+        before = launches.snapshot()
         got = card.denoise(x.to(cuda), sigma.to(cuda), **on_card)
         blocks = sum(isinstance(m, UNetBlock) for m in card.residual.modules())
-        assert _gn_counts()[:3] == (before[0] + norms, before[1] + norms, before[2] + blocks)
+        ran = launches.since(before)
+        assert (ran["group_norm"], ran["group_norm_stats"], ran["gn_apply"]) == (norms, norms,
+                                                                                 blocks)
         want = cpu.denoise(x, sigma, **cond)
         assert (got.cpu() - want).abs().max() <= 2e-4 * want.abs().max()
         mean = card.mean(**on_card).cpu()
@@ -342,8 +324,9 @@ def test_corrdiff_on_the_card_takes_the_kernels(cuda):
     assert per["group_norm"] == per["group_norm_stats"] == 34 * norms
     assert per["gn_apply"] == 34 * blocks
     assert graph["replays"] >= 2
-    before = _gn_counts()
+    before = launches.snapshot()
     out = card.denoise(x.to(cuda), sigma.to(cuda), **on_card, train=True)
     out.sum().backward()
-    assert _gn_counts()[:2] == before[:2]
+    ran = launches.since(before)
+    assert ran["group_norm"] == ran["group_norm_stats"] == 0
     assert card.residual.dec["16x16_aux_norm"].weight.grad is not None

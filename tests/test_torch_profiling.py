@@ -22,6 +22,7 @@ from sbgm_danra_tpu.utils import profiling as jax_profiling
 from sbgm_danra_tpu_torch.config import from_dict
 from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
 from sbgm_danra_tpu_torch.utils import profiling
+from tests.torch_parity import one_thread  # noqa: F401 (a module fixture)
 
 
 @pytest.fixture(autouse=True)
@@ -30,16 +31,6 @@ def _onednn_off():
     CPU (ROADMAP F5)."""
     with torch.backends.mkldnn.flags(enabled=False):
         yield
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for the module (restored after): the suite's
-    workers share the cores (see ``tests/test_torch_windowed.py``)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class FakeClock:

@@ -27,6 +27,7 @@ from sbgm_danra_tpu_torch.config import load_config
 from sbgm_danra_tpu_torch.scripts import edm_quality_study, flagship_quality_eval
 from sbgm_danra_tpu_torch.scripts import full_domain_quality_eval as fdq
 from sbgm_danra_tpu_torch.transforms import back_transforms_for_config
+from tests.torch_parity import one_thread  # noqa: F401 (a module fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REL = 1e-6
@@ -39,16 +40,6 @@ def _jax_script(name: str):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for the module (restored after): the suite's
-    workers share the cores (see ``tests/test_torch_windowed.py``)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

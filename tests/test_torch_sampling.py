@@ -20,10 +20,11 @@ from sbgm_danra_tpu_torch.sampling.samplers import (
     ode_sampler,
     pc_sampler,
 )
-from tests.torch_parity import (
+from tests.torch_parity import (  # noqa: F401 (one_thread: a module fixture)
     TINY,
     jax_model_and_variables,
     model_inputs,
+    one_thread,
     rel_err,
     torch_inputs,
     torch_model,

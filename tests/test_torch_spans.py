@@ -27,23 +27,13 @@ from sbgm_danra_tpu_torch.serve import InferenceEngine, ServeSettings
 from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
 from sbgm_danra_tpu_torch.utils import profiling
 from tests.test_torch_data import config_dict, spec_for
-from tests.torch_parity import TINY
+from tests.torch_parity import TINY, one_thread  # noqa: F401 (a module fixture)
 
 HW = (32, 32)
 SETTINGS = ServeSettings(spec=ModelSpec(**TINY), sampler_type="dpmpp_sampler",
                          sampler=SamplerConfig(num_steps=2, guidance_scale=3.0), sample_hw=HW,
                          n_lr=2, model_string="tiny")
 DOMAIN = (40, 50)  # padded to 64x64
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for the module (restored after): the suite's
-    workers share the cores (see ``tests/test_torch_windowed.py``)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)

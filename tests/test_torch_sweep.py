@@ -26,6 +26,7 @@ from sbgm_danra_tpu.sweep import study as jax_study
 from sbgm_danra_tpu_torch.sweep import run_sweep as rs
 from sbgm_danra_tpu_torch.sweep import study
 from tests.test_torch_data import config_dict, spec_for
+from tests.torch_parity import one_thread  # noqa: F401 (a module fixture)
 
 
 @pytest.fixture(autouse=True)
@@ -34,17 +35,6 @@ def _onednn_off():
     CPU (ROADMAP F5)."""
     with torch.backends.mkldnn.flags(enabled=False):
         yield
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for the module (restored after): the suite's
-    workers share the cores, and spinning threads slow the others' small ops
-    (see ``tests/test_torch_windowed.py``)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _objective(trial):

@@ -47,6 +47,7 @@ from sbgm_danra_tpu_torch.training.pipeline import TrainingPipeline
 from tests.test_torch_data import config_dict, spec_for
 from tests.test_torch_device_data import BATCH, DROP, KEYS, jax_draws
 from tests.test_torch_training import TRAIN
+from tests.torch_parity import one_thread  # noqa: F401 (a module fixture)
 
 WINDOW = 3
 
@@ -59,21 +60,14 @@ def _onednn_off():
         yield
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _first_sqrt_then_one_thread():
+@pytest.fixture(scope="session", autouse=True)
+def _first_sqrt():
     """This CPU build's first float32 ``torch.sqrt`` of a process, on several
     threads at once, returns ~12-bit results in some elements (ROADMAP F14, a
     test-environment fault like F5; the card computes its own sqrt): one call
-    first, so that the SDF comparisons below see the exact sqrt. Then one
-    intra-op thread for the module (restored after): the suite's workers
-    share the cores, and spinning threads slow the others' small ops (the
-    rk45 parity test: 28 s alone, 107-205 s beside one process of these
-    tests)."""
+    first, so that the SDF comparisons below see the exact sqrt. Session
+    scope: it runs before the module's switch to one thread (``one_thread``)."""
     torch.sqrt(torch.rand(16, 32, 32))
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

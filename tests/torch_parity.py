@@ -10,6 +10,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from sbgm_danra_tpu.models.unet import ModelSpec as JaxSpec
@@ -20,6 +21,18 @@ from sbgm_danra_tpu_torch.models.unet import ModelSpec, build_score_model
 # the tiny flagship of __graft_entry__._spec(tiny=True)
 TINY = dict(in_channels=6, num_classes=4, last_fmap_channels=64, time_embedding=32,
             num_heads=2, block_layers=(1, 1, 1, 1))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for each module that imports this fixture
+    (restored after): the suite's workers share the cores, and spinning
+    threads slow the others' small ops (the rk45 parity test: 28 s alone,
+    107-205 s beside one process of these tests)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def model_inputs(batch: int = 2, hw=(32, 32), seed: int = 0) -> dict:
